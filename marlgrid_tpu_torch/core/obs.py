@@ -1,0 +1,276 @@
+"""Batched egocentric 'encode' observations (SPEC §7, PyTorch port).
+
+Counterpart of the encode path of ``marlgrid_tpu/core/obs.py``: the
+batch-minor ``*_b`` functions. The window extraction reads the flat packed
+board with one gather per env (the JAX package uses a one-hot einsum pair
+because TPU gathers serialize; int32 is exact where JAX goes through f32,
+all packed values being < 2**24), then the ``(B, K) -> (K, B)`` layout swap
+goes through the transpose kernel (ops/transpose.py). Occlusion is the same
+closed-form per-column reachability as ``process_vis_b``. Image and rich
+observations wait for the pixels slice (ROADMAP Slice C).
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..device import const
+from . import constants as C
+from .state import EnvParams, EnvState
+
+# Cell packing: one int carries (type, color, state) plus the agent overlay
+# (see pack_grid_with_agents).
+_PACK_C = C.N_TYPES          # color multiplier
+_PACK_S = C.N_TYPES * 16     # state multiplier (color < 16)
+_PACK_A = 32768              # agent-overlay field (cell bits < 32768)
+_WALL = C.WALL + _PACK_C * C.COLOR_TO_IDX["grey"]
+
+
+@functools.lru_cache(maxsize=None)
+def rel_offsets(view_size: int, view_offset: int) -> np.ndarray:
+    """(4, vs, vs, 2) world-coordinate offsets of each view cell (SPEC §7).
+
+    View cell (vi, vj) of an agent at pos p facing d shows world cell
+    ``p + (aj - vj) * DIR_VEC[d] + (vi - c) * DIR_VEC[(d+1) % 4]`` with
+    c = vs//2, aj = vs-1-view_offset.
+    """
+    vs = view_size
+    c, aj = vs // 2, vs - 1 - view_offset
+    out = np.zeros((4, vs, vs, 2), np.int32)
+    for d in range(4):
+        up = C.DIR_VEC[d]
+        right = C.DIR_VEC[(d + 1) % 4]
+        for vi in range(vs):
+            for vj in range(vs):
+                out[d, vi, vj] = (aj - vj) * up + (vi - c) * right
+    return out
+
+
+def pack_grid(state: EnvState) -> torch.Tensor:
+    """(B, W*H) int32 packed board: type + 11*color + 176*state."""
+    return (state.grid_type.to(torch.int32)
+            + _PACK_C * state.grid_color.to(torch.int32)
+            + _PACK_S * state.grid_state.to(torch.int32))
+
+
+def apply_hidden(params: EnvParams, vt, vc, vst):
+    """Blank out hidden object types (visual-only: callers compute
+    transparency from the raw layers before applying this)."""
+    for t in params.hide_item_types:
+        h = vt == t
+        vt = torch.where(h, C.EMPTY, vt)
+        vc = torch.where(h, 0, vc)
+        vst = torch.where(h, 0, vst)
+    return vt, vc, vst
+
+
+def _observer_agents(bstate: EnvState, observers):
+    """(B, n, 2) pos + (B, n) dir of the observing agents — all of them
+    (observers=None) or a static index subset."""
+    if observers is None:
+        return bstate.agent_pos, bstate.agent_dir
+    idx = const(observers, torch.int64, bstate.agent_pos.device)
+    return bstate.agent_pos[:, idx], bstate.agent_dir[:, idx]
+
+
+def _offsets(params: EnvParams, device) -> torch.Tensor:
+    return const(rel_offsets(params.view_size, params.view_offset),
+                 torch.int32, device)
+
+
+def view_coords_bminor(params: EnvParams, bstate: EnvState, observers=None):
+    """(n, vs, vs, B) world x, world y, in-bounds — batch-minor."""
+    offs = _offsets(params, bstate.agent_pos.device)    # (4, vs, vs, 2)
+    apos, adir = _observer_agents(bstate, observers)
+    sel = offs[adir.T.long()].permute(0, 2, 3, 1, 4)    # (n, vs, vs, B, 2)
+    wx = sel[..., 0] + apos[..., 0].T[:, None, None, :]
+    wy = sel[..., 1] + apos[..., 1].T[:, None, None, :]
+    inb = ((wx >= 0) & (wx < params.width)
+           & (wy >= 0) & (wy < params.height))
+    return wx, wy, inb
+
+
+def pack_grid_with_agents(params: EnvParams,
+                          bstate: EnvState) -> torch.Tensor:
+    """(B, W*H) int32 packed board WITH the agent overlay painted in:
+    value = cell + _PACK_A*(1 + color*4 + absdir). (The image path's
+    prestige-level field comes with ROADMAP Slice C.)
+
+    Painted high-index-first so the lowest agent index wins a shared cell
+    (ghost-mode stacking, SPEC §7); inactive agents hidden when ghost_mode.
+    """
+    N = params.n_agents
+    WH = params.width * params.height
+    dev = bstate.agent_pos.device
+    flat = (bstate.agent_pos[..., 0] * params.height
+            + bstate.agent_pos[..., 1])                       # (B, N)
+    shown = bstate.active if params.ghost_mode \
+        else torch.ones_like(bstate.active)
+    plane = torch.zeros((flat.shape[0], WH), dtype=torch.int32, device=dev)
+    cells = torch.arange(WH, device=dev)
+    for j in reversed(range(N)):           # lowest index paints last/wins
+        sel = (flat[:, j:j + 1] == cells) & shown[:, j:j + 1]
+        val = (1 + params.agent_colors[j] * 4) + bstate.agent_dir[:, j:j + 1]
+        plane = torch.where(sel, val, plane)
+    return pack_grid(bstate) + plane * _PACK_A
+
+
+def extract_views_b(params: EnvParams, bstate: EnvState, wx, wy, inb,
+                    packed=None, observers=None) -> torch.Tensor:
+    """Packed view values for all envs/agents: (n, vs, vs, B) int32; OOB
+    cells read as grey wall (SPEC §7).
+
+    One gather of the flat packed board gives the (B, K) B-major values,
+    K = n*vs*vs; the transpose kernel swaps them batch-minor.
+    """
+    from ..ops import transpose_bk
+
+    vs = params.view_size
+    W, H = params.width, params.height
+    B = bstate.grid_type.shape[0]
+    apos, adir = _observer_agents(bstate, observers)
+    n = apos.shape[1]
+    offs = _offsets(params, apos.device).reshape(4, vs * vs, 2)
+    sel = offs[adir.long()]                               # (B, n, vs*vs, 2)
+    wxB = (apos[..., 0:1] + sel[..., 0]).reshape(B, n * vs * vs)
+    wyB = (apos[..., 1:2] + sel[..., 1]).reshape(B, n * vs * vs)
+    idx = (wxB.clamp(0, W - 1) * H + wyB.clamp(0, H - 1)).long()
+    g = pack_grid(bstate) if packed is None else packed
+    vals = g.gather(1, idx)                               # (B, K) int32
+    pv = transpose_bk(vals).reshape(n, vs, vs, B)
+    return torch.where(inb, pv, _WALL)
+
+
+def all_view_cells_b(params: EnvParams, bstate: EnvState, observers=None,
+                     packed=None):
+    """Batched view cells, all outputs (n, vs, vs, B) batch-minor: type,
+    color, state, agent-present, agent color and relative agent dir,
+    decoded from the extraction of the agent-painted board."""
+    wx, wy, inb = view_coords_bminor(params, bstate, observers)
+    if packed is None:
+        packed = pack_grid_with_agents(params, bstate)
+    pv = extract_views_b(params, bstate, wx, wy, inb, packed, observers)
+    low = pv % _PACK_A
+    vt = low % _PACK_C
+    vc = (low // _PACK_C) % 16
+    vst = low // _PACK_S
+    ab = pv // _PACK_A
+    A = ab % 64
+    any_agent = A > 0
+    acolor = torch.where(any_agent, (A - 1) // 4, 0)
+    _, adir = _observer_agents(bstate, observers)
+    dobs = adir.T[:, None, None, :]                 # observer dir (n,1,1,B)
+    reldir = torch.where(any_agent, ((A - 1) % 4 - dobs + 3) % 4, 0)
+    return vt, vc, vst, any_agent, acolor, reldir
+
+
+def transparency_b(vt, vst):
+    """see_behind per view cell — only walls and non-open doors block."""
+    return ~((vt == C.WALL) | ((vt == C.DOOR) & (vst != C.DOOR_OPEN)))
+
+
+def process_vis_b(t, view_size: int, view_offset: int) -> torch.Tensor:
+    """Occlusion mask (minigrid flood, SPEC §7) of a (n, vs, vs, B)
+    transparency grid indexed [., vi, vj, .].
+
+    Per view column, from the agent's row outward: a left-pass reaches i
+    from a seed k <= i iff t[k..i-1] are all transparent, i.e. the prefix
+    opaque-counts agree — a prefix max; the right-pass is the mirrored
+    suffix min.
+    """
+    vs = view_size
+    c, aj = vs // 2, vs - 1 - view_offset
+    n, B = t.shape[0], t.shape[3]
+    dev = t.device
+    ii = torch.arange(vs, device=dev)
+    not_last = (ii != vs - 1)[None, :, None]       # (1, vs, 1)
+    not_first = (ii != 0)[None, :, None]
+    init_col = (ii == c)[None, :, None]
+
+    cols = [None] * vs
+    pending = torch.zeros((n, vs, B), dtype=torch.bool, device=dev)
+    for vj in range(vs - 1, -1, -1):
+        m = pending | init_col if vj == aj else pending
+        trow = t[:, :, vj]                         # (n, vs, B)
+        opaque = (~trow).to(torch.int32)
+        cs = torch.cumsum(opaque, dim=1, dtype=torch.int32)
+        cs0 = cs - opaque
+        q = torch.where(m, cs0, -1)
+        rL = torch.cummax(q, dim=1)[0] == cs0
+        condL = rL & trow & not_last
+        upL = condL | (torch.roll(condL, 1, dims=1) & not_first)
+        r = torch.where(rL, cs, 127)
+        rR = torch.cummin(r.flip(1), dim=1)[0].flip(1) == cs
+        condR = rR & trow & not_first
+        upR = condR | (torch.roll(condR, -1, dims=1) & not_last)
+        cols[vj] = rR
+        pending = upL | upR
+    return torch.stack(cols, dim=2)                # (n, vs, vs, B)
+
+
+def all_obs_encode_b(params: EnvParams, bstate: EnvState, bminor=False,
+                     observers=None, packed=None) -> torch.Tensor:
+    """Batched 'encode' obs — bit-equal to the JAX ``all_obs_encode_b``.
+
+    ``bminor=False``: (B, n, vs, vs, 3) int32; ``bminor=True``:
+    (3, n, vs, vs, B) int32, the layout the feature-major policy consumes.
+    ``observers``: static agent-index subset that observes (the painted
+    board still carries every agent); ``packed``: a precomputed
+    ``pack_grid_with_agents`` board.
+    """
+    vt, vc, vst, any_agent, acolor, reldir = all_view_cells_b(
+        params, bstate, observers=observers, packed=packed)
+    hvt, hvc, hvst = apply_hidden(params, vt, vc, vst)
+    ot = torch.where(any_agent, C.AGENT, hvt)
+    oc = torch.where(any_agent, acolor, hvc)
+    os_ = torch.where(any_agent, reldir, hvst)
+    if not params.see_through_walls:
+        vis = process_vis_b(transparency_b(vt, vst), params.view_size,
+                            params.view_offset)
+        ot, oc, os_ = (torch.where(vis, a, 0) for a in (ot, oc, os_))
+    out = torch.stack([ot, oc, os_], dim=0).to(torch.int32)
+    if bminor:
+        return out
+    return out.permute(4, 1, 2, 3, 0)
+
+
+def all_agent_obs_b(params: EnvParams, bstate: EnvState, bminor=False):
+    """Batched obs for a batch-leading state; the encode style only."""
+    if params.observation_style != "encode":
+        raise NotImplementedError(
+            f"observation_style={params.observation_style!r}: image and "
+            f"rich observations are ported with the pixels slice (ROADMAP "
+            f"Slice C)")
+    return all_obs_encode_b(params, bstate, bminor=bminor)
+
+
+def encode_palettes(params: EnvParams):
+    """Static per-plane code vocabularies of the 'encode' observation for
+    this scenario — ((types…), (colors…), (states…)) sorted tuples, or
+    None when the scenario has no registered palette (the JAX package's
+    ``encode_palettes``; used by models.OneHotEmbed(palettes=…), where a
+    code outside the vocabulary gives a zero row)."""
+    from .grid_gen import SCENARIO_PALETTES
+
+    pal = SCENARIO_PALETTES.get(params.scenario)
+    if pal is None:
+        return None
+    hidden = set(params.hide_item_types)
+    types = {C.EMPTY, C.WALL, C.AGENT}
+    colors = {0, C.COLOR_TO_IDX["grey"]}
+    states = {0, 1, 2, 3}
+    for (t, c, s) in pal:
+        if t in hidden:
+            continue
+        types.add(t)
+        colors.add(c)
+        states.add(s)
+        if t == C.BONUS:
+            states |= set(range(params.n_bonus_tiles))
+        if t == C.GOAL:
+            states |= set(range(max(1, len(params.goal_rewards))))
+    colors |= set(params.agent_colors)
+    return (tuple(sorted(types)), tuple(sorted(colors)),
+            tuple(sorted(states)))

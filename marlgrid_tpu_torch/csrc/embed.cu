@@ -1,0 +1,143 @@
+// onehot_embed forward: the encode-obs torso's first layer, on Hopper
+// (sm_90a).
+//
+// Replaces the forward TPU kernel marlgrid_tpu/ops/embed.py::onehot_embed
+// (_fwd / _kernel(bwd=False)). It computes, for every row r and sample s,
+//   out[r, s, :] = sum over features f = p*cells + j of W[j, slot_p(code)]
+// where code = codes[r, f, s], slot_p maps plane p's code to its row in the
+// cell's (cw, H) table or to "no row" (out-of-vocabulary), and the sum is
+// taken in float32 and rounded once to bf16 (round to nearest even).
+//
+// Bound on an H100 SXM, at the rollout's shapes (R = 4 agents, F = 147,
+// S = 4096 samples, H = 128): bytes are codes in (2.4 MB), the table in
+// (at most 49 * 42 * 128 * 2 = 527 KB) and the bf16 output (4.2 MB), about
+// 2 us at 3.35 TB/s; the float32 adds, one per in-vocabulary code per
+// hidden unit (at most 308 M), take about 4.6 us at 67 TFLOP/s. So the
+// function is bound by its adds, then by its bytes.
+//
+// Design: the TPU kernel builds one-hot tiles because its matrix unit wants
+// a matmul; mathematically the one-hot product is a gather-sum, and that is
+// what this kernel does. One block per (row r, tile of TS samples). The
+// block reads the tile's codes once, as bytes, maps each through a
+// per-plane code -> slot table (3 x 256, in shared memory; the full
+// vocabulary clips state codes to 19 and gives type/color codes past their
+// width no row, a compact palette gives out-of-vocabulary codes no row),
+// and keeps the W row index of every (feature, sample) in shared memory.
+// Threads run over pairs of hidden units (bf16x2 loads: a warp reads 128
+// contiguous bytes of one table row) and over SPT samples each, summing in
+// float32 registers. The table is small enough to stay in L2 and, one
+// cell at a time, in L1. No one-hot operand exists anywhere.
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kSpt = 4;          // samples per thread
+constexpr int kLut = 3 * 256;    // code -> slot, per plane
+constexpr int kStaticSmem = 48 * 1024;
+constexpr int kMaxSmem = 227 * 1024;
+
+__global__ void onehot_embed_fwd_kernel(
+    const uint8_t* __restrict__ codes,        // (R, F, S)
+    const __nv_bfloat162* __restrict__ w,     // (cells * cw, H / 2)
+    const int16_t* __restrict__ lut,          // (3, 256)
+    __nv_bfloat162* __restrict__ out,         // (R, S, H / 2)
+    int F, int S, int cells, int cw, int H2) {
+  extern __shared__ int32_t rows[];           // (F, TS) W row or -1
+  __shared__ int16_t slut[kLut];
+  const int ts = blockDim.y * kSpt;
+  const int r = blockIdx.y;
+  const int s0 = blockIdx.x * ts;
+  const int nthreads = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+
+  for (int i = tid; i < kLut; i += nthreads) slut[i] = lut[i];
+  __syncthreads();
+
+  const uint8_t* xr = codes + static_cast<size_t>(r) * F * S;
+  for (int i = tid; i < F * ts; i += nthreads) {
+    const int f = i / ts;
+    const int s = i - f * ts;
+    int row = -1;
+    if (s0 + s < S) {
+      const int p = f / cells;
+      const int j = f - p * cells;
+      const int slot = slut[p * 256 + xr[static_cast<size_t>(f) * S + s0 + s]];
+      row = slot < 0 ? -1 : j * cw + slot;
+    }
+    rows[i] = row;
+  }
+  __syncthreads();
+
+  const int h2 = threadIdx.x;
+  float2 acc[kSpt];
+#pragma unroll
+  for (int k = 0; k < kSpt; ++k) acc[k] = make_float2(0.f, 0.f);
+  for (int f = 0; f < F; ++f) {
+    const int32_t* rf = rows + f * ts + threadIdx.y;
+#pragma unroll
+    for (int k = 0; k < kSpt; ++k) {
+      const int row = rf[k * blockDim.y];
+      if (row >= 0) {
+        const float2 v =
+            __bfloat1622float2(w[static_cast<size_t>(row) * H2 + h2]);
+        acc[k].x += v.x;
+        acc[k].y += v.y;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kSpt; ++k) {
+    const int s = s0 + threadIdx.y + k * blockDim.y;
+    if (s < S) {
+      out[(static_cast<size_t>(r) * S + s) * H2 + h2] =
+          __floats2bfloat162_rn(acc[k].x, acc[k].y);
+    }
+  }
+}
+
+}  // namespace
+
+// codes (R, F, S) uint8, w (cells * cw, H) bf16, lut (3, 256) int16 slot or
+// -1, out (R, S, H) bf16; all contiguous on `device`, H even,
+// F == 3 * cells. Launches on `stream`; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape the kernel does not take.
+extern "C" int onehot_embed_fwd(const void* codes, const void* w,
+                                const void* lut, void* out, int R, int F,
+                                int S, int cells, int cw, int H, int device,
+                                void* stream) {
+  // this library links its own CUDA runtime: select the tensors' device
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if (R <= 0 || S <= 0) return static_cast<int>(cudaGetLastError());
+  const int h2 = H / 2;
+  if (H % 2 != 0 || h2 < 1 || h2 > 1024 || F != 3 * cells || R > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int by = h2 >= 256 ? 1 : 256 / h2;
+  size_t smem = static_cast<size_t>(F) * by * kSpt * sizeof(int32_t);
+  while (smem > kStaticSmem && by > 1) {
+    by /= 2;
+    smem = static_cast<size_t>(F) * by * kSpt * sizeof(int32_t);
+  }
+  if (smem + kLut * sizeof(int16_t) > kMaxSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem > kStaticSmem) {
+    cudaFuncSetAttribute(onehot_embed_fwd_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  const int ts = by * kSpt;
+  const dim3 block(h2, by);
+  const dim3 grid((S + ts - 1) / ts, R);
+  onehot_embed_fwd_kernel<<<grid, block, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(codes),
+      static_cast<const __nv_bfloat162*>(w),
+      static_cast<const int16_t*>(lut), static_cast<__nv_bfloat162*>(out),
+      F, S, cells, cw, h2);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -6,7 +6,11 @@ setup(
     version="0.1.0",
     description=("TPU-native multi-agent gridworld RL framework "
                  "(marlgrid capabilities, JAX/XLA re-design)"),
-    packages=find_packages(include=["marlgrid_tpu", "marlgrid_tpu.*"]),
+    packages=find_packages(include=["marlgrid_tpu", "marlgrid_tpu.*",
+                                    "marlgrid_tpu_torch",
+                                    "marlgrid_tpu_torch.*"]),
+    # the PyTorch port's CUDA sources, compiled by nvcc at first use
+    package_data={"marlgrid_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -17,5 +21,6 @@ setup(
         "gymnasium",
         "imageio",
     ],
-    extras_require={"test": ["pytest", "hypothesis", "chex"]},
+    extras_require={"test": ["pytest", "hypothesis", "chex"],
+                    "torch": ["torch"]},
 )
