@@ -10,18 +10,30 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    in parallel) and print the build seconds and ptxas' report;
 2. K1 (transpose_bk) against its plain version, bit-exact;
 3. K2f (onehot_embed forward) against its plain version computed in
-   float32 and rounded to bf16, within 1 bf16 ulp;
+   float32 and rounded to bf16, within 1 bf16 ulp; K2b (its weight
+   gradient) against its plain version at the update's shape, both fed the
+   same bf16 dout, within 1e-3 of max |dW|, deterministic, and reached
+   through the embed's autograd Function;
 4. the env engine and the observations on the card against the same code
-   on the CPU (which the tests hold bit-equal to the JAX package), and the
-   policy's logits on the card against the CPU's;
-5. the main path: a PPO rollout at the train default's full width
+   on the CPU (which the tests hold bit-equal to the JAX package), the
+   policy's logits on the card against the CPU's, and a small float32
+   train step: the card's rollout and update against the CPU's update of
+   the same trajectory from the same weights;
+5. the rollout path: a PPO rollout at the train default's full width
    (goal_cycle 13x13, 4 agents, 7x7 encode, B = 4096, T = 64, hidden 128,
    board pool 256, stagger, the compact embed palettes) through
-   ``make_rollout``, with the launch counts of both kernels read around it;
-6. the env-only phase at bench.py's config (cluttered 15x15, 3 agents,
+   ``make_rollout``, with the launch counts of K1 and K2f read around it;
+6. the train path: ``make_train_step`` at the same width (2 epochs x 4
+   minibatches), four train steps, with the launch counts of K1, K2f and
+   K2b read around each (65 / 73 / 8) and train env-steps/s; then the
+   training CLI at its defaults, two iterations with a checkpoint and one
+   resumed from it;
+7. torch.profiler over a short rollout and over one train step, by stage;
+8. the env-only phase at bench.py's config (cluttered 15x15, 3 agents,
    25 clutter, B = 32768, T = 16 random actions, board pool 256);
-7. the kernels' times with CUDA events at the rollout's shapes, beside
-   their bound, their plain version's and one PyTorch call's time.
+9. the kernels' times with CUDA events at the rollout's and the update's
+   shapes, beside their bound, their plain version's and one PyTorch
+   call's time.
 
 The last lines of standard output are the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
@@ -31,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -156,13 +169,50 @@ def phase_embed(palettes):
         worst = max(worst, float(err.max()))
         print(f"[K2f] {name} (R={R}, F={3 * cells}, S={S}, H={H}): max abs "
               f"err {float(err.max()):.3e}, within 1 bf16 ulp")
-    w.requires_grad_(True)
-    try:
-        E.onehot_embed(x, w, widths, values)
-    except NotImplementedError:
-        print("[K2f] a table that needs a gradient raises, as it must")
-    else:
-        raise AssertionError("K2f ran with a table that needs a gradient")
+    return worst
+
+
+def phase_embed_bwd(palettes):
+    """K2b at the update's shape (R = 2048 blocks of S = 128 samples)
+    against its plain version on the card. Both read the same bf16 dout
+    and sum in float32; only the order of the sums over up to 262,144
+    samples differs, so max |err| <= 1e-3 * max |dW|. Two launches on the
+    same inputs give the same bits, and the embed's autograd Function
+    returns K2b's gradient."""
+    from marlgrid_tpu_torch.ops import embed as E
+
+    gen = torch.Generator().manual_seed(2)
+    R, cells, S, H = 2048, 49, 128, 128
+    worst = 0.0
+    for name, pal in (("full", None), ("goal_cycle palette", palettes)):
+        widths, values = E.vocab(pal)
+        x = _codes(R, cells, S, gen)
+        dout = torch.randn(R, S, H, generator=gen).to(torch.bfloat16).cuda()
+        dw = E.onehot_embed_bwd(x, dout, widths, values)
+        again = E.onehot_embed_bwd(x, dout, widths, values)
+        sync()
+        ref = E.onehot_embed_bwd_plain(x, dout, widths, values)
+        err = float((dw - ref).abs().max())
+        scale = float(ref.abs().max())
+        if dw.shape != (cells, sum(widths), H) or dw.dtype != torch.float32 \
+                or not err <= 1e-3 * scale:
+            raise AssertionError(
+                f"K2b ({name}): max abs err {err} beyond 1e-3 of max |dW| "
+                f"{scale}, or shape {tuple(dw.shape)} {dw.dtype}")
+        if not torch.equal(dw, again):
+            raise AssertionError(f"K2b ({name}) differs between two launches")
+        w = (torch.randn(cells, sum(widths), H, generator=gen) * 0.05).cuda()
+        w.requires_grad_(True)
+        n0 = E.onehot_embed_bwd.launches
+        (g,) = torch.autograd.grad(E.onehot_embed(x, w, widths, values), w,
+                                   dout)
+        if E.onehot_embed_bwd.launches != n0 + 1 or not torch.equal(g, dw):
+            raise AssertionError(f"K2b ({name}): the autograd Function did "
+                                 f"not return K2b's gradient")
+        worst = max(worst, err)
+        print(f"[K2b] {name} (R={R}, F={3 * cells}, S={S}, H={H}): max abs "
+              f"err {err:.3e} of max |dW| {scale:.3e} (tolerance 1e-3 of "
+              f"it), deterministic, through the autograd Function")
     return worst
 
 
@@ -223,6 +273,78 @@ def phase_reference(seed):
         raise AssertionError(f"logits/values card vs CPU differ by {err}")
     print(f"[reference] logits and values card vs CPU: max abs err "
           f"{err:.3e} (bf16, tolerance 5e-2)")
+    reference_train(seed)
+
+
+def reference_train(seed):
+    """A train step at a small size in float32 (goal_cycle 13x13, 4 agents,
+    B = 16, T = 8, hidden 32, palettes, 2 epochs x 4 minibatches): the
+    card's rollout and update, and the CPU's update of the card's
+    trajectory from the same weights and key. (The CPU does not roll out
+    itself: a logit that differs by a bf16 rounding can flip a sampled
+    action.) On the card K2f reads the table and writes its output in
+    bf16 and K2b reads dout in bf16, where the CPU stays in float32. A
+    hidden unit whose input sits within that rounding of zero takes the
+    other side of its ReLU, which changes a whole dout entry: on an H100
+    the first minibatch's embed gradient differed by 4 % of its max.
+    So the tolerances, per weight tensor: every metric within 1e-2; the
+    first minibatch's gradient within 0.15 of its L2 norm; the weights
+    after the step within 0.3 of the step's change in L2 norm (Adam moves
+    a weight by about lr whatever the size of its gradient, so a gradient
+    near zero may take the other sign). A layout, clip or optimizer fault
+    would miss them by far more."""
+    from marlgrid_tpu_torch.core import obs, rng
+    from marlgrid_tpu_torch.core.state import EnvParams, default_agent_colors
+    from marlgrid_tpu_torch.parallel import ppo
+
+    ep = EnvParams(width=13, height=13, n_agents=4, scenario="goal_cycle",
+                   max_steps=12, reward_decay=False,
+                   observation_style="encode",
+                   agent_colors=default_agent_colors(4))
+    cfg = ppo.PPOConfig(n_envs=16, rollout_len=8, hidden=32, board_pool=4,
+                        dtype=torch.float32,
+                        embed_palettes=obs.encode_palettes(ep))
+    devs = {"card": "cuda", "cpu": "cpu"}
+    nets = {who: ppo.init_state(ep, cfg, torch.Generator().manual_seed(seed),
+                                device=dev) for who, dev in devs.items()}
+    key = rng.PRNGKey(seed, device="cuda")
+    env = ppo.init_env_batch(ep, cfg.n_envs, rng.fold_in(key, 1),
+                             device="cuda")
+    rollout = ppo.make_rollout(ep, cfg, nets["card"][0], device="cuda")
+    _, key, traj, last = rollout(env, rng.fold_in(key, 2))
+    w0 = {k: v.clone() for k, v in nets["cpu"][0].state_dict().items()}
+    ms, grads, ws = {}, {}, {}
+    for who, (net, opt) in nets.items():
+        dev = devs[who]
+        first = grads.setdefault(who, {})
+        opt.register_step_pre_hook(lambda o, a, k, net=net, first=first: (
+            first.update({n: p.grad.detach().cpu().clone()
+                          for n, p in net.named_parameters()})
+            if not first else None))
+        update = ppo.make_update(ep, cfg, net, opt, device=dev)
+        m = update({k: v.to(dev) for k, v in traj.items()}, last.to(dev),
+                   key.to(dev))
+        ms[who] = {k: float(v) for k, v in m.items()}
+        ws[who] = {k: v.cpu().clone() for k, v in net.state_dict().items()}
+    merr = max(abs(ms["card"][k] - ms["cpu"][k]) for k in ms["cpu"])
+    if not merr <= 1e-2:
+        raise AssertionError(f"train step metrics card vs CPU: {ms}")
+    gerr = werr = 0.0
+    for k, gc in grads["cpu"].items():
+        e = float((grads["card"][k] - gc).norm() / gc.norm())
+        d = float((ws["card"][k] - ws["cpu"][k]).norm()
+                  / (ws["cpu"][k] - w0[k]).norm())
+        if not (e <= 0.15 and d <= 0.3):
+            raise AssertionError(
+                f"train step {k}: first gradient {e:.3e} of its norm apart, "
+                f"weights {d:.3e} of the step's change apart")
+        gerr, werr = max(gerr, e), max(werr, d)
+    print(f"[reference] float32 train step (B=16, T=8), card vs CPU: "
+          f"metrics max abs err {merr:.3e} (tolerance 1e-2); first "
+          f"minibatch's gradients within {gerr:.3e} of their L2 norm "
+          f"(tolerance 0.15); weights within {werr:.3e} of the step's "
+          f"change (tolerance 0.3); loss {ms['card']['loss']:.5f} card, "
+          f"{ms['cpu']['loss']:.5f} CPU")
 
 
 def phase_rollout(seed, card):
@@ -299,21 +421,194 @@ def phase_rollout(seed, card):
           f"s; median {B * T / dt2:,.0f} env-steps/s [{card}]")
     return dict(counts=counts, first_s=dt, steady_s=reps,
                 env_steps_per_s=B * T / dt2, episodes=n_done,
-                obs=traj2["obs"][-1].contiguous(), net=net, ep=ep, cfg=cfg,
-                env=env, key=key2)
+                obs=traj2["obs"][-1].contiguous(), traj_obs=traj2["obs"],
+                net=net, ep=ep, cfg=cfg, env=env, key=key2)
 
 
-def phase_profile(roll, card, T=8):
-    """Where a rollout step's time goes: torch.profiler over a T-step
-    rollout of the main path's config. Device time is the sum of the
-    kernels' (and copies') durations, each assigned to the rollout stage
-    label whose span on the card's timeline holds its start; host time is
-    the stage label's span on the host."""
+def phase_train(seed, card, steps=4):
+    """The train path at the rollout phase's full width: ``make_train_step``
+    (rollout + 2 epochs x 4 minibatches of 2048 blocks of 128 samples),
+    ``steps`` calls, the launch counts read around each call."""
+    from marlgrid_tpu_torch.core import obs, rng
+    from marlgrid_tpu_torch.core.state import EnvParams, default_agent_colors
+    from marlgrid_tpu_torch.ops import embed, transpose
+    from marlgrid_tpu_torch.parallel import ppo
+
+    ep = EnvParams(width=13, height=13, n_agents=4, scenario="goal_cycle",
+                   max_steps=250, view_size=7, observation_style="encode",
+                   reward_decay=False, agent_colors=default_agent_colors(4))
+    cfg = ppo.PPOConfig(n_envs=4096, rollout_len=64, hidden=128,
+                        board_pool=256, embed_palettes=obs.encode_palettes(ep))
+    B, T = cfg.n_envs, cfg.rollout_len
+    net, opt = ppo.init_state(ep, cfg, torch.Generator().manual_seed(seed),
+                              device="cuda")
+    key = rng.PRNGKey(seed, device="cuda")
+    env = ppo.init_env_batch(ep, B, rng.fold_in(key, 1), stagger=True,
+                             device="cuda")
+    key = rng.fold_in(key, 2)
+    step = ppo.make_train_step(ep, cfg, net, opt, device="cuda")
+    w0 = [p.detach().clone() for p in net.parameters()]
+    want = {"transpose_bk": T + 1,
+            "onehot_embed_fwd": T + 1 + cfg.n_epochs * cfg.n_minibatches,
+            "onehot_embed_bwd": cfg.n_epochs * cfg.n_minibatches}
+    secs, metrics = [], []
+    for i in range(steps):
+        sync()
+        transpose.transpose_bk.launches = 0
+        embed.onehot_embed.launches = 0
+        embed.onehot_embed_bwd.launches = 0
+        t0 = time.perf_counter()
+        env, key, m = step(env, key)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        counts = {"transpose_bk": transpose.transpose_bk.launches,
+                  "onehot_embed_fwd": embed.onehot_embed.launches,
+                  "onehot_embed_bwd": embed.onehot_embed_bwd.launches}
+        if counts != want:
+            raise AssertionError(f"train step {i}: launches {counts}, want "
+                                 f"{want}")
+        m = {k: float(v) for k, v in m.items()}
+        if not (math.isfinite(m["loss"]) and m["entropy"] > 0
+                and m["n_episodes"] > 0):
+            raise AssertionError(f"train step {i}: metrics {m}")
+        metrics.append(m)
+        print(f"[train] step {i}: {secs[-1]:.3f} s, loss {m['loss']:.5f}, "
+              f"entropy {m['entropy']:.4f}, ratio_dev {m['ratio_dev']:.4f}, "
+              f"{m['n_episodes']:.0f} episodes, return "
+              f"{m['episode_return']:.4f}")
+    if all(torch.equal(p, q) for p, q in zip(net.parameters(), w0)):
+        raise AssertionError("the train steps changed no weight")
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    print(f"[train] launches per train step on the train path: {counts} "
+          f"(want {want})")
+    print(f"[train] B={B} T={T}, 2 epochs x 4 minibatches: "
+          f"{', '.join(f'{t:.3f}' for t in secs)} s per step; median of "
+          f"steps 1-{steps - 1}: {B * T / steady:,.0f} train env-steps/s "
+          f"[{card}]")
+    return dict(counts=counts, seconds=secs, metrics=metrics,
+                env_steps_per_s=B * T / steady, step=step, env=env, key=key,
+                ep=ep, cfg=cfg)
+
+
+def phase_cli(card):
+    """The training CLI at its defaults (the train path's config) on the
+    card: two iterations with a checkpoint, then one more resumed from it,
+    the launch counts read around the resumed run."""
+    import tempfile
+
+    from marlgrid_tpu_torch.ops import embed, transpose
+    from marlgrid_tpu_torch.parallel import train
+    from marlgrid_tpu_torch.utils import checkpoint
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, log = f"{tmp}/ck", f"{tmp}/m.jsonl"
+        t0 = time.perf_counter()
+        train.main(["--iters", "2", "--metrics", log, "--checkpoint-dir", ck,
+                    "--checkpoint-every", "2"])
+        first = time.perf_counter() - t0
+        recs = [json.loads(line) for line in open(log)]
+        if checkpoint.steps(ck) != [2] or \
+                checkpoint.load_config(ck)["ppo"]["n_envs"] != 4096:
+            raise AssertionError("the CLI wrote no full-width checkpoint")
+        transpose.transpose_bk.launches = 0
+        embed.onehot_embed.launches = 0
+        embed.onehot_embed_bwd.launches = 0
+        train.main(["--iters", "1", "--metrics", log, "--resume", ck])
+        counts = (transpose.transpose_bk.launches,
+                  embed.onehot_embed.launches,
+                  embed.onehot_embed_bwd.launches)
+        recs += [json.loads(line) for line in open(log)]
+    if counts != (65, 73, 8):
+        raise AssertionError(f"resumed CLI iteration: launches {counts}, "
+                             f"want (65, 73, 8)")
+    for r in recs:
+        if not (math.isfinite(r["loss"]) and r["n_episodes"] > 0):
+            raise AssertionError(f"CLI metrics {r}")
+    print(f"[cli] python -m marlgrid_tpu_torch.parallel.train (defaults): 2 "
+          f"iterations + checkpoint in {first:.2f} s, then 1 resumed; "
+          f"launches K1/K2f/K2b {counts}; env_steps_per_s "
+          f"{', '.join(format(r['env_steps_per_s'], ',.0f') for r in recs)} "
+          f"[{card}]")
+
+
+def profile_stages(run, prefixes, card, title):
+    """Where the time of ``run()`` goes, by stage: torch.profiler over one
+    call. Device time is the sum of the kernels' (and copies') durations.
+    A kernel counts for the stage label whose span on the card's timeline
+    holds its start; a kernel outside every such span (the autograd engine
+    launches the backward from its own thread, outside the main thread's
+    labels) counts for the label whose span on the host's timeline holds
+    its start. Host time is the stage label's span on the host."""
     import bisect
-    import dataclasses
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        sync()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in on_card if not e.is_user_annotation]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    out = dict(wall_s=wall, device_busy_s=busy, device_ops=len(kernels),
+               stages={}, top={})
+    if busy <= 0:
+        print(f"[profile] {title}: the profiler saw no device time: not "
+              f"measured")
+        return out
+
+    def spans_of(evs):
+        sp = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in evs if e.name.startswith(prefixes))
+        return [x[0] for x in sp], sp
+
+    dev_starts, dev_spans = spans_of(e for e in on_card
+                                     if e.is_user_annotation)
+    host_events = [e for e in events if e.device_type == DeviceType.CPU]
+    host_starts, host_spans = spans_of(host_events)
+
+    def stage_of(t):
+        for starts, spans in ((dev_starts, dev_spans),
+                              (host_starts, host_spans)):
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t <= spans[i][1]:
+                return spans[i][2]
+        return "(outside the stages)"
+
+    stage = {}
+    for e in kernels:
+        d = stage.setdefault(stage_of(e.time_range.start), [0.0, 0])
+        d[0] += e.time_range.elapsed_us() / 1e3
+        d[1] += 1
+        top = out["top"].setdefault(e.name[:90], [0.0, 0])
+        top[0] += e.time_range.elapsed_us() / 1e3
+        top[1] += 1
+    host = {}
+    for st, en, name in host_spans:
+        host[name] = host.get(name, 0.0) + (en - st) / 1e3
+    print(f"[profile] {title}: wall {wall * 1e3:.1f} ms, kernels busy "
+          f"{busy * 1e3:.1f} ms (device idle share {1 - busy / wall:.3f}), "
+          f"{len(kernels)} device ops [{card}]")
+    for name in sorted(set(stage) | set(host)):
+        dev_ms, n = stage.get(name, (0.0, 0))
+        out["stages"][name] = dict(host_ms=host.get(name, 0.0),
+                                   device_ms=dev_ms, device_ops=n)
+        print(f"[profile]   {name:22s} host {host.get(name, 0.0):9.2f} ms,"
+              f" device {dev_ms:8.2f} ms in {n:7d} ops")
+    for name, (ms, n) in sorted(out["top"].items(),
+                                key=lambda kv: -kv[1][0])[:8]:
+        print(f"[profile]   device {ms:8.2f} ms x{n:6d}  {name[:70]}")
+    return out
+
+
+def phase_profile(roll, train, card, T=8):
+    """torch.profiler over a T-step rollout of the rollout path's config,
+    and over one train step of the train path."""
+    import dataclasses
 
     from marlgrid_tpu_torch.parallel import ppo
 
@@ -321,55 +616,16 @@ def phase_profile(roll, card, T=8):
     rollout = ppo.make_rollout(roll["ep"], cfg, roll["net"], device="cuda")
     rollout(roll["env"], roll["key"])                  # warm-up
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        rollout(roll["env"], roll["key"])
-        sync()
-        wall = time.perf_counter() - t0
-    events = prof.events()
-    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in on_card if e.is_user_annotation)
-    kernels = [e for e in on_card if not e.is_user_annotation]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
-    out = dict(T=T, wall_s=wall, device_busy_s=busy,
-               device_ops_per_step=len(kernels) / T, stages={}, top={})
-    if busy <= 0:
-        print("[profile] the profiler saw no device time: not measured")
-        return out
-    print(f"[profile] T={T} rollout: wall {wall * 1e3:.1f} ms, kernels "
-          f"busy {busy * 1e3:.1f} ms (device idle share "
-          f"{1 - busy / wall:.3f}), {len(kernels) / T:.0f} device ops per "
-          f"step [{card}]")
-    starts = [sp[0] for sp in spans]
-    stage = {}
-    for e in kernels:
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        name = spans[i][2] if i >= 0 and e.time_range.start <= \
-            spans[i][1] else "(outside the stages)"
-        d = stage.setdefault(name, [0.0, 0])
-        d[0] += e.time_range.elapsed_us() / 1e3
-        d[1] += 1
-        top = out["top"].setdefault(e.name[:90], [0.0, 0])
-        top[0] += e.time_range.elapsed_us() / 1e3
-        top[1] += 1
-    host = {}
-    for e in events:
-        if e.device_type == DeviceType.CPU and e.name.startswith(
-                "rollout."):
-            host[e.name] = host.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() / 1e3
-    for name in sorted(set(stage) | set(host)):
-        dev_ms, n = stage.get(name, (0.0, 0))
-        out["stages"][name] = dict(host_ms=host.get(name, 0.0),
-                                   device_ms=dev_ms, device_ops=n)
-        print(f"[profile]   {name:22s} host {host.get(name, 0.0):8.2f} ms,"
-              f" device {dev_ms:7.2f} ms in {n:6d} ops")
-    for name, (ms, n) in sorted(out["top"].items(),
-                                key=lambda kv: -kv[1][0])[:8]:
-        print(f"[profile]   device {ms:7.2f} ms x{n:5d}  {name[:70]}")
-    return out
+    out = profile_stages(lambda: rollout(roll["env"], roll["key"]),
+                         ("rollout.",), card, f"T={T} rollout")
+    out["T"] = T
+    out["device_ops_per_step"] = out["device_ops"] / T
+    print(f"[profile] {out['device_ops_per_step']:.0f} device ops per "
+          f"rollout step")
+    tr = profile_stages(lambda: train["step"](train["env"], train["key"]),
+                        ("rollout.", "update."), card,
+                        "one train step (B=4096, T=64)")
+    return dict(rollout=out, train_step=tr)
 
 
 def phase_env_only(seed, card):
@@ -423,10 +679,122 @@ def phase_env_only(seed, card):
     return dict(env_steps_per_s=B * T / dt, seconds=reps, k1_launches=n)
 
 
-def phase_timings(roll, card):
+def _bag_rows(codes, widths, values, cells, cw):
+    """(n_valid, bag_idx): the in-vocabulary codes' count, and each
+    sample's F row indices into the flattened (cells * cw + 1, H) table,
+    the last row (zeros) for "no row"."""
+    from marlgrid_tpu_torch.ops import embed as E
+
+    R, Fd, S = codes.shape
+    lut = torch.as_tensor(E.slot_table(widths, values), device="cuda").long()
+    plane = torch.arange(Fd, device="cuda") // cells
+    slot = lut[plane[None, :, None], codes.long()]       # (R, F, S)
+    cell = torch.arange(Fd, device="cuda") % cells
+    rows = torch.where(slot >= 0, cell[None, :, None] * cw + slot,
+                       cells * cw)
+    return (int((slot >= 0).sum()),
+            rows.permute(0, 2, 1).reshape(R * S, Fd).contiguous())
+
+
+def _bound(k):
+    t_bytes = k["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = k["ops"] / F32_OPS_PER_S * 1e3
+    k["bound_ms"] = max(t_bytes, t_ops)
+    k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return k
+
+
+def time_k2f(codes, table, widths, values, where, card):
+    """K2f beside its bound, its plain version and embedding_bag(sum) over
+    each sample's F row indices (the one-call yardstick)."""
     import torch.nn.functional as F
 
-    from marlgrid_tpu_torch.ops import embed as E, transpose as T
+    from marlgrid_tpu_torch.ops import embed as E
+
+    R, Fd, S = codes.shape
+    cells, cw, H = table.shape
+    n_valid, bag_idx = _bag_rows(codes, widths, values, cells, cw)
+    with torch.no_grad():
+        k = dict(bytes=codes.numel() + table.numel() * 2 + R * S * H * 2,
+                 ops=n_valid * H)
+        k["ms"], k["host_ms"] = time_ms(
+            lambda: E.onehot_embed(codes, table, widths, values))
+        k["plain_ms"], _ = time_ms(lambda: E.onehot_embed_plain(
+            codes, table, widths, values, torch.bfloat16), iters=5,
+            warmup=1)
+        bag_w = torch.cat([table.reshape(cells * cw, H),
+                           torch.zeros(1, H, dtype=table.dtype,
+                                       device="cuda")])
+        k["library_ms"], _ = time_ms(
+            lambda: F.embedding_bag(bag_idx, bag_w, mode="sum"))
+        bag = F.embedding_bag(bag_idx, bag_w, mode="sum").reshape(R, S, H)
+        kern = E.onehot_embed(codes, table, widths, values)
+        gap = float((bag.float() - kern.float()).abs().max())
+    _bound(k)
+    print(f"[time] K2f at the {where} (R={R}, F={Fd}, S={S}, H={H}, "
+          f"palette, {n_valid} of {codes.numel()} codes in the vocabulary):"
+          f" {k['ms'] * 1e3:.2f} us (host {k['host_ms'] * 1e3:.2f} us per "
+          f"call), plain {k['plain_ms'] * 1e3:.2f} us, embedding_bag "
+          f"{k['library_ms'] * 1e3:.2f} us (max abs diff to K2f "
+          f"{gap:.3e}), bound {k['bound_ms'] * 1e3:.2f} us "
+          f"({k['bound_by']}) [{card}]")
+    return k
+
+
+def time_k2b(codes, table, widths, values, card, seed):
+    """K2b at the update's shape beside its bound, its plain version and
+    the backward of embedding_bag(sum) over the same row indices (timed as
+    forward + backward minus forward), with a bf16 dout like the one the
+    update gives it."""
+    import torch.nn.functional as F
+
+    from marlgrid_tpu_torch.ops import embed as E
+
+    R, Fd, S = codes.shape
+    cells, cw, H = table.shape
+    gen = torch.Generator().manual_seed(seed)
+    dout = (torch.randn(R, S, H, generator=gen) * 1e-3).to(
+        torch.bfloat16).cuda()
+    n_valid, bag_idx = _bag_rows(codes, widths, values, cells, cw)
+    k = dict(bytes=codes.numel() + dout.numel() * 2 + cells * cw * H * 4,
+             ops=n_valid * H)
+    k["ms"], k["host_ms"] = time_ms(
+        lambda: E.onehot_embed_bwd(codes, dout, widths, values))
+    k["plain_ms"], _ = time_ms(lambda: E.onehot_embed_bwd_plain(
+        codes, dout, widths, values), iters=3, warmup=1)
+    bag_w = torch.cat([table.reshape(cells * cw, H),
+                       torch.zeros(1, H, dtype=table.dtype, device="cuda")])
+    bag_w.requires_grad_(True)
+    d_flat = dout.reshape(R * S, H)
+    fwd_ms, _ = time_ms(lambda: F.embedding_bag(bag_idx, bag_w, mode="sum"),
+                        iters=10)
+    both_ms, _ = time_ms(lambda: torch.autograd.grad(
+        F.embedding_bag(bag_idx, bag_w, mode="sum"), bag_w, d_flat),
+        iters=10)
+    k["library_ms"] = both_ms - fwd_ms
+    (g,) = torch.autograd.grad(F.embedding_bag(bag_idx, bag_w, mode="sum"),
+                               bag_w, d_flat)
+    kern = E.onehot_embed_bwd(codes, dout, widths, values)
+    gap = float((g[:-1].float().reshape(cells, cw, H) - kern).abs().max())
+    _bound(k)
+    print(f"[time] K2b at the update's shape (R={R}, F={Fd}, S={S}, H={H}, "
+          f"palette, {n_valid} codes in the vocabulary): "
+          f"{k['ms'] * 1e3:.2f} us (host {k['host_ms'] * 1e3:.2f} us per "
+          f"call), plain {k['plain_ms'] * 1e3:.2f} us, embedding_bag "
+          f"backward {k['library_ms'] * 1e3:.2f} us (forward+backward "
+          f"{both_ms * 1e3:.2f} us minus forward {fwd_ms * 1e3:.2f} us; its "
+          f"bf16 gradient within {gap:.3e} of K2b's), bound "
+          f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}) [{card}]")
+    return k
+
+
+def phase_timings(roll, card, seed):
+    """The kernels' device times (launches queued behind a busy card) and
+    host times per call (card idle), at the rollout's shapes (K1, K2f) and
+    the update's (K2f, K2b: a minibatch of 2048 blocks of the rollout
+    phase's trajectory, the train path's layout)."""
+    from marlgrid_tpu_torch.ops import transpose as T
+    from marlgrid_tpu_torch.parallel import ppo
 
     # K1 at the rollout's shape: (B, K) = (4096, 4 * 49)
     x = torch.randint(0, 2 ** 20, (4096, 196), dtype=torch.int32,
@@ -435,61 +803,30 @@ def phase_timings(roll, card):
     k1["ms"], k1["host_ms"] = time_ms(lambda: T.transpose_bk(x))
     k1["plain_ms"], _ = time_ms(lambda: T.transpose_bk_plain(x))
     k1["library_ms"], _ = time_ms(lambda: x.t().contiguous())
-
-    # K2f on the rollout's last observation with the rollout's weights
-    net = roll["net"]
-    codes = roll["obs"]                                  # (4, 147, 4096)
-    emb = net.torso0
-    table = emb.table().detach().to(torch.bfloat16).contiguous()
-    widths, values = emb.widths, emb.values
-    R, Fd, S = codes.shape
-    cells, cw, H = table.shape
-    lut = torch.as_tensor(E.slot_table(widths, values), device="cuda").long()
-    plane = torch.arange(Fd, device="cuda") // cells
-    slot = lut[plane[None, :, None], codes.long()]       # (R, F, S)
-    n_valid = int((slot >= 0).sum())
-    with torch.no_grad():
-        k2 = dict(bytes=codes.numel() + table.numel() * 2 + R * S * H * 2,
-                  ops=n_valid * H)
-        k2["ms"], k2["host_ms"] = time_ms(
-            lambda: E.onehot_embed(codes, table, widths, values))
-        k2["plain_ms"], _ = time_ms(lambda: E.onehot_embed_plain(
-            codes, table, widths, values, torch.bfloat16), iters=10)
-        # the one-call yardstick: embedding_bag(sum) over each sample's 147
-        # row indices into the flattened table, a zero row for "no row"
-        cell = torch.arange(Fd, device="cuda") % cells
-        rows = torch.where(slot >= 0, cell[None, :, None] * cw + slot,
-                           cells * cw)
-        bag_idx = rows.permute(0, 2, 1).reshape(R * S, Fd).contiguous()
-        bag_w = torch.cat([table.reshape(cells * cw, H),
-                           torch.zeros(1, H, dtype=table.dtype,
-                                       device="cuda")])
-        k2["library_ms"], _ = time_ms(
-            lambda: F.embedding_bag(bag_idx, bag_w, mode="sum"))
-        bag = F.embedding_bag(bag_idx, bag_w, mode="sum").reshape(R, S, H)
-        kern = E.onehot_embed(codes, table, widths, values)
-        gap = float((bag.float() - kern.float()).abs().max())
-        print(f"[time] embedding_bag vs K2f on the rollout's obs: max abs "
-              f"diff {gap:.3e} ({n_valid} of {slot.numel()} codes in "
-              f"the vocabulary)")
-    for k in (k1, k2):
-        t_bytes = k["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = k["ops"] / F32_OPS_PER_S * 1e3
-        k["bound_ms"] = max(t_bytes, t_ops)
-        k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    print("[time] device time per call (launches queued behind a busy "
-          "card); host time per call with the card idle")
+    _bound(k1)
     print(f"[time] K1 (4096, 196) int32: {k1['ms'] * 1e3:.2f} us (host "
           f"{k1['host_ms'] * 1e3:.2f} us per call), plain "
           f"{k1['plain_ms'] * 1e3:.2f} us, x.t().contiguous() "
           f"{k1['library_ms'] * 1e3:.2f} us, bound "
           f"{k1['bound_ms'] * 1e3:.2f} us ({k1['bound_by']}) [{card}]")
-    print(f"[time] K2f (R={R}, F={Fd}, S={S}, H={H}, palette): "
-          f"{k2['ms'] * 1e3:.2f} us (host {k2['host_ms'] * 1e3:.2f} us per "
-          f"call), plain {k2['plain_ms'] * 1e3:.2f} us, "
-          f"embedding_bag {k2['library_ms'] * 1e3:.2f} us, bound "
-          f"{k2['bound_ms'] * 1e3:.2f} us ({k2['bound_by']}) [{card}]")
-    return k1, k2
+
+    emb = roll["net"].torso0
+    table = emb.table().detach().to(torch.bfloat16).contiguous()
+    widths, values = emb.widths, emb.values
+    # K2f on the rollout's last observation with the rollout's weights
+    k2 = time_k2f(roll["obs"], table, widths, values, "rollout's shape",
+                  card)
+    # the update's minibatch: blocks (G, F, c) of the stored trajectory
+    cfg = roll["cfg"]
+    blocks = ppo.obs_blocks(roll["traj_obs"], ppo.block_size(
+        cfg.n_envs, cfg.rollout_len, roll["ep"].n_agents))
+    G = blocks.shape[0]
+    pick = torch.randperm(G, generator=torch.Generator().manual_seed(seed))
+    codes = blocks[pick[:G // cfg.n_minibatches].cuda()].contiguous()
+    k2u = time_k2f(codes, table, widths, values, "update's shape", card)
+    k2b = time_k2b(codes, table, widths, values, card, seed)
+    return dict(transpose_bk=k1, onehot_embed_fwd=k2,
+                onehot_embed_fwd_update=k2u, onehot_embed_bwd=k2b)
 
 
 def main(argv=None):
@@ -517,41 +854,48 @@ def main(argv=None):
     gc = EnvParams(width=13, height=13, n_agents=4, scenario="goal_cycle",
                    observation_style="encode",
                    agent_colors=default_agent_colors(4))
-    k2_err = phase_embed(obs.encode_palettes(gc))
+    pals = obs.encode_palettes(gc)
+    errs = dict(transpose_bk=k1_err, onehot_embed_fwd=phase_embed(pals),
+                onehot_embed_bwd=phase_embed_bwd(pals))
     phase_reference(args.seed)
     roll = phase_rollout(args.seed, card)
-    prof = phase_profile(roll, card)
+    train = phase_train(args.seed, card)
+    phase_cli(card)
+    prof = phase_profile(roll, train, card)
     env = phase_env_only(args.seed, card)
-    k1, k2 = phase_timings(roll, card)
+    tim = phase_timings(roll, card, args.seed)
 
-    kernels = [
-        dict(name="transpose_bk", route="cuda",
-             source="marlgrid_tpu_torch/csrc/transpose.cu",
-             replaces="marlgrid_tpu/ops/transpose.py:41",
-             launches=roll["counts"]["transpose_bk"], max_abs_err=k1_err,
-             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=k1["library_ms"]),
-        dict(name="onehot_embed_fwd", route="cuda",
-             source="marlgrid_tpu_torch/csrc/embed.cu",
-             replaces="marlgrid_tpu/ops/embed.py:245",
-             launches=roll["counts"]["onehot_embed_fwd"], max_abs_err=k2_err,
-             ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=k2["library_ms"]),
-    ]
+    # launches: per train step on the train path, which runs every kernel
+    # (the rollout path's counts, K1 and K2f 65 each, are in --json)
+    kernels = []
+    for name, src, line in (
+            ("transpose_bk", "transpose.cu", "transpose.py:41"),
+            ("onehot_embed_fwd", "embed.cu", "embed.py:245"),
+            ("onehot_embed_bwd", "embed_bwd.cu", "embed.py:264")):
+        k = tim[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"marlgrid_tpu_torch/csrc/{src}",
+            replaces=f"marlgrid_tpu/ops/{line}",
+            launches=train["counts"][name], max_abs_err=errs[name],
+            ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"]))
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, kernels=kernels,
+                           rollout_counts=roll["counts"],
                            rollout_env_steps_per_s=roll["env_steps_per_s"],
                            rollout_first_call_s=roll["first_s"],
                            rollout_call_s=roll["steady_s"],
-                           env_only=env, profile=prof,
-                           timings=dict(transpose_bk=k1,
-                                        onehot_embed_fwd=k2),
+                           train_env_steps_per_s=train["env_steps_per_s"],
+                           train_step_s=train["seconds"],
+                           train_metrics=train["metrics"],
+                           env_only=env, profile=prof, timings=tim,
                            total_s=time.perf_counter() - t_start), f,
                       indent=1)
     print(f"[done] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s; rollout "
-          f"{roll['env_steps_per_s']:,.0f} env-steps/s, env-only "
+          f"{roll['env_steps_per_s']:,.0f} env-steps/s, train "
+          f"{train['env_steps_per_s']:,.0f} env-steps/s, env-only "
           f"{env['env_steps_per_s']:,.0f} env-steps/s on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 """Feedforward actor-critic on 'encode' observations (PyTorch port).
 
 Counterpart of ``marlgrid_tpu/models/actor_critic.py`` for the mlp torso
-on feature-major observations: ``OneHotEmbed`` (the fused one-hot embed,
-kernel K2f on the card), a dense torso layer and the policy/value heads.
+on feature-major observations: ``OneHotEmbed`` (the fused one-hot embed:
+kernel K2f on the card, and K2b for its table's gradient), a dense torso
+layer and the policy/value heads.
 Activations run in the compute dtype (bf16 by default, or float32); the
 heads' outputs are cast to float32. Parameters are float32 and carry the
 flax parameters' names and shapes, so :func:`load_flax_params` moves JAX
@@ -42,6 +43,9 @@ class OneHotEmbed(nn.Module):
     ``palettes``: compact per-scenario code vocabularies
     ((types…), (colors…), (states…)) from ``core/obs.py::encode_palettes``;
     None = the full static vocabularies (state codes clipped at 19).
+    Differentiable in the three tables on both devices (``ops/embed.py``:
+    the packed table's gradient splits back to w0/w1/w2 through the
+    concatenation).
     """
 
     def __init__(self, cells: int, features: int, dtype=torch.bfloat16,

@@ -151,3 +151,76 @@ def test_own_init_is_lecun_normal():
         assert na == nb and torch.equal(pa, pb)
     assert a.torso0.w0.shape == (49 * len(PALETTES[0]), 16)
     assert torch.count_nonzero(a.pi.bias) == 0
+
+
+def _dout(R, S, H, seed):
+    """bf16-representable dout, as the kernels read it."""
+    rs = np.random.default_rng(seed)
+    return np.array(jnp.asarray(rs.normal(size=(R, S, H)), jnp.bfloat16)
+                    .astype(jnp.float32))
+
+
+@pytest.mark.parametrize("cells,R,S,H,state_hi,palettes", CASES)
+def test_plain_embed_bwd_matches_pallas(cells, R, S, H, state_hi, palettes):
+    """The plain weight gradient against the Pallas ``_bwd_w`` in
+    interpret mode, with the same bf16 dout (the custom_vjp's backward casts
+    dout to bf16 and calls ``_bwd_w`` so). Pallas returns group-packed
+    (g, grp*cw, H) tables; unpacked to (cells, cw, H). Both sum the same
+    float32 values in another order: max |err| <= 1e-5 of max |g|."""
+    widths, values = E.vocab(palettes)
+    x = _codes(R, cells, S, seed=cells + R, state_hi=state_hi)
+    d = _dout(R, S, H, seed=2)
+    want = JE._bwd_w(jnp.asarray(x), jnp.asarray(d, jnp.bfloat16), cells,
+                     128, True, widths, values)
+    g = want.shape[0]
+    want = np.asarray(want).reshape(g * JE.group_size(widths), sum(widths),
+                                    H)[:cells]
+    got = E.onehot_embed_bwd(torch.as_tensor(x), torch.as_tensor(d), widths,
+                             values)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert E.onehot_embed_bwd.launches == 0
+    scale = float(np.abs(want).max())
+    assert scale > 0
+    assert float(np.abs(got.numpy() - want).max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("palettes", [None, PALETTES])
+def test_embed_grad_is_dense_autograd(palettes):
+    """On the CPU, OneHotEmbed's gradient goes through the embed's
+    autograd Function with the plain backward, and equals autograd of the
+    dense one-hot formulation in float32 (the same float32 products summed
+    in the same einsum: within 1e-6)."""
+    from marlgrid_tpu_torch.models.actor_critic import OneHotEmbed
+
+    cells, R, S, H = 49, 2, 32, 16
+    emb = OneHotEmbed(cells, H, torch.float32, palettes,
+                      torch.Generator().manual_seed(1))
+    x = torch.as_tensor(_codes(R, cells, S, seed=4, state_hi=200))
+    g = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(R, S, H)).astype(np.float32))
+    out = E.onehot_embed(x, emb.table(), emb.widths, emb.values,
+                         torch.float32)
+    assert type(out.grad_fn).__name__ == "_OneHotEmbedFnBackward"
+    (emb(x) * g).sum().backward()
+    got = [emb.w0.grad, emb.w1.grad, emb.w2.grad, emb.bias.grad]
+
+    ws = [getattr(emb, f"w{i}").detach().clone().requires_grad_(True)
+          for i in range(3)]
+    bias = emb.bias.detach().clone().requires_grad_(True)
+    o = x.long().reshape(R, 3, cells, S)
+    dense = bias
+    for p, (w, n) in enumerate(zip(ws, emb.widths)):
+        code = o[:, p]
+        if palettes is None:
+            code = code.clamp(0, 19) if p == 2 else code
+            voc = torch.arange(n)
+        else:
+            voc = torch.as_tensor(palettes[p])
+        oh = (code[:, :, None, :] == voc[:, None]).float()
+        dense = dense + torch.einsum("rcns,cnh->rsh", oh,
+                                     w.reshape(cells, n, H))
+    (dense * g).sum().backward()
+    for a, b in zip(got, ws + [bias]):
+        np.testing.assert_allclose(a.numpy(), b.grad.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+    assert float(emb.w2.grad.abs().sum()) > 0

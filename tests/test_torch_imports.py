@@ -45,7 +45,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from marlgrid_tpu_torch.core import rng
     from marlgrid_tpu_torch.core.state import EnvParams
     from marlgrid_tpu_torch.models import ActorCritic
-    from marlgrid_tpu_torch.parallel import ppo
+    from marlgrid_tpu_torch.parallel import ppo, train
     from marlgrid_tpu_torch.vector import VectorEnv
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -57,7 +57,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  lambda: VectorEnv(ep, 4),
                  lambda: ppo.init_env_batch(ep, 4, key),
                  lambda: ActorCritic(cfg, ep.view_size),
-                 lambda: ppo.make_rollout(ep, cfg, None)):
+                 lambda: ppo.make_rollout(ep, cfg, None),
+                 lambda: ppo.init_state(ep, cfg),
+                 lambda: ppo.make_train_step(ep, cfg, None, None),
+                 lambda: train.main(["--scenario", "empty", "--agents", "1",
+                                     "--envs", "4", "--iters", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     state, obs = VectorEnv(ep, 4, device="cpu").reset(key)
