@@ -13,27 +13,40 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    float32 and rounded to bf16, within 1 bf16 ulp; K2b (its weight
    gradient) against its plain version at the update's shape, both fed the
    same bf16 dout, within 1e-3 of max |dW|, deterministic, and reached
-   through the embed's autograd Function;
-4. the env engine and the observations on the card against the same code
-   on the CPU (which the tests hold bit-equal to the JAX package), the
-   policy's logits on the card against the CPU's, and a small float32
-   train step: the card's rollout and update against the CPU's update of
-   the same trajectory from the same weights;
+   through the embed's autograd Function; K3 (compose_image_b, the sprite
+   composite) against its plain version, bit-exact, on the ids of real
+   views (goal_cycle at the rollout's shape, cluttered, doorkey with hidden
+   keys and a view offset; prestige over all 8 levels) in the standard,
+   (N, B) and s2d layouts, and on random ids in its other two variants;
+4. the env engine and the observations (encode and image) on the card
+   against the same code on the CPU (which the tests hold bit-equal to the
+   JAX package), the mlp and cnn_s2d policies' logits on the card against
+   the CPU's, and a small float32 train step of each path: the card's
+   rollout and update against the CPU's update of the same trajectory from
+   the same weights;
 5. the rollout path: a PPO rollout at the train default's full width
    (goal_cycle 13x13, 4 agents, 7x7 encode, B = 4096, T = 64, hidden 128,
    board pool 256, stagger, the compact embed palettes) through
-   ``make_rollout``, with the launch counts of K1 and K2f read around it;
+   ``make_rollout``, with the launch counts read around it;
 6. the train path: ``make_train_step`` at the same width (2 epochs x 4
-   minibatches), four train steps, with the launch counts of K1, K2f and
-   K2b read around each (65 / 73 / 8) and train env-steps/s; then the
-   training CLI at its defaults, two iterations with a checkpoint and one
-   resumed from it;
-7. torch.profiler over a short rollout and over one train step, by stage;
-8. the env-only phase at bench.py's config (cluttered 15x15, 3 agents,
-   25 clutter, B = 32768, T = 16 random actions, board pool 256);
-9. the kernels' times with CUDA events at the rollout's and the update's
-   shapes, beside their bound, their plain version's and one PyTorch
-   call's time.
+   minibatches), four train steps, with the launch counts of K1, K2f, K2b
+   and K3 read around each (65 / 73 / 8 / 0) and train env-steps/s; then
+   the training CLI at its defaults, two iterations with a checkpoint and
+   one resumed from it;
+7. the image train path at the same width (``--obs image``: 7x7 views of
+   8-pixel tiles, the cnn_s2d torso, re-rendered minibatches): one rollout
+   (65 launches each of K1 and K3) and four train steps (73 each, K2f and
+   K2b none), with train env-steps/s, each step's mean episode return and
+   the peak device memory; then the CLI with ``--obs image``, two
+   iterations with a checkpoint and one resumed from it;
+8. torch.profiler over a short rollout, one train step and one image train
+   step, by stage;
+9. the env-only phase at bench.py's config (cluttered 15x15, 3 agents,
+   25 clutter, B = 32768, T = 16 random actions, board pool 256), with
+   encode and with image observations;
+10. the kernels' times with CUDA events at the rollout's and the update's
+   shapes (K3 also at the image env-only shape), beside their bound, their
+   plain version's and one PyTorch call's time.
 
 The last lines of standard output are the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
@@ -100,6 +113,26 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """The spacing of bf16 values at |x| (8 significant bits)."""
     _, e = torch.frexp(x.float().abs())
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def kernel_wrappers():
+    """Name -> wrapper of every kernel of the port; each wrapper counts its
+    launches in ``.launches``."""
+    from marlgrid_tpu_torch.ops import embed, sprite, transpose
+
+    return {"transpose_bk": transpose.transpose_bk,
+            "onehot_embed_fwd": embed.onehot_embed,
+            "onehot_embed_bwd": embed.onehot_embed_bwd,
+            "compose_image_b": sprite.compose_image_b}
+
+
+def zero_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def phase_build():
@@ -216,6 +249,100 @@ def phase_embed_bwd(palettes):
     return worst
 
 
+def _spread_prestige(ep, state):
+    """Prestige that puts agent j of env b at level (b*N + j) % 8: every
+    dim level shows in the views."""
+    B, N = state.prestige.shape
+    lvl = torch.arange(B * N, device=state.prestige.device).reshape(B, N) % 8
+    scale = torch.tensor(ep.prestige_scale_tuple(), dtype=torch.float32,
+                         device=state.prestige.device)
+    state.prestige = (lvl.float() + 0.5) * scale
+    return state
+
+
+def max_byte_err(out, ref):
+    """max |out - ref| over two uint8 tensors of one shape, in slices of
+    256 Mi bytes (the update's render is 2.47 GB)."""
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        raise AssertionError(f"shape/dtype {tuple(out.shape)} {out.dtype}, "
+                             f"want {tuple(ref.shape)} {ref.dtype}")
+    return max(int((x.short() - y.short()).abs().max())
+               for x, y in zip(out.reshape(-1).split(1 << 28),
+                               ref.reshape(-1).split(1 << 28)))
+
+
+def phase_sprite(seed):
+    """K3 against its plain version on the card, bit-exact (max err 0), on
+    the ids of real views: goal_cycle at the rollout's shape (B = 4096,
+    N = 4), a cluttered 15x15 and a doorkey with hidden keys and a view
+    offset, after random steps with prestige over all 8 levels, in the
+    standard, (N, B), s2d and (N, B) s2d layouts; then random ids at T = 16
+    (tables read through the read-only cache) and T = 5 (single-byte
+    stores), the kernel's other two variants."""
+    from marlgrid_tpu_torch.core import constants as C
+    from marlgrid_tpu_torch.core import grid_gen, obs, rng, step
+    from marlgrid_tpu_torch.core.state import EnvParams, default_agent_colors
+    from marlgrid_tpu_torch.ops import sprite
+
+    def ep_of(n, **kw):
+        return EnvParams(n_agents=n, max_steps=250, observation_style="image",
+                         agent_colors=default_agent_colors(n), **kw)
+
+    configs = (
+        ("goal_cycle 13x13", ep_of(4, width=13, height=13,
+                                   scenario="goal_cycle"), 4096),
+        ("cluttered 15x15", ep_of(3, width=15, height=15,
+                                  scenario="cluttered", n_clutter=25), 1024),
+        ("doorkey 11x11, keys hidden, view offset 1",
+         ep_of(2, width=11, height=11, scenario="doorkey", view_offset=1,
+               hide_item_types=(C.KEY,)), 1024))
+    layouts = (dict(), dict(nb_layout=True), dict(s2d=True),
+               dict(nb_layout=True, s2d=True))
+
+    worst = 0
+
+    def check(ep, ids, kws, what):
+        nonlocal worst
+        for kw in kws:
+            n0 = sprite.compose_image_b.launches
+            out = sprite.compose_image_b(ep, *ids, **kw)
+            sync()
+            if sprite.compose_image_b.launches != n0 + 1:
+                raise AssertionError("K3 was not launched")
+            ref = sprite.compose_image_b_plain(ep, *ids, **kw)
+            err = max_byte_err(out, ref)
+            worst = max(worst, err)
+            if err != 0:
+                raise AssertionError(
+                    f"K3 differs from its plain version: {what} {kw}: "
+                    f"{int((out != ref).sum())} bytes, max abs err {err}")
+        print(f"[K3] {what}: bit-exact in {len(kws)} layouts "
+              f"({tuple(out.shape)})")
+
+    for what, ep, B in configs:
+        key = rng.PRNGKey(seed, device="cuda")
+        s = grid_gen.reset(ep, rng.split(key, B))
+        acts = rng.randint(rng.fold_in(key, 3), (8, B, ep.n_agents), 0, 7)
+        for t in range(8):
+            s = step.step(ep, s, acts[t])[0]
+        ids = obs.image_ids(ep, _spread_prestige(ep, s))
+        levels = sorted(torch.unique(ids[2][ids[1] > 0]).tolist())
+        if B == 4096 and levels != list(range(8)):
+            raise AssertionError(f"{what}: levels {levels} in the views")
+        check(ep, ids, layouts, f"{what}, B={B}, N={ep.n_agents}, seen "
+                                f"levels {levels}")
+    gen = torch.Generator().manual_seed(seed)
+    for T, vs in ((16, 7), (5, 5)):
+        ep = ep_of(3, view_size=vs, view_tile_size=T)
+        shape = (3, vs, vs, 257)
+        ids = [torch.randint(0, hi, shape, generator=gen, dtype=torch.int32)
+               .cuda() for hi in (obs.N_BASE_APPEAR + 1, obs.N_AGENT_APPEAR,
+                                  C.N_PRESTIGE_LEVELS)]
+        check(ep, ids, layouts if T % 4 == 0 else layouts[:2],
+              f"random ids, T={T}, vs={vs}")
+    return float(worst)
+
+
 def phase_reference(seed):
     """The card against the CPU on a small input: env states and encode obs
     bit-equal over an autoreset run; logits within bf16 tolerance."""
@@ -273,37 +400,64 @@ def phase_reference(seed):
         raise AssertionError(f"logits/values card vs CPU differ by {err}")
     print(f"[reference] logits and values card vs CPU: max abs err "
           f"{err:.3e} (bf16, tolerance 5e-2)")
-    reference_train(seed)
+    reference_train(seed, "encode")
+    reference_image(seed)
 
 
-def reference_train(seed):
-    """A train step at a small size in float32 (goal_cycle 13x13, 4 agents,
-    B = 16, T = 8, hidden 32, palettes, 2 epochs x 4 minibatches): the
-    card's rollout and update, and the CPU's update of the card's
-    trajectory from the same weights and key. (The CPU does not roll out
-    itself: a logit that differs by a bf16 rounding can flip a sampled
-    action.) On the card K2f reads the table and writes its output in
-    bf16 and K2b reads dout in bf16, where the CPU stays in float32. A
-    hidden unit whose input sits within that rounding of zero takes the
-    other side of its ReLU, which changes a whole dout entry: on an H100
-    the first minibatch's embed gradient differed by 4 % of its max.
-    So the tolerances, per weight tensor: every metric within 1e-2; the
-    first minibatch's gradient within 0.15 of its L2 norm; the weights
-    after the step within 0.3 of the step's change in L2 norm (Adam moves
-    a weight by about lr whatever the size of its gradient, so a gradient
-    near zero may take the other sign). A layout, clip or optimizer fault
-    would miss them by far more."""
-    from marlgrid_tpu_torch.core import obs, rng
+def _train_config(kind):
+    """The reference train step's small config (goal_cycle 13x13, 4
+    agents, B = 16, T = 8, hidden 32, float32, 2 epochs x 4 minibatches):
+    'encode' with the mlp torso and palettes, or 'image' with cnn_s2d."""
+    from marlgrid_tpu_torch.core import obs
     from marlgrid_tpu_torch.core.state import EnvParams, default_agent_colors
     from marlgrid_tpu_torch.parallel import ppo
 
     ep = EnvParams(width=13, height=13, n_agents=4, scenario="goal_cycle",
-                   max_steps=12, reward_decay=False,
-                   observation_style="encode",
+                   max_steps=12, reward_decay=False, observation_style=kind,
                    agent_colors=default_agent_colors(4))
-    cfg = ppo.PPOConfig(n_envs=16, rollout_len=8, hidden=32, board_pool=4,
-                        dtype=torch.float32,
-                        embed_palettes=obs.encode_palettes(ep))
+    if kind == "encode":
+        return ep, ppo.PPOConfig(n_envs=16, rollout_len=8, hidden=32,
+                                 board_pool=4, dtype=torch.float32,
+                                 embed_palettes=obs.encode_palettes(ep))
+    return ep, ppo.PPOConfig(n_envs=16, rollout_len=8, hidden=32,
+                             board_pool=4, dtype=torch.float32,
+                             torso="cnn_s2d")
+
+
+#: the reference train step's tolerances (see reference_train), per path
+TRAIN_TOL = {
+    # K2f reads the table and writes its output in bf16 and K2b reads dout
+    # in bf16, where the CPU stays in float32. A hidden unit whose input
+    # sits within that rounding of zero takes the other side of its ReLU,
+    # which changes a whole dout entry: on an H100 the first minibatch's
+    # embed gradient differed by 4 % of its max.
+    "encode": dict(metrics=1e-2, grad=0.15, weights=0.3),
+    # float32 end to end (K3 is exact, the convolutions run without TF32):
+    # only the order of the float32 sums differs. On an H100 the step read
+    # metrics 2.4e-7, gradients 2.5e-6 and weights 3.0e-5 apart; the bounds
+    # sit 40x, 40x and 330x above those readings
+    "image": dict(metrics=1e-5, grad=1e-4, weights=1e-2),
+}
+
+
+def reference_train(seed, kind):
+    """A train step at a small size in float32 (:func:`_train_config`):
+    the card's rollout and update, and the CPU's update of the card's
+    trajectory (feature-major codes, or the stored EnvStates that the image
+    update re-renders) from the same weights and key. (The CPU does not
+    roll out itself: a logit that differs by a rounding can flip a sampled
+    action.) The tolerances of ``TRAIN_TOL[kind]``, per weight tensor:
+    every metric within ``metrics``; the first minibatch's gradient within
+    ``grad`` of its L2 norm; the weights after the step within ``weights``
+    of the step's change in L2 norm (Adam moves a weight by about lr
+    whatever the size of its gradient, so a gradient near zero may take
+    the other sign). A layout, clip or optimizer fault would miss them by
+    far more."""
+    from marlgrid_tpu_torch.core import rng
+    from marlgrid_tpu_torch.parallel import ppo
+
+    ep, cfg = _train_config(kind)
+    tol = TRAIN_TOL[kind]
     devs = {"card": "cuda", "cpu": "cpu"}
     nets = {who: ppo.init_state(ep, cfg, torch.Generator().manual_seed(seed),
                                 device=dev) for who, dev in devs.items()}
@@ -322,46 +476,98 @@ def reference_train(seed):
                           for n, p in net.named_parameters()})
             if not first else None))
         update = ppo.make_update(ep, cfg, net, opt, device=dev)
-        m = update({k: v.to(dev) for k, v in traj.items()}, last.to(dev),
-                   key.to(dev))
+        m = update({k: v.map(lambda x: x.to(dev)) if k == "obs" and
+                    kind == "image" else v.to(dev) for k, v in traj.items()},
+                   last.to(dev), key.to(dev))
         ms[who] = {k: float(v) for k, v in m.items()}
         ws[who] = {k: v.cpu().clone() for k, v in net.state_dict().items()}
     merr = max(abs(ms["card"][k] - ms["cpu"][k]) for k in ms["cpu"])
-    if not merr <= 1e-2:
-        raise AssertionError(f"train step metrics card vs CPU: {ms}")
+    if not merr <= tol["metrics"]:
+        raise AssertionError(f"{kind} train step metrics card vs CPU: {ms}")
     gerr = werr = 0.0
     for k, gc in grads["cpu"].items():
         e = float((grads["card"][k] - gc).norm() / gc.norm())
         d = float((ws["card"][k] - ws["cpu"][k]).norm()
                   / (ws["cpu"][k] - w0[k]).norm())
-        if not (e <= 0.15 and d <= 0.3):
+        if not (e <= tol["grad"] and d <= tol["weights"]):
             raise AssertionError(
-                f"train step {k}: first gradient {e:.3e} of its norm apart, "
-                f"weights {d:.3e} of the step's change apart")
+                f"{kind} train step {k}: first gradient {e:.3e} of its norm "
+                f"apart, weights {d:.3e} of the step's change apart")
         gerr, werr = max(gerr, e), max(werr, d)
-    print(f"[reference] float32 train step (B=16, T=8), card vs CPU: "
-          f"metrics max abs err {merr:.3e} (tolerance 1e-2); first "
-          f"minibatch's gradients within {gerr:.3e} of their L2 norm "
-          f"(tolerance 0.15); weights within {werr:.3e} of the step's "
-          f"change (tolerance 0.3); loss {ms['card']['loss']:.5f} card, "
+    print(f"[reference] float32 {kind} train step ({cfg.torso}, B=16, T=8), "
+          f"card vs CPU: metrics max abs err {merr:.3e} (tolerance "
+          f"{tol['metrics']:g}); first minibatch's gradients within "
+          f"{gerr:.3e} of their L2 norm (tolerance {tol['grad']:g}); weights "
+          f"within {werr:.3e} of the step's change (tolerance "
+          f"{tol['weights']:g}); loss {ms['card']['loss']:.5f} card, "
           f"{ms['cpu']['loss']:.5f} CPU")
 
 
-def phase_rollout(seed, card):
-    from marlgrid_tpu_torch.core import obs, rng
-    from marlgrid_tpu_torch.core.state import EnvParams, default_agent_colors
+def reference_image(seed):
+    """Image observations on the card against the CPU, bit-equal, over an
+    autoreset run (goal_cycle 13x13, 4 agents, B = 32, T = 16, episodes of
+    12 steps, prestige over all 8 levels), in the standard and the (N, B)
+    s2d layouts; the cnn_s2d policy's logits and values card vs CPU in
+    float32 (TF32 off) within 1e-3 absolute (two float32 conv stacks that
+    sum in different orders; a layout fault moves them by far more); then
+    the float32 image train step of :func:`reference_train`."""
+    from marlgrid_tpu_torch.core import grid_gen, obs, rng, step
     from marlgrid_tpu_torch.models import ActorCritic
-    from marlgrid_tpu_torch.ops import embed, transpose
     from marlgrid_tpu_torch.parallel import ppo
 
-    # python -m marlgrid_tpu.parallel.train's defaults (train.py:28-71 and
-    # :194-253): goal_cycle gets reward_decay=False and the palettes
-    ep = EnvParams(width=13, height=13, n_agents=4, scenario="goal_cycle",
-                   max_steps=250, view_size=7, observation_style="encode",
-                   reward_decay=False, agent_colors=default_agent_colors(4))
-    pals = obs.encode_palettes(ep)
-    cfg = ppo.PPOConfig(n_envs=4096, rollout_len=64, hidden=128,
-                        board_pool=256, embed_palettes=pals)
+    ep, _ = _train_config("image")
+    B, T, N = 32, 16, ep.n_agents
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        key = rng.PRNGKey(seed, device=dev)
+        s = _spread_prestige(ep, grid_gen.reset(ep, rng.split(key, B)))
+        pool = step.fresh_pool_tiled(ep, rng.fold_in(key, 7), 8, B)
+        acts = rng.randint(rng.fold_in(key, 3), (T, B, N), 0, 7)
+        views = []
+        for t in range(T):
+            s, _, _, _ = step.step_autoreset_with_fresh_batch(
+                ep, s, acts[t], step.rotate_fresh_batch(pool, t), salt=t)
+            views.append((obs.all_obs_image_b(ep, s),
+                          obs.all_obs_image_b(ep, s, bminor=True, s2d=True),
+                          int((s.step_count == 0).sum())))
+        runs[dev] = views
+    for t in range(T):
+        for i, layout in enumerate(("standard", "(N, B) s2d")):
+            if not torch.equal(runs["cpu"][t][i], runs["cuda"][t][i].cpu()):
+                raise AssertionError(f"image obs ({layout}) differ card vs "
+                                     f"CPU at step {t}")
+    n_done = sum(v[2] for v in runs["cuda"])
+    print(f"[reference] image obs bit-equal card vs CPU over {T} steps x {B} "
+          f"envs ({n_done} resets), standard and (N, B) s2d layouts")
+
+    cfg = ppo.PPOConfig(hidden=128, torso="cnn_s2d", dtype=torch.float32)
+    net_c = ActorCritic(cfg, 7, torch.Generator().manual_seed(seed),
+                        device="cpu", tile_size=ep.view_tile_size)
+    net_g = ActorCritic(cfg, 7, device="cuda", tile_size=ep.view_tile_size)
+    net_g.load_state_dict(net_c.state_dict())
+    x = runs["cpu"][-1][1]                          # (N, B, 14, 14, 48)
+    with torch.no_grad():
+        lc, vc = net_c(x)
+        lg, vg = net_g(x.cuda())
+    err = max(float((lc - lg.cpu()).abs().max()),
+              float((vc - vg.cpu()).abs().max()))
+    if lg.shape != (N, B, 7) or not err <= 1e-3:
+        raise AssertionError(f"cnn_s2d logits/values card vs CPU differ by "
+                             f"{err} ({tuple(lg.shape)})")
+    print(f"[reference] cnn_s2d logits and values card vs CPU: max abs err "
+          f"{err:.3e} (float32, tolerance 1e-3)")
+    reference_train(seed, "image")
+
+
+def phase_rollout(seed, card):
+    """One T = 64 rollout at the train CLI's defaults (:func:`cli_config`),
+    the launch counts read around it, then three more calls timed."""
+    from marlgrid_tpu_torch.core import rng
+    from marlgrid_tpu_torch.models import ActorCritic
+    from marlgrid_tpu_torch.parallel import ppo
+
+    ep, cfg = cli_config()
+    pals = cfg.embed_palettes
     B, T, N = cfg.n_envs, cfg.rollout_len, ep.n_agents
     net = ActorCritic(cfg, ep.view_size, torch.Generator().manual_seed(seed),
                       device="cuda")
@@ -371,19 +577,17 @@ def phase_rollout(seed, card):
     rollout = ppo.make_rollout(ep, cfg, net, device="cuda")
     sync()
 
-    transpose.transpose_bk.launches = 0
-    embed.onehot_embed.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     env, key2, traj, last = rollout(env, rng.fold_in(key, 2))
     sync()
     dt = time.perf_counter() - t0
-    counts = {"transpose_bk": transpose.transpose_bk.launches,
-              "onehot_embed_fwd": embed.onehot_embed.launches}
-    print(f"[rollout] launches on the main path: {counts} "
-          f"(want {T + 1} each)")
-    for name, n in counts.items():
-        if n != T + 1:
-            raise AssertionError(f"{name}: {n} launches, want {T + 1}")
+    counts = read_counts()
+    want = dict(transpose_bk=T + 1, onehot_embed_fwd=T + 1,
+                onehot_embed_bwd=0, compose_image_b=0)
+    print(f"[rollout] launches on the main path: {counts} (want {want})")
+    if counts != want:
+        raise AssertionError(f"rollout: launches {counts}, want {want}")
 
     if traj["obs"].shape != (T, N, 147, B) or traj["obs"].dtype != \
             torch.uint8:
@@ -426,19 +630,14 @@ def phase_rollout(seed, card):
 
 
 def phase_train(seed, card, steps=4):
-    """The train path at the rollout phase's full width: ``make_train_step``
-    (rollout + 2 epochs x 4 minibatches of 2048 blocks of 128 samples),
-    ``steps`` calls, the launch counts read around each call."""
-    from marlgrid_tpu_torch.core import obs, rng
-    from marlgrid_tpu_torch.core.state import EnvParams, default_agent_colors
-    from marlgrid_tpu_torch.ops import embed, transpose
+    """The train path at the train CLI's defaults (:func:`cli_config`):
+    ``make_train_step`` (rollout + 2 epochs x 4 minibatches of 2048 blocks
+    of 128 samples), ``steps`` calls, the launch counts read around each
+    call."""
+    from marlgrid_tpu_torch.core import rng
     from marlgrid_tpu_torch.parallel import ppo
 
-    ep = EnvParams(width=13, height=13, n_agents=4, scenario="goal_cycle",
-                   max_steps=250, view_size=7, observation_style="encode",
-                   reward_decay=False, agent_colors=default_agent_colors(4))
-    cfg = ppo.PPOConfig(n_envs=4096, rollout_len=64, hidden=128,
-                        board_pool=256, embed_palettes=obs.encode_palettes(ep))
+    ep, cfg = cli_config()
     B, T = cfg.n_envs, cfg.rollout_len
     net, opt = ppo.init_state(ep, cfg, torch.Generator().manual_seed(seed),
                               device="cuda")
@@ -450,20 +649,17 @@ def phase_train(seed, card, steps=4):
     w0 = [p.detach().clone() for p in net.parameters()]
     want = {"transpose_bk": T + 1,
             "onehot_embed_fwd": T + 1 + cfg.n_epochs * cfg.n_minibatches,
-            "onehot_embed_bwd": cfg.n_epochs * cfg.n_minibatches}
+            "onehot_embed_bwd": cfg.n_epochs * cfg.n_minibatches,
+            "compose_image_b": 0}
     secs, metrics = [], []
     for i in range(steps):
         sync()
-        transpose.transpose_bk.launches = 0
-        embed.onehot_embed.launches = 0
-        embed.onehot_embed_bwd.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         env, key, m = step(env, key)
         sync()
         secs.append(time.perf_counter() - t0)
-        counts = {"transpose_bk": transpose.transpose_bk.launches,
-                  "onehot_embed_fwd": embed.onehot_embed.launches,
-                  "onehot_embed_bwd": embed.onehot_embed_bwd.launches}
+        counts = read_counts()
         if counts != want:
             raise AssertionError(f"train step {i}: launches {counts}, want "
                                  f"{want}")
@@ -490,45 +686,154 @@ def phase_train(seed, card, steps=4):
                 ep=ep, cfg=cfg)
 
 
-def phase_cli(card):
-    """The training CLI at its defaults (the train path's config) on the
-    card: two iterations with a checkpoint, then one more resumed from it,
-    the launch counts read around the resumed run."""
+def cli_config(*flags):
+    """(EnvParams, PPOConfig) that ``python -m
+    marlgrid_tpu_torch.parallel.train`` builds from ``flags``: at no flags
+    the train path's config (goal_cycle 13x13 with reward_decay off, 4
+    agents, 7x7 views, B = 4096, T = 64, hidden 128, mlp torso with the
+    palettes, 2 epochs x 4 minibatches, board pool 256); with ``--obs
+    image`` the image train path's (8-pixel tiles, the cnn_s2d torso,
+    recompute_image_obs, no palettes)."""
+    from marlgrid_tpu_torch.parallel import train
+
+    return train.build(train.parse_args(list(flags)))
+
+
+def phase_image(seed, card, steps=4):
+    """The image train path at full width (``--obs image``'s
+    :func:`cli_config`): one
+    rollout through ``make_rollout`` (65 launches each of K1 and K3), then
+    ``steps`` train steps through ``make_train_step`` (73 each: 65 in the
+    rollout, one per minibatch re-render; K2f and K2b none), the launch
+    counts read around each call, the peak device memory, the mean episode
+    return of each step and train env-steps/s."""
+    from marlgrid_tpu_torch.core import rng
+    from marlgrid_tpu_torch.parallel import ppo
+
+    ep, cfg = cli_config("--obs", "image")
+    B, T, N = cfg.n_envs, cfg.rollout_len, ep.n_agents
+    net, opt = ppo.init_state(ep, cfg, torch.Generator().manual_seed(seed),
+                              device="cuda")
+    key = rng.PRNGKey(seed, device="cuda")
+    env = ppo.init_env_batch(ep, B, rng.fold_in(key, 1), stagger=True,
+                             device="cuda")
+    key = rng.fold_in(key, 2)
+    rollout = ppo.make_rollout(ep, cfg, net, device="cuda")
+    sync()
+    zero_counts()
+    t0 = time.perf_counter()
+    env, key, traj, last = rollout(env, key)
+    sync()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    want = dict(transpose_bk=T + 1, onehot_embed_fwd=0, onehot_embed_bwd=0,
+                compose_image_b=T + 1)
+    if counts != want:
+        raise AssertionError(f"image rollout: launches {counts}, want {want}")
+    st = traj["obs"]
+    if tuple(st.agent_pos.shape) != (T, B, N, 2) or \
+            tuple(traj["act"].shape) != (T, B, N):
+        raise AssertionError(f"image trajectory: states "
+                             f"{tuple(st.agent_pos.shape)}, actions "
+                             f"{tuple(traj['act'].shape)}")
+    for k in ("logp", "val"):
+        if not torch.isfinite(traj[k]).all():
+            raise AssertionError(f"image rollout: non-finite {k}")
+    if not torch.isfinite(last).all() or \
+            not ((traj["act"] >= 0) & (traj["act"] < 7)).all():
+        raise AssertionError("image rollout: last_value or actions")
+    roll_counts = counts
+    n_done = int(traj["done"].sum())
+    if n_done <= 0:
+        raise AssertionError("image rollout: no episode ended")
+    print(f"[image] rollout B={B} T={T} (cnn_s2d): first call {dt:.3f} s "
+          f"({B * T / dt:,.0f} env-steps/s), launches {counts}, {n_done} "
+          f"episodes ended [{card}]")
+
+    step = ppo.make_train_step(ep, cfg, net, opt, device="cuda")
+    w0 = [p.detach().clone() for p in net.parameters()]
+    n_up = cfg.n_epochs * cfg.n_minibatches
+    want = dict(transpose_bk=T + 1 + n_up, onehot_embed_fwd=0,
+                onehot_embed_bwd=0, compose_image_b=T + 1 + n_up)
+    secs, metrics = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        sync()
+        zero_counts()
+        t0 = time.perf_counter()
+        env, key, m = step(env, key)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        counts = read_counts()
+        if counts != want:
+            raise AssertionError(f"image train step {i}: launches {counts}, "
+                                 f"want {want}")
+        m = {k: float(v) for k, v in m.items()}
+        if not (math.isfinite(m["loss"]) and m["entropy"] > 0
+                and m["n_episodes"] > 0):
+            raise AssertionError(f"image train step {i}: metrics {m}")
+        metrics.append(m)
+        print(f"[image] train step {i}: {secs[-1]:.3f} s, loss "
+              f"{m['loss']:.5f}, entropy {m['entropy']:.4f}, ratio_dev "
+              f"{m['ratio_dev']:.4f}, {m['n_episodes']:.0f} episodes, mean "
+              f"episode return {m['episode_return']:.4f}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if all(torch.equal(p, q) for p, q in zip(net.parameters(), w0)):
+        raise AssertionError("the image train steps changed no weight")
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    print(f"[image] launches per image train step: {counts} (want {want})")
+    print(f"[image] B={B} T={T}, cnn_s2d, 2 epochs x 4 minibatches: "
+          f"{', '.join(f'{t:.3f}' for t in secs)} s per step; median of "
+          f"steps 1-{steps - 1}: {B * T / steady:,.0f} train env-steps/s; "
+          f"peak device memory {peak_gb:.2f} GB [{card}]")
+    return dict(counts=counts, rollout_counts=roll_counts, rollout_first_s=dt,
+                seconds=secs, metrics=metrics, peak_gb=peak_gb,
+                env_steps_per_s=B * T / steady, step=step, env=env, key=key,
+                traj=traj, ep=ep, cfg=cfg)
+
+
+def phase_cli(card, flags=(), want=None):
+    """The training CLI at its defaults plus ``flags`` (the train path's
+    config, or the image train path's with ``--obs image``) on the card:
+    two iterations with a checkpoint, then one more resumed from it, the
+    launch counts read around the resumed run (``want``)."""
     import tempfile
 
-    from marlgrid_tpu_torch.ops import embed, transpose
     from marlgrid_tpu_torch.parallel import train
     from marlgrid_tpu_torch.utils import checkpoint
 
+    flags = list(flags)
     with tempfile.TemporaryDirectory() as tmp:
         ck, log = f"{tmp}/ck", f"{tmp}/m.jsonl"
         t0 = time.perf_counter()
-        train.main(["--iters", "2", "--metrics", log, "--checkpoint-dir", ck,
-                    "--checkpoint-every", "2"])
+        train.main(flags + ["--iters", "2", "--metrics", log,
+                            "--checkpoint-dir", ck, "--checkpoint-every",
+                            "2"])
         first = time.perf_counter() - t0
         recs = [json.loads(line) for line in open(log)]
-        if checkpoint.steps(ck) != [2] or \
-                checkpoint.load_config(ck)["ppo"]["n_envs"] != 4096:
+        config = checkpoint.load_config(ck)
+        if checkpoint.steps(ck) != [2] or config["ppo"]["n_envs"] != 4096:
             raise AssertionError("the CLI wrote no full-width checkpoint")
-        transpose.transpose_bk.launches = 0
-        embed.onehot_embed.launches = 0
-        embed.onehot_embed_bwd.launches = 0
-        train.main(["--iters", "1", "--metrics", log, "--resume", ck])
-        counts = (transpose.transpose_bk.launches,
-                  embed.onehot_embed.launches,
-                  embed.onehot_embed_bwd.launches)
+        zero_counts()
+        train.main(flags + ["--iters", "1", "--metrics", log, "--resume",
+                            ck])
+        counts = read_counts()
         recs += [json.loads(line) for line in open(log)]
-    if counts != (65, 73, 8):
-        raise AssertionError(f"resumed CLI iteration: launches {counts}, "
-                             f"want (65, 73, 8)")
+    if counts != want:
+        raise AssertionError(f"resumed CLI iteration {flags}: launches "
+                             f"{counts}, want {want}")
     for r in recs:
         if not (math.isfinite(r["loss"]) and r["n_episodes"] > 0):
             raise AssertionError(f"CLI metrics {r}")
-    print(f"[cli] python -m marlgrid_tpu_torch.parallel.train (defaults): 2 "
-          f"iterations + checkpoint in {first:.2f} s, then 1 resumed; "
-          f"launches K1/K2f/K2b {counts}; env_steps_per_s "
+    print(f"[cli] python -m marlgrid_tpu_torch.parallel.train "
+          f"{' '.join(flags) or '(defaults)'} (torso "
+          f"{config['ppo']['torso']}): 2 iterations + checkpoint in "
+          f"{first:.2f} s, then 1 resumed; launches {counts}; "
+          f"env_steps_per_s "
           f"{', '.join(format(r['env_steps_per_s'], ',.0f') for r in recs)} "
           f"[{card}]")
+    return dict(env_steps_per_s=[r["env_steps_per_s"] for r in recs],
+                returns=[r["episode_return"] for r in recs], counts=counts)
 
 
 def profile_stages(run, prefixes, card, title):
@@ -605,9 +910,10 @@ def profile_stages(run, prefixes, card, title):
     return out
 
 
-def phase_profile(roll, train, card, T=8):
+def phase_profile(roll, train, image, card, T=8):
     """torch.profiler over a T-step rollout of the rollout path's config,
-    and over one train step of the train path."""
+    over one train step of the train path and over one of the image train
+    path."""
     import dataclasses
 
     from marlgrid_tpu_torch.parallel import ppo
@@ -625,18 +931,24 @@ def phase_profile(roll, train, card, T=8):
     tr = profile_stages(lambda: train["step"](train["env"], train["key"]),
                         ("rollout.", "update."), card,
                         "one train step (B=4096, T=64)")
-    return dict(rollout=out, train_step=tr)
+    im = profile_stages(lambda: image["step"](image["env"], image["key"]),
+                        ("rollout.", "update."), card,
+                        "one image train step (B=4096, T=64, cnn_s2d)")
+    return dict(rollout=out, train_step=tr, image_train_step=im)
 
 
-def phase_env_only(seed, card):
+def phase_env_only(seed, card, style="encode"):
+    """bench.py's config (build_params, main's defaults; ``--obs image``
+    with ``style='image'``): cluttered 15x15, 3 agents, 25 clutter,
+    B = 32768, board pool 256, T cut from 64 to 16 random actions, the
+    batch-minor observations of every step folded into a checksum. K1 (and
+    K3 for images) launches once per step."""
     from marlgrid_tpu_torch.core import grid_gen, obs, rng, step
     from marlgrid_tpu_torch.core.state import EnvParams, default_agent_colors
-    from marlgrid_tpu_torch.ops import transpose
 
-    # bench.py's config (build_params, main's defaults)
     ep = EnvParams(width=15, height=15, n_agents=3, scenario="cluttered",
                    n_clutter=25, max_steps=250, view_size=7,
-                   observation_style="encode",
+                   observation_style=style,
                    agent_colors=default_agent_colors(3))
     B, T = 32768, 16
     pool = max(k for k in range(1, 257) if B % k == 0)
@@ -653,30 +965,37 @@ def phase_env_only(seed, card):
             state, rew, done, _ = step.step_autoreset_with_fresh_batch(
                 ep, state, a, step.rotate_fresh_batch(fresh, t), salt=t)
             o = obs.all_agent_obs_b(ep, state, bminor=True)
-            acc = acc + rew.sum() + o.float().mean()
+            if style == "image":
+                # an integer sum of the uint8 pixels: no float copy of them
+                acc = acc + rew.sum() + o.sum(dtype=torch.int64) / o.numel()
+            else:
+                acc = acc + rew.sum() + o.float().mean()
         return state, key, acc
 
     state, key, acc = run(state, key)          # warm-up
     sync()
+    want = dict(transpose_bk=T, onehot_embed_fwd=0, onehot_embed_bwd=0,
+                compose_image_b=T if style == "image" else 0)
     reps = []
     for _ in range(3):
-        transpose.transpose_bk.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         state, key, acc = run(state, key)
         checksum = float(acc)
         reps.append(time.perf_counter() - t0)
-        n = transpose.transpose_bk.launches
-        if n != T:
-            raise AssertionError(f"env-only phase: {n} K1 launches, "
-                                 f"want {T}")
-        if checksum != checksum or abs(checksum) == float("inf"):
+        counts = read_counts()
+        if counts != want:
+            raise AssertionError(f"env-only phase ({style}): launches "
+                                 f"{counts}, want {want}")
+        if not math.isfinite(checksum):
             raise AssertionError("env-only checksum is not finite")
     dt = sorted(reps)[1]
-    print(f"[env] cluttered 15x15, 3 agents, B={B}, T={T}, pool {pool}: "
-          f"{', '.join(f'{r:.3f}' for r in reps)} s; median "
-          f"{B * T / dt:,.0f} env-steps/s, K1 launches {n} per run "
+    print(f"[env] {style}: cluttered 15x15, 3 agents, B={B}, T={T}, pool "
+          f"{pool}: {', '.join(f'{r:.3f}' for r in reps)} s; median "
+          f"{B * T / dt:,.0f} env-steps/s, launches {counts} per run "
           f"[{card}]")
-    return dict(env_steps_per_s=B * T / dt, seconds=reps, k1_launches=n)
+    return dict(env_steps_per_s=B * T / dt, seconds=reps, counts=counts,
+                ep=ep, state=state)
 
 
 def _bag_rows(codes, widths, values, cells, cw):
@@ -788,6 +1107,84 @@ def time_k2b(codes, table, widths, values, card, seed):
     return k
 
 
+def time_k3(ep, ids, layout, where, card, plain_iters=3):
+    """K3 on ``ids`` in its caller's ``layout`` beside its bound (output
+    bytes plus id bytes; the float multiplies of agent-covered bytes as its
+    operations), its plain version and ``F.embedding`` of the base ids
+    alone: no single PyTorch call computes the composite, and a gather of
+    the base sprites, which writes the same bytes, is a floor for any
+    library route. Then K3's output against its plain version's on the same
+    ids, bit-exact (max abs err 0)."""
+    import torch.nn.functional as F
+
+    from marlgrid_tpu_torch.ops import sprite
+
+    base_id, agent_id, _ = ids
+    N, vs, _, B = base_id.shape
+    T = ep.view_tile_size
+    blut, alut = sprite.tables(T, base_id.device)
+    covered = (alut[..., 3] > 0).sum((1, 2))          # alpha pixels per row
+    k = dict(bytes=N * B * (vs * T) ** 2 * 3 + 3 * base_id.numel() * 4,
+             ops=int(covered[agent_id.long()].sum()) * 3)
+    k["ms"], k["host_ms"] = time_ms(
+        lambda: sprite.compose_image_b(ep, *ids, **layout), iters=20)
+    k["plain_ms"], _ = time_ms(
+        lambda: sprite.compose_image_b_plain(ep, *ids, **layout),
+        iters=plain_iters, warmup=1)
+    idx = base_id.reshape(-1).long()
+    table = blut.reshape(blut.shape[0], -1)
+    k["library_ms"], _ = time_ms(lambda: F.embedding(idx, table), iters=20)
+    del idx, table
+    out = sprite.compose_image_b(ep, *ids, **layout)
+    ref = sprite.compose_image_b_plain(ep, *ids, **layout)
+    k["max_abs_err"] = max_byte_err(out, ref)
+    if k["max_abs_err"] != 0:
+        raise AssertionError(f"K3 differs from its plain version at the "
+                             f"{where}: max abs err {k['max_abs_err']}")
+    del out, ref
+    _bound(k)
+    print(f"[time] K3 at the {where} ({N * B} images of {vs * T}x{vs * T}x3,"
+          f" {layout}): {k['ms'] * 1e3:.2f} us (host "
+          f"{k['host_ms'] * 1e3:.2f} us per call), plain "
+          f"{k['plain_ms'] * 1e3:.2f} us, F.embedding of the base ids "
+          f"{k['library_ms'] * 1e3:.2f} us, bound {k['bound_ms'] * 1e3:.2f} "
+          f"us ({k['bound_by']}: {k['bytes'] / 1e6:.1f} MB); bit-exact "
+          f"against the plain version [{card}]")
+    return k
+
+
+def phase_timings_k3(image, env_img, card, seed):
+    """K3's device times at its three shapes: the image rollout's render
+    (the final env state of the image phase, standard s2d layout), the
+    update's minibatch re-render (2048 random state blocks of the image
+    rollout's trajectory, 65,536 envs, (N, B) s2d layout) and the image
+    env-only render (B = 32768, N = 3, (N, B) layout), each also held
+    bit-exact against the plain version."""
+    from marlgrid_tpu_torch.core import obs
+    from marlgrid_tpu_torch.parallel import ppo
+
+    ep, cfg = image["ep"], image["cfg"]
+    B, T = cfg.n_envs, cfg.rollout_len
+    out = dict(rollout=time_k3(ep, obs.image_ids(ep, image["env"]),
+                               dict(s2d=True), "image rollout's shape", card))
+    c = ppo.state_block_size(B, T)
+    G = T * (B // c)
+    pick = torch.randperm(G, generator=torch.Generator().manual_seed(seed))
+    pick = pick[:G // cfg.n_minibatches].cuda()
+    mb = image["traj"]["obs"].map(
+        lambda x: x.reshape((G, c) + x.shape[2:])[pick].reshape(
+            (-1,) + x.shape[2:]))
+    out["update"] = time_k3(ep, obs.image_ids(ep, mb),
+                            dict(nb_layout=True, s2d=True), "update's shape",
+                            card, plain_iters=2)
+    del mb
+    out["env_only"] = time_k3(env_img["ep"],
+                              obs.image_ids(env_img["ep"], env_img["state"]),
+                              dict(nb_layout=True), "image env-only shape",
+                              card, plain_iters=2)
+    return out
+
+
 def phase_timings(roll, card, seed):
     """The kernels' device times (launches queued behind a busy card) and
     host times per call (card idle), at the rollout's shapes (K1, K2f) and
@@ -856,29 +1253,46 @@ def main(argv=None):
                    agent_colors=default_agent_colors(4))
     pals = obs.encode_palettes(gc)
     errs = dict(transpose_bk=k1_err, onehot_embed_fwd=phase_embed(pals),
-                onehot_embed_bwd=phase_embed_bwd(pals))
+                onehot_embed_bwd=phase_embed_bwd(pals),
+                compose_image_b=phase_sprite(args.seed))
     phase_reference(args.seed)
     roll = phase_rollout(args.seed, card)
     train = phase_train(args.seed, card)
-    phase_cli(card)
-    prof = phase_profile(roll, train, card)
+    cli = phase_cli(card, (), dict(transpose_bk=65, onehot_embed_fwd=73,
+                                   onehot_embed_bwd=8, compose_image_b=0))
+    image = phase_image(args.seed, card)
+    cli_image = phase_cli(card, ("--obs", "image"), dict(
+        transpose_bk=73, onehot_embed_fwd=0, onehot_embed_bwd=0,
+        compose_image_b=73))
+    prof = phase_profile(roll, train, image, card)
     env = phase_env_only(args.seed, card)
+    env_img = phase_env_only(args.seed, card, "image")
     tim = phase_timings(roll, card, args.seed)
+    tim["compose_image_b"] = phase_timings_k3(image, env_img, card,
+                                              args.seed)
+    # K3's error: the sprite phase's and that of the three timed shapes
+    errs["compose_image_b"] = float(max(
+        [errs["compose_image_b"]]
+        + [k["max_abs_err"] for k in tim["compose_image_b"].values()]))
 
-    # launches: per train step on the train path, which runs every kernel
-    # (the rollout path's counts, K1 and K2f 65 each, are in --json)
+    # launches: per train step on the train path (K1, K2f, K2b) and on the
+    # image train path (K3, which runs K1 73 times a step too); K3's times
+    # are those at the update's shape, where most of its time goes (the
+    # rollout's and the env-only shape's are in --json)
     kernels = []
-    for name, src, line in (
-            ("transpose_bk", "transpose.cu", "transpose.py:41"),
-            ("onehot_embed_fwd", "embed.cu", "embed.py:245"),
-            ("onehot_embed_bwd", "embed_bwd.cu", "embed.py:264")):
-        k = tim[name]
+    for name, src, line, path in (
+            ("transpose_bk", "transpose.cu", "transpose.py:41", train),
+            ("onehot_embed_fwd", "embed.cu", "embed.py:245", train),
+            ("onehot_embed_bwd", "embed_bwd.cu", "embed.py:264", train),
+            ("compose_image_b", "sprite.cu", "sprite.py:280", image)):
+        k = tim[name]["update"] if name == "compose_image_b" else tim[name]
         kernels.append(dict(
             name=name, route="cuda", source=f"marlgrid_tpu_torch/csrc/{src}",
             replaces=f"marlgrid_tpu/ops/{line}",
-            launches=train["counts"][name], max_abs_err=errs[name],
+            launches=path["counts"][name], max_abs_err=errs[name],
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"]))
+    total_s = time.perf_counter() - t_start
     if args.json:
         with open(args.json, "w") as f:
             json.dump(dict(card=card, kernels=kernels,
@@ -888,15 +1302,28 @@ def main(argv=None):
                            rollout_call_s=roll["steady_s"],
                            train_env_steps_per_s=train["env_steps_per_s"],
                            train_step_s=train["seconds"],
-                           train_metrics=train["metrics"],
-                           env_only=env, profile=prof, timings=tim,
-                           total_s=time.perf_counter() - t_start), f,
+                           train_metrics=train["metrics"], cli=cli,
+                           image=dict(
+                               rollout_counts=image["rollout_counts"],
+                               rollout_first_call_s=image["rollout_first_s"],
+                               counts=image["counts"],
+                               env_steps_per_s=image["env_steps_per_s"],
+                               step_s=image["seconds"],
+                               metrics=image["metrics"],
+                               peak_gb=image["peak_gb"]),
+                           cli_image=cli_image,
+                           env_only={k: env[k] for k in (
+                               "env_steps_per_s", "seconds", "counts")},
+                           env_only_image={k: env_img[k] for k in (
+                               "env_steps_per_s", "seconds", "counts")},
+                           profile=prof, timings=tim, total_s=total_s), f,
                       indent=1)
-    print(f"[done] all phases passed in "
-          f"{time.perf_counter() - t_start:.1f} s; rollout "
+    print(f"[done] all phases passed in {total_s:.1f} s; rollout "
           f"{roll['env_steps_per_s']:,.0f} env-steps/s, train "
-          f"{train['env_steps_per_s']:,.0f} env-steps/s, env-only "
-          f"{env['env_steps_per_s']:,.0f} env-steps/s on {card}")
+          f"{train['env_steps_per_s']:,.0f}, image train "
+          f"{image['env_steps_per_s']:,.0f}, env-only "
+          f"{env['env_steps_per_s']:,.0f}, image env-only "
+          f"{env_img['env_steps_per_s']:,.0f} env-steps/s on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

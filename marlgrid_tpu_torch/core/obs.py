@@ -1,13 +1,16 @@
-"""Batched egocentric 'encode' observations (SPEC §7, PyTorch port).
+"""Batched egocentric observations (SPEC §7, PyTorch port): 'encode'
+codes and 'image' pixels.
 
-Counterpart of the encode path of ``marlgrid_tpu/core/obs.py``: the
-batch-minor ``*_b`` functions. The window extraction reads the flat packed
+Counterpart of the batch-minor ``*_b`` functions of
+``marlgrid_tpu/core/obs.py``. The window extraction reads the flat packed
 board with one gather per env (the JAX package uses a one-hot einsum pair
 because TPU gathers serialize; int32 is exact where JAX goes through f32,
 all packed values being < 2**24), then the ``(B, K) -> (K, B)`` layout swap
 goes through the transpose kernel (ops/transpose.py). Occlusion is the same
-closed-form per-column reachability as ``process_vis_b``. Image and rich
-observations wait for the pixels slice (ROADMAP Slice C).
+closed-form per-column reachability as ``process_vis_b``. Image
+observations (and the pov of the 'rich' style) turn the view cells into
+sprite-table ids and render them through the sprite-composite kernel
+(ops/sprite.py).
 """
 from __future__ import annotations
 
@@ -19,6 +22,10 @@ import torch
 from ..device import const
 from . import constants as C
 from .state import EnvParams, EnvState
+
+NS = 3  # sprite-relevant states per type (door open/closed/locked)
+N_BASE_APPEAR = C.N_TYPES * C.N_COLORS * NS
+N_AGENT_APPEAR = 1 + C.N_COLORS * 4  # 0 = no agent overlay
 
 # Cell packing: one int carries (type, color, state) plus the agent overlay
 # (see pack_grid_with_agents).
@@ -92,11 +99,22 @@ def view_coords_bminor(params: EnvParams, bstate: EnvState, observers=None):
     return wx, wy, inb
 
 
-def pack_grid_with_agents(params: EnvParams,
-                          bstate: EnvState) -> torch.Tensor:
+def prestige_level(params: EnvParams, prestige) -> torch.Tensor:
+    """(…, N) int32 quantized prestige level per agent (SPEC §8):
+    ``floor(prestige / scale)`` in float32, clipped to the levels; the
+    scale may differ per observed agent (last axis)."""
+    scale = const(params.prestige_scale_tuple(), torch.float32,
+                  prestige.device)
+    return torch.clamp(torch.floor(prestige / scale).to(torch.int32), 0,
+                       C.N_PRESTIGE_LEVELS - 1)
+
+
+def pack_grid_with_agents(params: EnvParams, bstate: EnvState,
+                          with_lvl=False) -> torch.Tensor:
     """(B, W*H) int32 packed board WITH the agent overlay painted in:
-    value = cell + _PACK_A*(1 + color*4 + absdir). (The image path's
-    prestige-level field comes with ROADMAP Slice C.)
+    value = cell + _PACK_A*(1 + color*4 + absdir + 64*prestige_level)
+    (the level field only ``with_lvl``, for the image path; at most about
+    15.9M, well inside int32).
 
     Painted high-index-first so the lowest agent index wins a shared cell
     (ghost-mode stacking, SPEC §7); inactive agents hidden when ghost_mode.
@@ -108,11 +126,14 @@ def pack_grid_with_agents(params: EnvParams,
             + bstate.agent_pos[..., 1])                       # (B, N)
     shown = bstate.active if params.ghost_mode \
         else torch.ones_like(bstate.active)
+    lvl = prestige_level(params, bstate.prestige) if with_lvl else None
     plane = torch.zeros((flat.shape[0], WH), dtype=torch.int32, device=dev)
     cells = torch.arange(WH, device=dev)
     for j in reversed(range(N)):           # lowest index paints last/wins
         sel = (flat[:, j:j + 1] == cells) & shown[:, j:j + 1]
         val = (1 + params.agent_colors[j] * 4) + bstate.agent_dir[:, j:j + 1]
+        if with_lvl:
+            val = val + lvl[:, j:j + 1] * 64
         plane = torch.where(sel, val, plane)
     return pack_grid(bstate) + plane * _PACK_A
 
@@ -144,13 +165,15 @@ def extract_views_b(params: EnvParams, bstate: EnvState, wx, wy, inb,
 
 
 def all_view_cells_b(params: EnvParams, bstate: EnvState, observers=None,
-                     packed=None):
+                     packed=None, with_dim=False):
     """Batched view cells, all outputs (n, vs, vs, B) batch-minor: type,
     color, state, agent-present, agent color and relative agent dir,
-    decoded from the extraction of the agent-painted board."""
+    decoded from the extraction of the agent-painted board; ``with_dim``
+    appends the observed agent's prestige level (int32, 0 where no agent),
+    read from the board's level field."""
     wx, wy, inb = view_coords_bminor(params, bstate, observers)
     if packed is None:
-        packed = pack_grid_with_agents(params, bstate)
+        packed = pack_grid_with_agents(params, bstate, with_lvl=with_dim)
     pv = extract_views_b(params, bstate, wx, wy, inb, packed, observers)
     low = pv % _PACK_A
     vt = low % _PACK_C
@@ -163,7 +186,9 @@ def all_view_cells_b(params: EnvParams, bstate: EnvState, observers=None,
     _, adir = _observer_agents(bstate, observers)
     dobs = adir.T[:, None, None, :]                 # observer dir (n,1,1,B)
     reldir = torch.where(any_agent, ((A - 1) % 4 - dobs + 3) % 4, 0)
-    return vt, vc, vst, any_agent, acolor, reldir
+    if not with_dim:
+        return vt, vc, vst, any_agent, acolor, reldir
+    return vt, vc, vst, any_agent, acolor, reldir, ab // 64
 
 
 def transparency_b(vt, vst):
@@ -236,14 +261,61 @@ def all_obs_encode_b(params: EnvParams, bstate: EnvState, bminor=False,
     return out.permute(4, 1, 2, 3, 0)
 
 
-def all_agent_obs_b(params: EnvParams, bstate: EnvState, bminor=False):
-    """Batched obs for a batch-leading state; the encode style only."""
-    if params.observation_style != "encode":
-        raise NotImplementedError(
-            f"observation_style={params.observation_style!r}: image and "
-            f"rich observations are ported with the pixels slice (ROADMAP "
-            f"Slice C)")
-    return all_obs_encode_b(params, bstate, bminor=bminor)
+def base_appearance(vt, vc, vst):
+    """Sprite-table row of the cell's base object (door state only)."""
+    s_vis = torch.where(vt == C.DOOR, torch.clamp(vst, 0, NS - 1), 0)
+    return (vt * C.N_COLORS + vc) * NS + s_vis
+
+
+def image_ids(params: EnvParams, bstate: EnvState, observers=None,
+              packed=None):
+    """The sprite-table ids of every view cell, (n, vs, vs, B) contiguous
+    int32 each: base id (N_BASE_APPEAR = black, an invisible cell), agent
+    id (0 = none, else 1 + color*4 + reldir) and the observed agent's
+    prestige level. Hidden types are blanked after transparency is taken
+    from the raw cells. ``observers``/``packed``: see
+    :func:`all_obs_encode_b` (a shared board must be painted
+    ``with_lvl=True``)."""
+    vt, vc, vst, any_agent, acolor, reldir, alvl = all_view_cells_b(
+        params, bstate, observers=observers, packed=packed, with_dim=True)
+    base_id = base_appearance(*apply_hidden(params, vt, vc, vst))
+    agent_id = torch.where(any_agent, 1 + acolor * 4 + reldir, 0)
+    if not params.see_through_walls:
+        vis = process_vis_b(transparency_b(vt, vst), params.view_size,
+                            params.view_offset)
+        base_id = torch.where(vis, base_id, N_BASE_APPEAR)
+        agent_id = torch.where(vis, agent_id, 0)
+    return tuple(a.to(torch.int32).contiguous()
+                 for a in (base_id, agent_id, alvl))
+
+
+def all_obs_image_b(params: EnvParams, bstate: EnvState, bminor=False,
+                    s2d=False, observers=None, packed=None) -> torch.Tensor:
+    """Batched 'image' obs — bit-equal to the JAX ``all_obs_image_b``.
+
+    (B, n, vs*T, vs*T, 3) uint8; ``bminor=True``: (n, B, ...), the layout
+    whose leading dims the update folds into one batch; ``s2d=True``: the
+    space-to-depth (..., vs*T/4, vs*T/4, 48) layout the 'cnn_s2d' torso
+    reads. The ids of :func:`image_ids` render through the sprite
+    composite (``ops/sprite.py``: kernel K3 on the card, its plain version
+    on the CPU).
+    """
+    from ..ops import sprite
+
+    return sprite.compose_image_b(
+        params, *image_ids(params, bstate, observers, packed),
+        nb_layout=bminor, s2d=s2d)
+
+
+def all_agent_obs_b(params: EnvParams, bstate: EnvState, bminor=False,
+                    s2d=False):
+    """Batched obs for a batch-leading state: 'encode' codes (B, N, vs, vs,
+    3) int32, or (3, N, vs, vs, B) with ``bminor``; any other style renders
+    the image pov (B, N, ...) uint8, or (N, B, ...) with ``bminor``, in the
+    s2d layout with ``s2d`` (see :func:`all_obs_image_b`)."""
+    if params.observation_style == "encode":
+        return all_obs_encode_b(params, bstate, bminor=bminor)
+    return all_obs_image_b(params, bstate, bminor=bminor, s2d=s2d)
 
 
 def encode_palettes(params: EnvParams):

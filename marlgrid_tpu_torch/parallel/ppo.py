@@ -1,20 +1,29 @@
 """PPO on the batched env (PyTorch port): config, env init, the rollout
 and the update.
 
-Counterpart of ``marlgrid_tpu/parallel/ppo.py`` on the encode/mlp path (the
-JAX ``bm_store`` branch, one device): ``PPOConfig`` with the same fields and
-dict round trip, ``init_env_batch``, ``init_state`` (the network and Adam
-behind an optax-style global-norm clip), ``episode_metrics``, ``_gae``,
-``make_rollout`` (the JAX ``rollout`` inside ``make_train_step``, a Python
-loop in place of ``lax.scan``), ``make_update`` (the block-granular
-minibatch update) and ``make_train_step`` (the two, with the JAX step's key
-plumbing). Observations stay feature-major
-``(N, 3*vs*vs, B)`` uint8 end to end: the policy reads them as they come
-out of the obs pipeline, the trajectory stores them as they are, and the
-update cuts them into ``(G, F, c)`` blocks without moving B off the last
-axis. The network and the optimizer are stateful torch objects: the step
-functions update them in place and take and return the env state and the
-key, where the JAX step functions take and return params and opt_state.
+Counterpart of ``marlgrid_tpu/parallel/ppo.py`` on one device, for its two
+feedforward paths:
+
+- encode observations with the mlp torso (the JAX ``bm_store`` branch):
+  observations stay feature-major ``(N, 3*vs*vs, B)`` uint8 end to end;
+  the policy reads them as they come out of the obs pipeline, the
+  trajectory stores them as they are, and the update cuts them into
+  ``(G, F, c)`` blocks without moving B off the last axis;
+- image and 'rich' observations with the 'cnn_s2d' or 'cnn_image' torso
+  (the JAX ``recompute_image_obs`` branch): the rollout renders every step
+  (kernel K3), the trajectory stores the pre-step ``EnvState`` of every
+  step, and the update re-renders each minibatch's observations from the
+  stored states, ``rich_aux`` included.
+
+``PPOConfig`` has the JAX fields and dict round trip; ``init_env_batch``,
+``init_state`` (the network and Adam behind an optax-style global-norm
+clip), ``episode_metrics``, ``_gae``, ``make_rollout`` (the JAX ``rollout``
+inside ``make_train_step``, a Python loop in place of ``lax.scan``),
+``make_update`` (the block-granular minibatch update) and
+``make_train_step`` (the two, with the JAX step's key plumbing). The
+network and the optimizer are stateful torch objects: the step functions
+update them in place and take and return the env state and the key, where
+the JAX step functions take and return params and opt_state.
 """
 from __future__ import annotations
 
@@ -27,8 +36,8 @@ from torch.nn import functional as F
 from torch.profiler import record_function
 
 from ..core import grid_gen, obs as obs_mod, rng, step as step_mod
-from ..core.state import EnvParams
-from ..device import resolve
+from ..core.state import FIELDS, EnvParams, EnvState
+from ..device import const, resolve
 from ..models import ActorCritic
 
 
@@ -82,6 +91,72 @@ def ppo_config_from_dict(d: dict) -> PPOConfig:
     return PPOConfig(**{k: detuple(v) for k, v in d.items()})
 
 
+def obs_spec(env_params: EnvParams, cfg: PPOConfig = None):
+    """(shape, dtype) of one agent's observation ('rich': the pov)."""
+    if env_params.observation_style in ("image", "rich"):
+        side = env_params.view_size * env_params.view_tile_size
+        if cfg is not None and cfg.torso == "cnn_s2d":
+            # the space-to-depth layout the sprite kernel writes directly
+            return (side // 4, side // 4, 48), torch.uint8
+        return (side, side, 3), torch.uint8
+    return (env_params.view_size, env_params.view_size, 3), torch.int32
+
+
+def aux_dim(env_params: EnvParams) -> int:
+    """Width of the 'rich' style's observe_* feature vector."""
+    return (int(env_params.observe_rewards)
+            + 2 * int(env_params.observe_position)
+            + 4 * int(env_params.observe_orientation))
+
+
+def rich_aux(env_params: EnvParams, state: EnvState):
+    """(B, N, d) float32 observe_* features of a batch-leading state — the
+    'rich' dict's non-pov fields, learner-normalized (position scaled to
+    [0, 1], orientation one-hot) as the JAX ``rich_aux``. None when no
+    observe_* flag is set."""
+    parts = []
+    if env_params.observe_rewards:
+        parts.append(state.last_reward[..., None])
+    if env_params.observe_position:
+        sc = const([1.0 / max(env_params.width - 1, 1),
+                    1.0 / max(env_params.height - 1, 1)], torch.float32,
+                   state.agent_pos.device)
+        parts.append(state.agent_pos.float() * sc)
+    if env_params.observe_orientation:
+        parts.append((state.agent_dir[..., None] == torch.arange(
+            4, device=state.agent_dir.device)).float())
+    return torch.cat(parts, -1) if parts else None
+
+
+def _recompute(env_params: EnvParams, cfg: PPOConfig) -> bool:
+    """Which of the port's two paths a configuration takes: False for
+    encode/mlp (the feature-major store), True for image or rich obs with
+    a pixels torso (the EnvState store, re-rendered in the update). Raises
+    for the JAX package's other paths, naming the ROADMAP slice that
+    brings them."""
+    if env_params.has_hetero_obs:
+        raise NotImplementedError(
+            "heterogeneous per-agent obs groups: ROADMAP Slice E")
+    if cfg.rnn:
+        raise NotImplementedError(
+            f"rnn={cfg.rnn!r}: recurrent cells come with ROADMAP Slice D")
+    if env_params.observation_style == "encode":
+        if cfg.torso != "mlp":
+            raise NotImplementedError(
+                f"torso={cfg.torso!r} on encode obs trains from the "
+                f"row-major obs store, left over from ROADMAP Slice C "
+                f"(pixels)")
+        return False
+    if cfg.torso not in ("cnn_s2d", "cnn_image"):
+        raise ValueError(f"{env_params.observation_style} obs train with a "
+                         f"cnn_s2d or cnn_image torso, not {cfg.torso!r}")
+    if not cfg.recompute_image_obs:
+        raise NotImplementedError(
+            "recompute_image_obs=False (the rendered-pixels row store) is "
+            "left over from ROADMAP Slice C (pixels)")
+    return True
+
+
 def init_env_batch(env_params: EnvParams, n_envs: int, key,
                    stagger: bool = True, device="cuda"):
     """Reset of ``n_envs`` envs from ``split(key, n_envs)``; ``stagger``
@@ -102,11 +177,11 @@ def init_state(env_params: EnvParams, cfg: PPOConfig, generator=None,
     b2 0.999, eps 1e-8 outside the square root, single-tensor form). The
     update clips the gradients' global norm to ``cfg.max_grad_norm`` before
     each Adam step (:func:`clip_by_global_norm`), as optax's chain does."""
-    if env_params.observation_style != "encode" or env_params.has_hetero_obs:
-        raise NotImplementedError(
-            "init_state: homogeneous encode observations only (image/rich "
-            "obs: ROADMAP Slice C; hetero groups: Slice E)")
-    net = ActorCritic(cfg, env_params.view_size, generator, device=device)
+    rich = env_params.observation_style == "rich"
+    _recompute(env_params, cfg)
+    net = ActorCritic(cfg, env_params.view_size, generator, device=device,
+                      tile_size=env_params.view_tile_size,
+                      aux_dim=aux_dim(env_params) if rich else 0)
     opt = torch.optim.Adam(net.parameters(), lr=cfg.lr, betas=(0.9, 0.999),
                            eps=1e-8, foreach=False)
     return net, opt
@@ -158,16 +233,27 @@ def _gae(rew, value, done, last_value, gamma: float, lam: float):
     return adv, adv + value
 
 
+def _stack_states(states) -> EnvState:
+    """Per-step states (B, ...) stacked to one state with (T, B, ...)
+    leaves."""
+    return EnvState(**{f: torch.stack([getattr(s, f) for s in states])
+                       for f in FIELDS})
+
+
 def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda"):
     """Build ``rollout(env_state, key) -> (env_state, key, traj,
-    last_value)``, the JAX ``rollout`` of ``make_train_step`` on the
-    encode/mlp path (one device, no shards).
+    last_value)``, the JAX ``rollout`` of ``make_train_step`` (one device,
+    no shards).
 
-    Per step t: the policy acts on the feature-major obs, actions come from
+    Per step t: the policy acts on the observation, actions come from
     ``categorical`` under the step's key, the envs step with the pool
     autoreset (``board_pool`` layouts, rotated by t, salt t). ``traj``
-    leaves are stacked over T: ``obs`` (T, N, F, B) uint8, ``act``/
-    ``logp``/``val``/``rew`` (T, N, B), ``done``/``ep_*`` (T, B).
+    leaves are stacked over T. Encode/mlp: ``obs`` (T, N, F, B) uint8,
+    ``act``/``logp``/``val``/``rew`` (T, N, B). Image or rich with a pixels
+    torso: the policy reads (B, N, ...) images (s2d for 'cnn_s2d', with
+    ``rich_aux`` beside them for 'rich'), ``obs`` is the pre-step
+    ``EnvState`` with (T, B, ...) leaves, ``act``/``logp``/``val``/``rew``
+    are (T, B, N). ``done``/``ep_*`` are (T, B) either way.
 
     Each stage runs under a ``torch.profiler.record_function`` label
     (``rollout.fresh_pool``, ``.obs``, ``.policy``, ``.sample``,
@@ -175,24 +261,25 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda"):
     no profiler running a label costs about a microsecond.
     """
     dev = resolve(device)
-    if env_params.observation_style != "encode" or env_params.has_hetero_obs:
-        raise NotImplementedError(
-            "make_rollout: homogeneous encode observations only (image/rich "
-            "obs: ROADMAP Slice C; hetero groups: Slice E)")
-    if cfg.torso != "mlp" or cfg.rnn:
-        raise NotImplementedError(
-            f"make_rollout: torso={cfg.torso!r} rnn={cfg.rnn!r}; the port "
-            f"has the feedforward mlp torso (cnn: Slice C, rnn: Slice D)")
+    recompute = _recompute(env_params, cfg)
+    rich = env_params.observation_style == "rich"
+    pov_params = env_params.replace(observation_style="image")
+    s2d = cfg.torso == "cnn_s2d"
     B, T, N = cfg.n_envs, cfg.rollout_len, env_params.n_agents
     Fd = 3 * env_params.view_size ** 2
     # board-pool size: the largest divisor of B not above cfg.board_pool
     K = max(k for k in range(1, min(cfg.board_pool, B) + 1) if B % k == 0)
 
     def obs_of(state):
+        """The policy's inputs: feature-major codes, or (B, N, ...) images
+        and the rich features."""
         with record_function("rollout.obs"):
-            bm = obs_mod.all_agent_obs_b(env_params, state, bminor=True)
-            return bm.permute(1, 0, 2, 3, 4).reshape(N, Fd, B).to(
-                torch.uint8)
+            if not recompute:
+                bm = obs_mod.all_agent_obs_b(env_params, state, bminor=True)
+                return (bm.permute(1, 0, 2, 3, 4).reshape(N, Fd, B).to(
+                    torch.uint8),)
+            img = obs_mod.all_agent_obs_b(pov_params, state, s2d=s2d)
+            return (img, rich_aux(env_params, state) if rich else None)
 
     @torch.no_grad()
     def rollout(env_state, key):
@@ -207,39 +294,57 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda"):
         steps = {k: [] for k in names}
         for t in range(T):
             with record_function("rollout.policy"):
-                logits, value = net(obs)             # (N, B, A), (N, B)
+                # (N, B, A), (N, B) feature-major; (B, N, A), (B, N) images
+                logits, value = net(*obs)
             with record_function("rollout.sample"):
                 ks = rng.split(key)
                 key, ak = ks[0], ks[1]
-                a = rng.categorical(ak, logits)      # (N, B)
+                a = rng.categorical(ak, logits)
                 logp_a = F.log_softmax(logits, -1).gather(
                     -1, a[..., None])[..., 0]
             with record_function("rollout.env_step"):
                 fresh_t = step_mod.rotate_fresh_batch(fresh_b, t)
-                env_state, rew, done, info = \
+                stepped, rew, done, info = \
                     step_mod.step_autoreset_with_fresh_batch(
-                        env_params, env_state, a.T, fresh_t, salt=t)
+                        env_params, env_state, a if recompute else a.T,
+                        fresh_t, salt=t)
+            # the stored obs is the PRE-step one (the state, on the
+            # recompute path), paired with the action taken from it
             for k, v in zip(names, (
-                    obs, a.to(torch.int32), logp_a, value, rew.T, done,
+                    env_state if recompute else obs[0], a.to(torch.int32),
+                    logp_a, value, rew if recompute else rew.T, done,
                     info["episode_return"], info["episode_length"],
                     info["episode_cycles"])):
                 steps[k].append(v)
+            env_state = stepped
             obs = obs_of(env_state)
         with record_function("rollout.policy"):
-            _, last_value = net(obs)
-        traj = {k: torch.stack(v) for k, v in steps.items()}
+            _, last_value = net(*obs)
+        traj = {k: _stack_states(v) if k == "obs" and recompute
+                else torch.stack(v) for k, v in steps.items()}
         return env_state, key, traj, last_value
 
     return rollout
 
 
 def block_size(B: int, T: int, N: int) -> int:
-    """The env-chunk width ``c`` of the update's minibatch blocks: halve B
-    while the half stays >= 128 and the block count ``N*T*(B//c)`` stays
-    <= 8192 after the halving (at B = 4096, T = 64, N = 4: c = 128 and
-    G = 8192 blocks)."""
+    """The env-chunk width ``c`` of the update's minibatch blocks on the
+    encode path: halve B while the half stays >= 128 and the block count
+    ``N*T*(B//c)`` stays <= 8192 after the halving (at B = 4096, T = 64,
+    N = 4: c = 128 and G = 8192 blocks)."""
     c = B
     while c % 2 == 0 and c // 2 >= 128 and N * T * (B // c) * 2 <= 8192:
+        c //= 2
+    return c
+
+
+def state_block_size(B: int, T: int) -> int:
+    """The env-chunk width ``c`` of the update's (step, env-chunk) blocks
+    on the recompute path: halve B while the half stays >= 16 and the block
+    count ``T*(B//c)`` stays <= 8192 after the halving (at B = 4096,
+    T = 64: c = 32 and G = 8192 blocks)."""
+    c = B
+    while c % 2 == 0 and c // 2 >= 16 and T * (B // c) * 2 <= 8192:
         c //= 2
     return c
 
@@ -256,37 +361,75 @@ def obs_blocks(obs: torch.Tensor, c: int) -> torch.Tensor:
 def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
                 device="cuda"):
     """Build ``update(traj, last_value, key) -> metrics``, the update half of
-    the JAX ``make_train_step`` (``bm_store`` branch): GAE on (T, N*B),
-    the feature-major (G, F, c) block layout, and per epoch a
-    ``permutation(split(key)[1], G)`` cut into ``n_minibatches`` gathers
-    of whole blocks, each a clipped-objective loss, a backward pass, the
-    global-norm clip and an Adam step on ``net`` (in place). ``metrics``
-    are 0-d device tensors: the means over every minibatch of ``loss``,
-    ``pg_loss``, ``vf_loss``, ``entropy`` and ``ratio_dev``.
+    the JAX ``make_train_step``: GAE on (T, N*B) (encode) or (T, B*N)
+    (images), the block layout, and per epoch a ``permutation(split(key)[1],
+    G)`` cut into ``n_minibatches`` gathers of whole blocks, each a
+    clipped-objective loss, a backward pass, the global-norm clip and an
+    Adam step on ``net`` (in place). ``metrics`` are 0-d device tensors:
+    the means over every minibatch of ``loss``, ``pg_loss``, ``vf_loss``,
+    ``entropy`` and ``ratio_dev``.
+
+    Blocks: encode/mlp, the feature-major (G, F, c) codes with G =
+    N*T*(B//c) (agent, step, env-chunk) blocks (:func:`block_size`);
+    images, the stored EnvStates' (T, B, ...) leaves split into G =
+    T*(B//c) (step, env-chunk) blocks of c envs (:func:`state_block_size`)
+    with (G, c, N) labels. A minibatch of state blocks is flattened to one
+    render batch of S envs and re-rendered ``bminor`` (N, S, ...) (kernel
+    K3; no gradient flows into the render), with ``rich_aux`` read from the
+    same states, and its labels go (mb, c, N) -> (N, S).
 
     The stages run under ``record_function`` labels (``update.gae``,
-    ``update.forward``, ``update.backward``, ``update.optimizer``), as the
-    rollout's do.
+    ``update.render``, ``update.forward``, ``update.backward``,
+    ``update.optimizer``), as the rollout's do.
     """
     dev = resolve(device)
+    recompute = _recompute(env_params, cfg)
+    rich = env_params.observation_style == "rich"
+    pov_params = env_params.replace(observation_style="image")
+    s2d = cfg.torso == "cnn_s2d"
     B, T, N = cfg.n_envs, cfg.rollout_len, env_params.n_agents
     params = [p for p in net.parameters() if p.requires_grad]
-    # feature-major blocks (G, F, c): G = N*T*(B//c) (agent, step,
-    # env-chunk) blocks, envs on the last axis
-    c = block_size(B, T, N)
-    G = N * T * (B // c)
+    if recompute:
+        c = state_block_size(B, T)
+        G = T * (B // c)
+    else:
+        c = block_size(B, T, N)
+        G = N * T * (B // c)
     if G < cfg.n_minibatches:
         raise ValueError(f"fewer trajectory blocks ({G}) than minibatches "
                          f"({cfg.n_minibatches})")
     used = (G // cfg.n_minibatches) * cfg.n_minibatches
     mb = used // cfg.n_minibatches
     eps = cfg.clip_eps
+    labels = ("act", "logp", "val", "adv", "ret")
+
+    def policy(batch):
+        """logits, values and labels of a minibatch, aligned sample for
+        sample."""
+        if not recompute:
+            with record_function("update.forward"):
+                # blocks arrive feature-major (mb, F, c) uint8: logits
+                # (mb, c, A), labels (mb, c)
+                logits, value = net(batch["obs"])
+            return logits, value, batch
+        with record_function("update.render"):
+            st = batch["obs"].map(lambda x: x.reshape((-1,) + x.shape[2:]))
+            obs = obs_mod.all_agent_obs_b(pov_params, st, bminor=True,
+                                          s2d=s2d)        # (N, S, ...)
+            S = obs.shape[1]
+            aux = rich_aux(env_params, st) if rich else None   # (S, N, d)
+            if aux is not None:
+                aux = aux.permute(1, 0, 2).reshape(N * S, -1)
+        with record_function("update.forward"):
+            logits, value = net(obs.reshape((N * S,) + obs.shape[2:]), aux)
+        # labels arrive (mb, c, N); align them to the render's (N, S)
+        aligned = {k: batch[k].permute(2, 0, 1).reshape(N, S)
+                   for k in labels}
+        return logits.reshape(N, S, -1), value.reshape(N, S), aligned
 
     def loss_fn(batch):
+        logits, value, batch = policy(batch)
         with record_function("update.forward"):
-            # blocks arrive feature-major (mb, F, c) uint8: logits
-            # (mb, c, A), labels (mb, c)
-            logits, value = net(batch["obs"])
             logp = F.log_softmax(logits, -1)
             logp_a = logp.gather(-1, batch["act"].long()[..., None])[..., 0]
             ratio = torch.exp(logp_a - batch["logp"])
@@ -309,26 +452,40 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
         return total, dict(pg_loss=pg, vf_loss=vf, entropy=ent,
                            ratio_dev=ratio_dev)
 
+    def blocks(traj, last_value):
+        """GAE, then the trajectory cut into G blocks: {name: (G, ...)},
+        with ``obs`` an EnvState on the recompute path."""
+        # fold agents into the batch: each agent is an independent sample
+        if recompute:                         # leaves (T, B, N)
+            done = traj["done"][..., None].expand(T, B, N)
+        else:                                 # leaves (T, N, B)
+            done = traj["done"][:, None, :].expand(T, N, B)
+        lead = traj["rew"].shape
+        val = traj["val"].reshape(T, -1)
+        adv, ret = _gae(traj["rew"].reshape(T, -1), val,
+                        done.reshape(T, -1), last_value.reshape(-1),
+                        cfg.gamma, cfg.gae_lambda)
+        per_step = dict(act=traj["act"], logp=traj["logp"],
+                        val=val.reshape(lead), adv=adv.reshape(lead),
+                        ret=ret.reshape(lead))
+        if recompute:
+            def blk(x):                       # (T, B, ...) -> (G, c, ...)
+                return x.reshape((G, c) + x.shape[2:])
+
+            out = {k: blk(v) for k, v in per_step.items()}
+            out["obs"] = traj["obs"].map(blk)
+            return out
+
+        def blk(x):                           # (T, N, B) -> (G, c)
+            return x.permute(1, 0, 2).reshape(G, c)
+
+        out = {k: blk(v) for k, v in per_step.items()}
+        out["obs"] = obs_blocks(traj["obs"], c)
+        return out
+
     def update(traj, last_value, key):
-        # fold agents into the batch: each agent is an independent sample;
-        # trajectory leaves are (T, N, B)
         with record_function("update.gae"):
-            rew = traj["rew"].reshape(T, N * B)
-            val = traj["val"].reshape(T, N * B)
-            done = traj["done"][:, None, :].expand(T, N, B).reshape(
-                T, N * B)
-            adv, ret = _gae(rew, val, done, last_value.reshape(-1),
-                            cfg.gamma, cfg.gae_lambda)
-
-            def blk(x):                       # (T, N, B) -> (G, c)
-                return x.permute(1, 0, 2).reshape(G, c)
-
-            blocked = dict(obs=obs_blocks(traj["obs"], c),
-                           act=blk(traj["act"]),
-                           logp=blk(traj["logp"]),
-                           val=blk(val.reshape(T, N, B)),
-                           adv=blk(adv.reshape(T, N, B)),
-                           ret=blk(ret.reshape(T, N, B)))
+            blocked = blocks(traj, last_value)
         if used < G:
             warnings.warn(
                 f"PPO minibatching: {G} trajectory blocks do not divide "
@@ -343,8 +500,10 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
             key, pk = ks[0], ks[1]
             perm = rng.permutation(pk, G)
             for idx in perm[:used].reshape(cfg.n_minibatches, mb):
-                # blocks are consumed whole: (mb, F, c) + (mb, c) labels
-                batch = {k: v[idx] for k, v in blocked.items()}
+                # blocks are consumed whole: (mb, F, c) codes or (mb, c, ...)
+                # state leaves, with (mb, c[, N]) labels
+                batch = {k: v.map(lambda x: x[idx]) if k == "obs" and
+                         recompute else v[idx] for k, v in blocked.items()}
                 total, aux = loss_fn(batch)
                 with record_function("update.backward"):
                     grads = torch.autograd.grad(total, params)
@@ -365,9 +524,10 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
 
 def make_train_step(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
                     device="cuda", overlap=False):
-    """Build the rollout + update step, the JAX ``make_train_step`` on the
-    encode/mlp path (one device): :func:`make_rollout` then
-    :func:`make_update`, with the JAX step's key plumbing.
+    """Build the rollout + update step, the JAX ``make_train_step`` on one
+    device (encode/mlp, or image/rich with a pixels torso):
+    :func:`make_rollout` then :func:`make_update`, with the JAX step's key
+    plumbing.
 
     ``overlap=False``: ``train_step(env_state, key) -> (env_state, key,
     metrics)``; the update takes the key the rollout returns, and the key

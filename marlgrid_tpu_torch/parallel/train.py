@@ -1,9 +1,12 @@
-"""Training entry point of the PyTorch port: feedforward PPO on 'encode'
-observations with the mlp torso, on one device.
+"""Training entry point of the PyTorch port: feedforward PPO on one
+device, on 'encode' observations with the mlp torso or on 'image'/'rich'
+observations with the 'cnn_s2d' (default) or 'cnn_image' torso.
 
 Usage:
     python -m marlgrid_tpu_torch.parallel.train --scenario goal_cycle \
-        --grid-size 13 --agents 4 --envs 4096 --iters 100 [--device cpu]
+        --grid-size 13 --agents 4 --envs 4096 --iters 100 \
+        [--obs image|rich [--torso cnn_image] [--observe rewards,...]] \
+        [--device cpu]
 
 The flags and defaults are those of ``python -m marlgrid_tpu.parallel.train``
 plus ``--device`` (default ``cuda``). A flag whose path the port does not
@@ -35,10 +38,11 @@ LATER = (
     (lambda a: bool(a.rnn), "--rnn", "Slice D (recurrent)"),
     (lambda a: bool(a.bptt_window), "--bptt-window",
      "Slice D (recurrent)"),
-    (lambda a: a.obs != "encode", "--obs image|rich",
-     "Slice C (pixels)"),
-    (lambda a: a.torso not in (None, "mlp"),
-     "--torso cnn|cnn_image|cnn_s2d", "Slice C (pixels)"),
+    (lambda a: a.torso == "cnn", "--torso cnn",
+     "Slice C (pixels): the encode cnn torso"),
+    (lambda a: a.obs == "encode" and a.torso in ("cnn_image", "cnn_s2d"),
+     "--torso cnn_image|cnn_s2d with --obs encode",
+     "Slice C (pixels): the row-major obs store"),
     (lambda a: bool(a.agent_config), "--agent-config",
      "Slice E (heterogeneous populations)"),
     (lambda a: a.shard_map, "--shard-map",
@@ -67,14 +71,14 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--obs", default="encode",
                    choices=["encode", "image", "rich"],
-                   help="observation style fed to the learner (the port: "
-                        "encode)")
+                   help="observation style fed to the learner")
     p.add_argument("--observe", default="",
                    help="comma list of rich-obs extra fields: "
                         "rewards,position,orientation")
     p.add_argument("--torso", default=None,
                    choices=["mlp", "cnn", "cnn_image", "cnn_s2d"],
-                   help="policy torso (the port: mlp)")
+                   help="policy torso (default: mlp for encode obs, "
+                        "cnn_s2d for image/rich; the port has no 'cnn')")
     p.add_argument("--rnn", default="", choices=["", "gru", "lstm"],
                    help="recurrent policy cell (not in the port yet)")
     p.add_argument("--bptt-window", type=int, default=0,
@@ -140,6 +144,11 @@ def build(args):
         if unsupported(args):
             raise SystemExit(f"{flag}: not in the PyTorch port yet; it comes "
                              f"with ROADMAP {slice_}")
+    torso = args.torso or ("cnn_s2d" if args.obs in ("image", "rich")
+                           else "mlp")
+    if args.obs != "encode" and torso == "mlp":
+        raise SystemExit(f"--obs {args.obs}: the pov is an image; train it "
+                         f"with --torso cnn_s2d or cnn_image")
     observe = {f.strip() for f in args.observe.split(",") if f.strip()}
     if not observe <= {"rewards", "position", "orientation"}:
         raise SystemExit(
@@ -159,12 +168,12 @@ def build(args):
         ep = ep.replace(prestige_beta=args.prestige_beta)
     if args.prestige_scale is not None:
         ep = ep.replace(prestige_scale=args.prestige_scale)
-    if observe:
+    if observe and args.obs != "rich":
         print(f"warning: --observe {args.observe!r} is consumed by the "
               f"'rich' observation style only; --obs {args.obs} trains "
-              f"WITHOUT these features", flush=True)
+              f"WITHOUT these features (use --obs rich)", flush=True)
     cfg = ppo.PPOConfig(n_envs=args.envs, rollout_len=args.rollout,
-                        lr=args.lr, torso="mlp", n_epochs=args.epochs,
+                        lr=args.lr, torso=torso, n_epochs=args.epochs,
                         n_minibatches=args.minibatches, hidden=args.hidden,
                         board_pool=args.board_pool)
     if args.resume and not args.no_embed_palette:
@@ -173,7 +182,7 @@ def build(args):
         if ck_cfg is None or ck_cfg.get("ppo", {}).get(
                 "embed_palettes") is None:
             args.no_embed_palette = True
-    if not args.no_embed_palette:
+    if args.obs == "encode" and torso == "mlp" and not args.no_embed_palette:
         pals = obs_mod.encode_palettes(ep)
         if pals is not None:
             cfg = dataclasses.replace(cfg, embed_palettes=pals)
