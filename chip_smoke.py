@@ -18,12 +18,17 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    views (goal_cycle at the rollout's shape, cluttered, doorkey with hidden
    keys and a view offset; prestige over all 8 levels) in the standard,
    (N, B) and s2d layouts, and on random ids in its other two variants;
+   K5f (onehot_embed2, the plane-major embed, float32 out) against its
+   plain version at the rollout's and the update's shapes within 1e-5 of
+   max |out|, and K5b (its three tables' gradients) at the update's shape
+   within 1e-3 of max |dW_p|, deterministic, through its autograd Function;
 4. the env engine and the observations (encode and image) on the card
    against the same code on the CPU (which the tests hold bit-equal to the
    JAX package), the mlp and cnn_s2d policies' logits on the card against
-   the CPU's, and a small float32 train step of each path: the card's
-   rollout and update against the CPU's update of the same trajectory from
-   the same weights;
+   the CPU's, and a small float32 train step of each path (feedforward
+   encode and image; recurrent: GRU encode on the plane-major embed, LSTM
+   encode, GRU image): the card's rollout and update against the CPU's
+   update of the same trajectory from the same weights;
 5. the rollout path: a PPO rollout at the train default's full width
    (goal_cycle 13x13, 4 agents, 7x7 encode, B = 4096, T = 64, hidden 128,
    board pool 256, stagger, the compact embed palettes) through
@@ -39,12 +44,19 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    K2b none), with train env-steps/s, each step's mean episode return and
    the peak device memory; then the CLI with ``--obs image``, two
    iterations with a checkpoint and one resumed from it;
-8. torch.profiler over a short rollout, one train step and one image train
-   step, by stage;
-9. the env-only phase at bench.py's config (cluttered 15x15, 3 agents,
+8. the recurrent train paths at the same width: ``--rnn gru`` with the
+   plane-major embed (``MARLGRID_TPU_EMBED_V2=1``), four train steps with
+   65 / 73 / 8 launches of K1 / K5f / K5b and none of K2f, K2b, K3 per
+   step, and ``--rnn gru --obs image``, four steps with 73 each of K1 and
+   K3; each with train env-steps/s, its losses and its peak device memory;
+   then the ``--rnn gru`` CLI, two iterations with a checkpoint (the carry
+   included) and one resumed from it;
+9. torch.profiler over a short rollout, one train step, one image train
+   step and one recurrent train step, by stage;
+10. the env-only phase at bench.py's config (cluttered 15x15, 3 agents,
    25 clutter, B = 32768, T = 16 random actions, board pool 256), with
    encode and with image observations;
-10. the kernels' times with CUDA events at the rollout's and the update's
+11. the kernels' times with CUDA events at the rollout's and the update's
    shapes (K3 also at the image env-only shape), beside their bound, their
    plain version's and one PyTorch call's time.
 
@@ -55,8 +67,10 @@ Without a card it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -118,12 +132,39 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 def kernel_wrappers():
     """Name -> wrapper of every kernel of the port; each wrapper counts its
     launches in ``.launches``."""
-    from marlgrid_tpu_torch.ops import embed, sprite, transpose
+    from marlgrid_tpu_torch.ops import embed, embed2, sprite, transpose
 
     return {"transpose_bk": transpose.transpose_bk,
             "onehot_embed_fwd": embed.onehot_embed,
             "onehot_embed_bwd": embed.onehot_embed_bwd,
-            "compose_image_b": sprite.compose_image_b}
+            "compose_image_b": sprite.compose_image_b,
+            "onehot_embed2_fwd": embed2.onehot_embed2,
+            "onehot_embed2_bwd": embed2.onehot_embed2_bwd}
+
+
+def want_counts(**launches):
+    """The launch counts a phase expects: ``launches`` by kernel name, and
+    0 for every other kernel of the port."""
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want.update(launches)
+    return want
+
+
+@contextlib.contextmanager
+def embed_v2(on: bool):
+    """``MARLGRID_TPU_EMBED_V2`` set (the plane-major embed, K5f/K5b) or
+    unset (K2f/K2b) while the nets of a phase are built, then restored."""
+    from marlgrid_tpu_torch.models.actor_critic import EMBED_V2_VAR
+
+    old = os.environ.pop(EMBED_V2_VAR, None)
+    if on:
+        os.environ[EMBED_V2_VAR] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(EMBED_V2_VAR, None)
+        if old is not None:
+            os.environ[EMBED_V2_VAR] = old
 
 
 def zero_counts():
@@ -246,6 +287,100 @@ def phase_embed_bwd(palettes):
         print(f"[K2b] {name} (R={R}, F={3 * cells}, S={S}, H={H}): max abs "
               f"err {err:.3e} of max |dW| {scale:.3e} (tolerance 1e-3 of "
               f"it), deterministic, through the autograd Function")
+    return worst
+
+
+def _tables2(cells, widths, H, gen):
+    """Three random float32 per-plane tables (cells, n_p, H) on the card."""
+    return [(torch.randn(cells, n, H, generator=gen) * 0.05).cuda()
+            for n in widths]
+
+
+def phase_embed2(palettes):
+    """K5f against its plain version on the card at the rollout's shape
+    (R = 4, S = 4096) and the update's (R = 2048 rows of S = 128), with the
+    full vocabularies and the goal_cycle palette, on codes with state codes
+    above 19 and codes outside each vocabulary. Both read the tables as
+    bf16 and sum in float32 without rounding the output; only the order of
+    the sums differs, so max |err| <= 1e-5 * max |out|."""
+    from marlgrid_tpu_torch.ops import embed as E
+    from marlgrid_tpu_torch.ops import embed2 as E2
+
+    gen = torch.Generator().manual_seed(3)
+    cells, H = 49, 128
+    worst = 0.0
+    for R, S in ((4, 4096), (2048, 128)):
+        for name, pal in (("full", None), ("goal_cycle palette", palettes)):
+            widths, values = E.vocab(pal)
+            x = _codes(R, cells, S, gen)
+            ws = _tables2(cells, widths, H, gen)
+            with torch.no_grad():
+                out = E2.onehot_embed2(x, *ws, widths, values)
+            sync()
+            ref = E2.onehot_embed2_plain(x, *ws, widths, values)
+            err = float((out - ref).abs().max())
+            scale = float(ref.abs().max())
+            if out.shape != (R, S, H) or out.dtype != torch.float32 or \
+                    not err <= 1e-5 * scale:
+                raise AssertionError(
+                    f"K5f ({name}, R={R}, S={S}): max abs err {err} beyond "
+                    f"1e-5 of max |out| {scale}, or {tuple(out.shape)} "
+                    f"{out.dtype}")
+            worst = max(worst, err)
+            print(f"[K5f] {name} (R={R}, F={3 * cells}, S={S}, H={H}): max "
+                  f"abs err {err:.3e} of max |out| {scale:.3e} (tolerance "
+                  f"1e-5 of it)")
+            del out, ref
+    return worst
+
+
+def phase_embed2_bwd(palettes):
+    """K5b at the update's shape (R = 2048, S = 128) against its plain
+    version on the card, both fed the same bf16 dout, per table within
+    1e-3 of max |dW_p| (float32 sums over 262,144 samples in another
+    order); two launches give the same bits, and the embed2 autograd
+    Function returns K5b's gradients."""
+    from marlgrid_tpu_torch.ops import embed as E
+    from marlgrid_tpu_torch.ops import embed2 as E2
+
+    gen = torch.Generator().manual_seed(4)
+    R, cells, S, H = 2048, 49, 128, 128
+    worst = 0.0
+    for name, pal in (("full", None), ("goal_cycle palette", palettes)):
+        widths, values = E.vocab(pal)
+        x = _codes(R, cells, S, gen)
+        dout = torch.randn(R, S, H, generator=gen).to(torch.bfloat16).cuda()
+        dws = E2.onehot_embed2_bwd(x, dout, widths, values)
+        again = E2.onehot_embed2_bwd(x, dout, widths, values)
+        sync()
+        refs = E2.onehot_embed2_bwd_plain(x, dout, widths, values)
+        errs = []
+        for p, (dw, ref, n) in enumerate(zip(dws, refs, widths)):
+            err = float((dw - ref).abs().max())
+            scale = float(ref.abs().max())
+            if dw.shape != (cells, n, H) or dw.dtype != torch.float32 or \
+                    not err <= 1e-3 * scale:
+                raise AssertionError(
+                    f"K5b ({name}) table {p}: max abs err {err} beyond 1e-3 "
+                    f"of max |dW| {scale}, or {tuple(dw.shape)} {dw.dtype}")
+            if not torch.equal(dw, again[p]):
+                raise AssertionError(f"K5b ({name}) table {p} differs "
+                                     f"between two launches")
+            errs.append((err, scale))
+        ws = [w.requires_grad_(True) for w in _tables2(cells, widths, H, gen)]
+        n0 = E2.onehot_embed2_bwd.launches
+        gs = torch.autograd.grad(E2.onehot_embed2(x, *ws, widths, values),
+                                 ws, dout.float())
+        if E2.onehot_embed2_bwd.launches != n0 + 1 or not all(
+                torch.equal(g, dw) for g, dw in zip(gs, dws)):
+            raise AssertionError(f"K5b ({name}): the autograd Function did "
+                                 f"not return K5b's gradients")
+        worst = max([worst] + [e for e, _ in errs])
+        print(f"[K5b] {name} (R={R}, F={3 * cells}, S={S}, H={H}): max abs "
+              f"err per table "
+              f"{', '.join(f'{e:.3e} of {m:.3e}' for e, m in errs)} "
+              f"(tolerance 1e-3 of max |dW_p|), deterministic, through the "
+              f"autograd Function")
     return worst
 
 
@@ -401,13 +536,16 @@ def phase_reference(seed):
     print(f"[reference] logits and values card vs CPU: max abs err "
           f"{err:.3e} (bf16, tolerance 5e-2)")
     reference_train(seed, "encode")
+    reference_train(seed, "encode", "gru", plane_major=True)
+    reference_train(seed, "encode", "lstm")
     reference_image(seed)
 
 
-def _train_config(kind):
+def _train_config(kind, rnn=""):
     """The reference train step's small config (goal_cycle 13x13, 4
     agents, B = 16, T = 8, hidden 32, float32, 2 epochs x 4 minibatches):
-    'encode' with the mlp torso and palettes, or 'image' with cnn_s2d."""
+    'encode' with the mlp torso and palettes, or 'image' with cnn_s2d;
+    feedforward, or recurrent with ``rnn`` 'gru' or 'lstm'."""
     from marlgrid_tpu_torch.core import obs
     from marlgrid_tpu_torch.core.state import EnvParams, default_agent_colors
     from marlgrid_tpu_torch.parallel import ppo
@@ -417,11 +555,11 @@ def _train_config(kind):
                    agent_colors=default_agent_colors(4))
     if kind == "encode":
         return ep, ppo.PPOConfig(n_envs=16, rollout_len=8, hidden=32,
-                                 board_pool=4, dtype=torch.float32,
+                                 board_pool=4, dtype=torch.float32, rnn=rnn,
                                  embed_palettes=obs.encode_palettes(ep))
     return ep, ppo.PPOConfig(n_envs=16, rollout_len=8, hidden=32,
                              board_pool=4, dtype=torch.float32,
-                             torso="cnn_s2d")
+                             torso="cnn_s2d", rnn=rnn)
 
 
 #: the reference train step's tolerances (see reference_train), per path
@@ -437,16 +575,30 @@ TRAIN_TOL = {
     # metrics 2.4e-7, gradients 2.5e-6 and weights 3.0e-5 apart; the bounds
     # sit 40x, 40x and 330x above those readings
     "image": dict(metrics=1e-5, grad=1e-4, weights=1e-2),
+    # The recurrent steps. The plane-major embed reads its tables and dout
+    # in bf16 on both devices, so, as on the float32 image path, only the
+    # order of float32 sums differs: on an H100 the GRU encode step read
+    # metrics 1.2e-7, gradients 2.9e-7 and weights 5.9e-5 apart, the GRU
+    # image step 2.2e-8, 2.4e-6 and 5.8e-5; the bounds sit 40-80x above
+    # the metrics' and gradients' readings and 170x above the weights'.
+    # The LSTM encode step runs the K2 route, bf16 as 'encode' (it read
+    # 4.4e-4, 5.5e-2 and 0.11), and keeps its bounds.
+    "encode gru plane-major": dict(metrics=1e-5, grad=1e-5, weights=1e-2),
+    "encode lstm": dict(metrics=1e-2, grad=0.15, weights=0.3),
+    "image gru": dict(metrics=1e-6, grad=1e-4, weights=1e-2),
 }
 
 
-def reference_train(seed, kind):
+def reference_train(seed, kind, rnn="", plane_major=False):
     """A train step at a small size in float32 (:func:`_train_config`):
     the card's rollout and update, and the CPU's update of the card's
     trajectory (feature-major codes, or the stored EnvStates that the image
     update re-renders) from the same weights and key. (The CPU does not
     roll out itself: a logit that differs by a rounding can flip a sampled
-    action.) The tolerances of ``TRAIN_TOL[kind]``, per weight tensor:
+    action.) With ``rnn``, the recurrent step (``ppo_rnn``), its update fed
+    the card's stored window carries too; ``plane_major`` builds both nets
+    with the plane-major embed (K5f/K5b on the card). The tolerances of
+    ``TRAIN_TOL``, per weight tensor:
     every metric within ``metrics``; the first minibatch's gradient within
     ``grad`` of its L2 norm; the weights after the step within ``weights``
     of the step's change in L2 norm (Adam moves a weight by about lr
@@ -454,18 +606,31 @@ def reference_train(seed, kind):
     the other sign). A layout, clip or optimizer fault would miss them by
     far more."""
     from marlgrid_tpu_torch.core import rng
-    from marlgrid_tpu_torch.parallel import ppo
+    from marlgrid_tpu_torch.parallel import ppo, ppo_rnn
 
-    ep, cfg = _train_config(kind)
-    tol = TRAIN_TOL[kind]
+    ep, cfg = _train_config(kind, rnn)
+    label = " ".join([kind] + [rnn] * bool(rnn)
+                     + ["plane-major"] * plane_major)
+    tol = TRAIN_TOL[label]
     devs = {"card": "cuda", "cpu": "cpu"}
-    nets = {who: ppo.init_state(ep, cfg, torch.Generator().manual_seed(seed),
-                                device=dev) for who, dev in devs.items()}
+    init = ppo_rnn.init_state_rnn if rnn else ppo.init_state
+    with embed_v2(plane_major):
+        made = {who: init(ep, cfg, torch.Generator().manual_seed(seed),
+                          device=dev) for who, dev in devs.items()}
+    nets = {who: m[:2] for who, m in made.items()}
+    if kind == "encode" and nets["card"][0].torso0.plane_major != plane_major:
+        raise AssertionError(f"{label}: the embed route was not selected")
     key = rng.PRNGKey(seed, device="cuda")
     env = ppo.init_env_batch(ep, cfg.n_envs, rng.fold_in(key, 1),
                              device="cuda")
-    rollout = ppo.make_rollout(ep, cfg, nets["card"][0], device="cuda")
-    _, key, traj, last = rollout(env, rng.fold_in(key, 2))
+    if rnn:
+        rollout = ppo_rnn.make_rollout_rnn(ep, cfg, nets["card"][0],
+                                           device="cuda")
+        _, _, key, traj, h0s, last = rollout(env, made["card"][2],
+                                             rng.fold_in(key, 2))
+    else:
+        rollout = ppo.make_rollout(ep, cfg, nets["card"][0], device="cuda")
+        _, key, traj, last = rollout(env, rng.fold_in(key, 2))
     w0 = {k: v.clone() for k, v in nets["cpu"][0].state_dict().items()}
     ms, grads, ws = {}, {}, {}
     for who, (net, opt) in nets.items():
@@ -475,15 +640,20 @@ def reference_train(seed, kind):
             first.update({n: p.grad.detach().cpu().clone()
                           for n, p in net.named_parameters()})
             if not first else None))
-        update = ppo.make_update(ep, cfg, net, opt, device=dev)
-        m = update({k: v.map(lambda x: x.to(dev)) if k == "obs" and
-                    kind == "image" else v.to(dev) for k, v in traj.items()},
-                   last.to(dev), key.to(dev))
+        tr = {k: v.map(lambda x: x.to(dev)) if k == "obs" and
+              kind == "image" else v.to(dev) for k, v in traj.items()}
+        if rnn:
+            update = ppo_rnn.make_update_rnn(ep, cfg, net, opt, device=dev)
+            m = update(tr, ppo_rnn.map_carry(lambda x: x.to(dev), h0s),
+                       last.to(dev), key.to(dev))
+        else:
+            update = ppo.make_update(ep, cfg, net, opt, device=dev)
+            m = update(tr, last.to(dev), key.to(dev))
         ms[who] = {k: float(v) for k, v in m.items()}
         ws[who] = {k: v.cpu().clone() for k, v in net.state_dict().items()}
     merr = max(abs(ms["card"][k] - ms["cpu"][k]) for k in ms["cpu"])
     if not merr <= tol["metrics"]:
-        raise AssertionError(f"{kind} train step metrics card vs CPU: {ms}")
+        raise AssertionError(f"{label} train step metrics card vs CPU: {ms}")
     gerr = werr = 0.0
     for k, gc in grads["cpu"].items():
         e = float((grads["card"][k] - gc).norm() / gc.norm())
@@ -491,10 +661,10 @@ def reference_train(seed, kind):
                   / (ws["cpu"][k] - w0[k]).norm())
         if not (e <= tol["grad"] and d <= tol["weights"]):
             raise AssertionError(
-                f"{kind} train step {k}: first gradient {e:.3e} of its norm "
+                f"{label} train step {k}: first gradient {e:.3e} of its norm "
                 f"apart, weights {d:.3e} of the step's change apart")
         gerr, werr = max(gerr, e), max(werr, d)
-    print(f"[reference] float32 {kind} train step ({cfg.torso}, B=16, T=8), "
+    print(f"[reference] float32 {label} train step ({cfg.torso}, B=16, T=8), "
           f"card vs CPU: metrics max abs err {merr:.3e} (tolerance "
           f"{tol['metrics']:g}); first minibatch's gradients within "
           f"{gerr:.3e} of their L2 norm (tolerance {tol['grad']:g}); weights "
@@ -557,6 +727,7 @@ def reference_image(seed):
     print(f"[reference] cnn_s2d logits and values card vs CPU: max abs err "
           f"{err:.3e} (float32, tolerance 1e-3)")
     reference_train(seed, "image")
+    reference_train(seed, "image", "gru")
 
 
 def phase_rollout(seed, card):
@@ -583,8 +754,7 @@ def phase_rollout(seed, card):
     sync()
     dt = time.perf_counter() - t0
     counts = read_counts()
-    want = dict(transpose_bk=T + 1, onehot_embed_fwd=T + 1,
-                onehot_embed_bwd=0, compose_image_b=0)
+    want = want_counts(transpose_bk=T + 1, onehot_embed_fwd=T + 1)
     print(f"[rollout] launches on the main path: {counts} (want {want})")
     if counts != want:
         raise AssertionError(f"rollout: launches {counts}, want {want}")
@@ -647,10 +817,10 @@ def phase_train(seed, card, steps=4):
     key = rng.fold_in(key, 2)
     step = ppo.make_train_step(ep, cfg, net, opt, device="cuda")
     w0 = [p.detach().clone() for p in net.parameters()]
-    want = {"transpose_bk": T + 1,
-            "onehot_embed_fwd": T + 1 + cfg.n_epochs * cfg.n_minibatches,
-            "onehot_embed_bwd": cfg.n_epochs * cfg.n_minibatches,
-            "compose_image_b": 0}
+    want = want_counts(
+        transpose_bk=T + 1,
+        onehot_embed_fwd=T + 1 + cfg.n_epochs * cfg.n_minibatches,
+        onehot_embed_bwd=cfg.n_epochs * cfg.n_minibatches)
     secs, metrics = [], []
     for i in range(steps):
         sync()
@@ -684,6 +854,127 @@ def phase_train(seed, card, steps=4):
     return dict(counts=counts, seconds=secs, metrics=metrics,
                 env_steps_per_s=B * T / steady, step=step, env=env, key=key,
                 ep=ep, cfg=cfg)
+
+
+def phase_rnn(seed, card, steps=4):
+    """The recurrent encode train path at full width (``--rnn gru``'s
+    :func:`cli_config`: goal_cycle 13x13, 4 agents, B = 4096, T = 64, hidden
+    128, palettes, board pool 256) with the plane-major embed selected:
+    ``steps`` calls of ``make_train_step_rnn``, the launch counts read
+    around each (K1 65, K5f 73 = 65 rollout + 8 minibatches, K5b 8; K2f,
+    K2b and K3 none), each step's loss and train env-steps/s."""
+    from marlgrid_tpu_torch.core import rng
+    from marlgrid_tpu_torch.parallel import ppo, ppo_rnn
+
+    ep, cfg = cli_config("--rnn", "gru")
+    B, T = cfg.n_envs, cfg.rollout_len
+    with embed_v2(True):
+        net, opt, h = ppo_rnn.init_state_rnn(
+            ep, cfg, torch.Generator().manual_seed(seed), device="cuda")
+    if not net.torso0.plane_major:
+        raise AssertionError("rnn phase: the plane-major embed is not on")
+    key = rng.PRNGKey(seed, device="cuda")
+    env = ppo.init_env_batch(ep, B, rng.fold_in(key, 1), stagger=True,
+                             device="cuda")
+    key = rng.fold_in(key, 2)
+    step = ppo_rnn.make_train_step_rnn(ep, cfg, net, opt, device="cuda")
+    n_up = cfg.n_epochs * cfg.n_minibatches
+    want = want_counts(transpose_bk=T + 1, onehot_embed2_fwd=T + 1 + n_up,
+                       onehot_embed2_bwd=n_up)
+    w0 = [p.detach().clone() for p in net.parameters()]
+    secs, metrics = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        sync()
+        zero_counts()
+        t0 = time.perf_counter()
+        env, h, key, m = step(env, h, key)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        got = read_counts()
+        if got != want:
+            raise AssertionError(f"rnn train step {i}: launches {got}, want "
+                                 f"{want}")
+        m = {k: float(v) for k, v in m.items()}
+        if not (all(math.isfinite(v) for v in m.values())
+                and m["entropy"] > 0 and m["n_episodes"] > 0
+                and bool(torch.isfinite(h).all())):
+            raise AssertionError(f"rnn train step {i}: metrics {m}")
+        metrics.append(m)
+        print(f"[rnn] train step {i}: {secs[-1]:.3f} s, loss "
+              f"{m['loss']:.5f}, entropy {m['entropy']:.4f}, ratio_dev "
+              f"{m['ratio_dev']:.4f}, {m['n_episodes']:.0f} episodes, return "
+              f"{m['episode_return']:.4f}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if all(torch.equal(p, q) for p, q in zip(net.parameters(), w0)):
+        raise AssertionError("the rnn train steps changed no weight")
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    print(f"[rnn] launches per recurrent train step: {got} (want {want})")
+    print(f"[rnn] B={B} T={T}, GRU, plane-major embed, 2 epochs x 4 "
+          f"minibatches of 8 sequence blocks: "
+          f"{', '.join(f'{t:.3f}' for t in secs)} s per step; median of "
+          f"steps 1-{steps - 1}: {B * T / steady:,.0f} train env-steps/s; "
+          f"peak device memory {peak_gb:.2f} GB [{card}]")
+    return dict(counts=got, seconds=secs, metrics=metrics, peak_gb=peak_gb,
+                env_steps_per_s=B * T / steady, step=step, env=env, h=h,
+                key=key, ep=ep, cfg=cfg, net=net)
+
+
+def phase_rnn_image(seed, card, steps=4):
+    """The recurrent image train path at full width (``--rnn gru --obs
+    image``: cnn_s2d, minibatches of 64 sequence blocks of 16 envs x 64
+    steps re-rendered from stored states): ``steps`` train steps with K1
+    and K3 73 launches each (65 in the rollout, one per minibatch's
+    re-render), the loss, the peak device memory and train env-steps/s."""
+    from marlgrid_tpu_torch.core import rng
+    from marlgrid_tpu_torch.parallel import ppo, ppo_rnn
+
+    ep, cfg = cli_config("--rnn", "gru", "--obs", "image")
+    B, T = cfg.n_envs, cfg.rollout_len
+    net, opt, h = ppo_rnn.init_state_rnn(
+        ep, cfg, torch.Generator().manual_seed(seed), device="cuda")
+    key = rng.PRNGKey(seed, device="cuda")
+    env = ppo.init_env_batch(ep, B, rng.fold_in(key, 1), stagger=True,
+                             device="cuda")
+    key = rng.fold_in(key, 2)
+    step = ppo_rnn.make_train_step_rnn(ep, cfg, net, opt, device="cuda")
+    n_up = cfg.n_epochs * cfg.n_minibatches
+    want = want_counts(transpose_bk=T + 1 + n_up,
+                       compose_image_b=T + 1 + n_up)
+    secs, metrics = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        sync()
+        zero_counts()
+        t0 = time.perf_counter()
+        env, h, key, m = step(env, h, key)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        got = read_counts()
+        if got != want:
+            raise AssertionError(f"rnn image train step {i}: launches {got}, "
+                                 f"want {want}")
+        m = {k: float(v) for k, v in m.items()}
+        if not (all(math.isfinite(v) for v in m.values())
+                and m["entropy"] > 0 and m["n_episodes"] > 0
+                and tuple(h.shape) == (B, ep.n_agents, cfg.hidden)
+                and bool(torch.isfinite(h).all())):
+            raise AssertionError(f"rnn image train step {i}: metrics {m}, "
+                                 f"carry {tuple(h.shape)}")
+        metrics.append(m)
+        print(f"[rnn-image] train step {i}: {secs[-1]:.3f} s, loss "
+              f"{m['loss']:.5f}, entropy {m['entropy']:.4f}, ratio_dev "
+              f"{m['ratio_dev']:.4f}, {m['n_episodes']:.0f} episodes, mean "
+              f"episode return {m['episode_return']:.4f}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    print(f"[rnn-image] launches per step: {got} (want {want})")
+    print(f"[rnn-image] B={B} T={T}, cnn_s2d + GRU: "
+          f"{', '.join(f'{t:.3f}' for t in secs)} s per step; median of "
+          f"steps 1-{steps - 1}: {B * T / steady:,.0f} train env-steps/s; "
+          f"peak device memory {peak_gb:.2f} GB [{card}]")
+    return dict(counts=got, seconds=secs, metrics=metrics, peak_gb=peak_gb,
+                env_steps_per_s=B * T / steady)
 
 
 def cli_config(*flags):
@@ -726,8 +1017,7 @@ def phase_image(seed, card, steps=4):
     sync()
     dt = time.perf_counter() - t0
     counts = read_counts()
-    want = dict(transpose_bk=T + 1, onehot_embed_fwd=0, onehot_embed_bwd=0,
-                compose_image_b=T + 1)
+    want = want_counts(transpose_bk=T + 1, compose_image_b=T + 1)
     if counts != want:
         raise AssertionError(f"image rollout: launches {counts}, want {want}")
     st = traj["obs"]
@@ -753,8 +1043,8 @@ def phase_image(seed, card, steps=4):
     step = ppo.make_train_step(ep, cfg, net, opt, device="cuda")
     w0 = [p.detach().clone() for p in net.parameters()]
     n_up = cfg.n_epochs * cfg.n_minibatches
-    want = dict(transpose_bk=T + 1 + n_up, onehot_embed_fwd=0,
-                onehot_embed_bwd=0, compose_image_b=T + 1 + n_up)
+    want = want_counts(transpose_bk=T + 1 + n_up,
+                       compose_image_b=T + 1 + n_up)
     secs, metrics = [], []
     torch.cuda.reset_peak_memory_stats()
     for i in range(steps):
@@ -792,11 +1082,14 @@ def phase_image(seed, card, steps=4):
                 traj=traj, ep=ep, cfg=cfg)
 
 
-def phase_cli(card, flags=(), want=None):
+def phase_cli(card, flags=(), want=None, plane_major=False):
     """The training CLI at its defaults plus ``flags`` (the train path's
-    config, or the image train path's with ``--obs image``) on the card:
-    two iterations with a checkpoint, then one more resumed from it, the
-    launch counts read around the resumed run (``want``)."""
+    config, the image train path's with ``--obs image``, the recurrent
+    one's with ``--rnn gru``) on the card: two iterations with a
+    checkpoint, then one more resumed from it, the launch counts read around
+    the resumed run (``want``). ``plane_major``: run with
+    ``MARLGRID_TPU_EMBED_V2=1``. A ``--rnn`` checkpoint must hold the
+    carry of the whole batch, which the resumed run restores."""
     import tempfile
 
     from marlgrid_tpu_torch.parallel import train
@@ -806,17 +1099,24 @@ def phase_cli(card, flags=(), want=None):
     with tempfile.TemporaryDirectory() as tmp:
         ck, log = f"{tmp}/ck", f"{tmp}/m.jsonl"
         t0 = time.perf_counter()
-        train.main(flags + ["--iters", "2", "--metrics", log,
-                            "--checkpoint-dir", ck, "--checkpoint-every",
-                            "2"])
+        with embed_v2(plane_major):
+            train.main(flags + ["--iters", "2", "--metrics", log,
+                                "--checkpoint-dir", ck, "--checkpoint-every",
+                                "2"])
         first = time.perf_counter() - t0
         recs = [json.loads(line) for line in open(log)]
         config = checkpoint.load_config(ck)
         if checkpoint.steps(ck) != [2] or config["ppo"]["n_envs"] != 4096:
             raise AssertionError("the CLI wrote no full-width checkpoint")
+        if "--rnn" in flags:
+            h = checkpoint.restore(ck, map_location="cpu")["h"]
+            if tuple(h.shape) != (4, 4096, 128) or not h.abs().sum() > 0:
+                raise AssertionError(f"the --rnn checkpoint's carry: "
+                                     f"{tuple(h.shape)}")
         zero_counts()
-        train.main(flags + ["--iters", "1", "--metrics", log, "--resume",
-                            ck])
+        with embed_v2(plane_major):
+            train.main(flags + ["--iters", "1", "--metrics", log, "--resume",
+                                ck])
         counts = read_counts()
         recs += [json.loads(line) for line in open(log)]
     if counts != want:
@@ -910,10 +1210,11 @@ def profile_stages(run, prefixes, card, title):
     return out
 
 
-def phase_profile(roll, train, image, card, T=8):
+def phase_profile(roll, train, image, rnn, card, T=8):
     """torch.profiler over a T-step rollout of the rollout path's config,
-    over one train step of the train path and over one of the image train
-    path."""
+    over one train step of the train path, one of the image train path and
+    one of the recurrent encode train path (``update.cell`` is its update's
+    cell loop)."""
     import dataclasses
 
     from marlgrid_tpu_torch.parallel import ppo
@@ -934,7 +1235,12 @@ def phase_profile(roll, train, image, card, T=8):
     im = profile_stages(lambda: image["step"](image["env"], image["key"]),
                         ("rollout.", "update."), card,
                         "one image train step (B=4096, T=64, cnn_s2d)")
-    return dict(rollout=out, train_step=tr, image_train_step=im)
+    rn = profile_stages(lambda: rnn["step"](rnn["env"], rnn["h"], rnn["key"]),
+                        ("rollout.", "update."), card,
+                        "one recurrent train step (B=4096, T=64, GRU, "
+                        "plane-major embed)")
+    return dict(rollout=out, train_step=tr, image_train_step=im,
+                rnn_train_step=rn)
 
 
 def phase_env_only(seed, card, style="encode"):
@@ -974,8 +1280,8 @@ def phase_env_only(seed, card, style="encode"):
 
     state, key, acc = run(state, key)          # warm-up
     sync()
-    want = dict(transpose_bk=T, onehot_embed_fwd=0, onehot_embed_bwd=0,
-                compose_image_b=T if style == "image" else 0)
+    want = want_counts(transpose_bk=T,
+                       compose_image_b=T if style == "image" else 0)
     reps = []
     for _ in range(3):
         zero_counts()
@@ -1105,6 +1411,130 @@ def time_k2b(codes, table, widths, values, card, seed):
           f"bf16 gradient within {gap:.3e} of K2b's), bound "
           f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}) [{card}]")
     return k
+
+
+def time_k5f(codes, ws, widths, values, where, card):
+    """K5f beside its bound (codes in, bf16 tables in, float32 out; one add
+    per in-vocabulary code per hidden unit), its plain version and
+    embedding_bag(sum) over each sample's F row indices into the float32
+    tables (the one-call yardstick)."""
+    import torch.nn.functional as F
+
+    from marlgrid_tpu_torch.ops import embed as E
+    from marlgrid_tpu_torch.ops import embed2 as E2
+
+    R, Fd, S = codes.shape
+    cells, H = Fd // 3, ws[0].shape[-1]
+    cw = sum(widths)
+    n_valid, bag_idx = _bag_rows(codes, widths, values, cells, cw)
+    with torch.no_grad():
+        k = dict(bytes=codes.numel() + cells * cw * H * 2 + R * S * H * 4,
+                 ops=n_valid * H)
+        k["ms"], k["host_ms"] = time_ms(
+            lambda: E2.onehot_embed2(codes, *ws, widths, values))
+        k["plain_ms"], _ = time_ms(lambda: E2.onehot_embed2_plain(
+            codes, *ws, widths, values), iters=5, warmup=1)
+        bag_w = torch.cat([E.pack_weights(*ws).float().reshape(cells * cw, H),
+                           torch.zeros(1, H, device="cuda")])
+        k["library_ms"], _ = time_ms(
+            lambda: F.embedding_bag(bag_idx, bag_w, mode="sum"))
+        bag = F.embedding_bag(bag_idx, bag_w, mode="sum").reshape(R, S, H)
+        kern = E2.onehot_embed2(codes, *ws, widths, values)
+        ref = E2.onehot_embed2_plain(codes, *ws, widths, values)
+        k["max_abs_err"] = float((kern - ref).abs().max())
+        gap = float((bag - kern).abs().max())
+        if not k["max_abs_err"] <= 1e-5 * float(ref.abs().max()):
+            raise AssertionError(f"K5f at the {where}: max abs err "
+                                 f"{k['max_abs_err']}")
+    _bound(k)
+    print(f"[time] K5f at the {where} (R={R}, F={Fd}, S={S}, H={H}, "
+          f"palette, {n_valid} of {codes.numel()} codes in the vocabulary):"
+          f" {k['ms'] * 1e3:.2f} us (host {k['host_ms'] * 1e3:.2f} us per "
+          f"call), plain {k['plain_ms'] * 1e3:.2f} us, embedding_bag "
+          f"{k['library_ms'] * 1e3:.2f} us (float32 tables; max abs diff to "
+          f"K5f {gap:.3e}), bound {k['bound_ms'] * 1e3:.2f} us "
+          f"({k['bound_by']}) [{card}]")
+    return k
+
+
+def time_k5b(codes, ws, widths, values, card, seed):
+    """K5b at the update's shape beside its bound, its plain version and
+    the backward of embedding_bag(sum) over the same row indices into the
+    float32 tables (forward + backward minus forward), with a bf16 dout."""
+    import torch.nn.functional as F
+
+    from marlgrid_tpu_torch.ops import embed as E
+    from marlgrid_tpu_torch.ops import embed2 as E2
+
+    R, Fd, S = codes.shape
+    cells, H = Fd // 3, ws[0].shape[-1]
+    cw = sum(widths)
+    gen = torch.Generator().manual_seed(seed)
+    dout = (torch.randn(R, S, H, generator=gen) * 1e-3).to(
+        torch.bfloat16).cuda()
+    n_valid, bag_idx = _bag_rows(codes, widths, values, cells, cw)
+    k = dict(bytes=codes.numel() + dout.numel() * 2 + cells * cw * H * 4,
+             ops=n_valid * H)
+    k["ms"], k["host_ms"] = time_ms(
+        lambda: E2.onehot_embed2_bwd(codes, dout, widths, values))
+    k["plain_ms"], _ = time_ms(lambda: E2.onehot_embed2_bwd_plain(
+        codes, dout, widths, values), iters=3, warmup=1)
+    bag_w = torch.cat([E.pack_weights(*ws).float().reshape(cells * cw, H),
+                       torch.zeros(1, H, device="cuda")])
+    bag_w.requires_grad_(True)
+    d_flat = dout.float().reshape(R * S, H)
+    fwd_ms, _ = time_ms(lambda: F.embedding_bag(bag_idx, bag_w, mode="sum"),
+                        iters=10)
+    both_ms, _ = time_ms(lambda: torch.autograd.grad(
+        F.embedding_bag(bag_idx, bag_w, mode="sum"), bag_w, d_flat),
+        iters=10)
+    k["library_ms"] = both_ms - fwd_ms
+    kern = E2.onehot_embed2_bwd(codes, dout, widths, values)
+    refs = E2.onehot_embed2_bwd_plain(codes, dout, widths, values)
+    k["max_abs_err"] = max(float((a - b).abs().max())
+                           for a, b in zip(kern, refs))
+    if not all(float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+               for a, b in zip(kern, refs)):
+        raise AssertionError(f"K5b at the update's shape: max abs err "
+                             f"{k['max_abs_err']}")
+    _bound(k)
+    print(f"[time] K5b at the update's shape (R={R}, F={Fd}, S={S}, H={H}, "
+          f"palette, {n_valid} codes in the vocabulary): "
+          f"{k['ms'] * 1e3:.2f} us (host {k['host_ms'] * 1e3:.2f} us per "
+          f"call), plain {k['plain_ms'] * 1e3:.2f} us, embedding_bag "
+          f"backward {k['library_ms'] * 1e3:.2f} us (forward+backward "
+          f"{both_ms * 1e3:.2f} us minus forward {fwd_ms * 1e3:.2f} us), "
+          f"bound {k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}) [{card}]")
+    return k
+
+
+def phase_timings_k5(roll, rnn, card, seed):
+    """K5f at the rollout's shape (the rollout phase's last observation,
+    (4, 147, 4096)) and at the recurrent update's (one minibatch of the
+    rollout phase's trajectory cut into the recurrent sequence blocks: 8
+    blocks of 64 steps x 4 agents x 128 envs, laid out (L, mb, N) as the
+    update's torso reads them: R = 2048, S = 128), and K5b at the update's,
+    with the recurrent phase's tables."""
+    from marlgrid_tpu_torch.parallel import ppo_rnn
+
+    emb = rnn["net"].torso0
+    ws = [w.detach().contiguous() for w in emb.tables()]
+    widths, values = emb.widths, emb.values
+    cfg = rnn["cfg"]
+    obs = roll["traj_obs"]                               # (T, N, F, B)
+    T, N, Fd, B = obs.shape
+    c = ppo_rnn.sequence_block_size(B, 1, cfg.n_minibatches)
+    G = B // c
+    blocks = obs.reshape(T, N, Fd, G, c).permute(3, 0, 1, 2, 4)
+    pick = torch.randperm(G, generator=torch.Generator().manual_seed(seed))
+    mb = blocks[pick[:G // cfg.n_minibatches].cuda()]   # (mb, T, N, F, c)
+    codes = mb.transpose(0, 1).reshape(-1, Fd, c).contiguous()
+    return dict(
+        onehot_embed2_fwd=time_k5f(roll["obs"], ws, widths, values,
+                                   "rollout's shape", card),
+        onehot_embed2_fwd_update=time_k5f(codes, ws, widths, values,
+                                          "recurrent update's shape", card),
+        onehot_embed2_bwd=time_k5b(codes, ws, widths, values, card, seed))
 
 
 def time_k3(ep, ids, layout, where, card, plain_iters=3):
@@ -1254,38 +1684,58 @@ def main(argv=None):
     pals = obs.encode_palettes(gc)
     errs = dict(transpose_bk=k1_err, onehot_embed_fwd=phase_embed(pals),
                 onehot_embed_bwd=phase_embed_bwd(pals),
+                onehot_embed2_fwd=phase_embed2(pals),
+                onehot_embed2_bwd=phase_embed2_bwd(pals),
                 compose_image_b=phase_sprite(args.seed))
     phase_reference(args.seed)
     roll = phase_rollout(args.seed, card)
     train = phase_train(args.seed, card)
-    cli = phase_cli(card, (), dict(transpose_bk=65, onehot_embed_fwd=73,
-                                   onehot_embed_bwd=8, compose_image_b=0))
+    cli = phase_cli(card, (), want_counts(
+        transpose_bk=65, onehot_embed_fwd=73, onehot_embed_bwd=8))
     image = phase_image(args.seed, card)
-    cli_image = phase_cli(card, ("--obs", "image"), dict(
-        transpose_bk=73, onehot_embed_fwd=0, onehot_embed_bwd=0,
-        compose_image_b=73))
-    prof = phase_profile(roll, train, image, card)
+    cli_image = phase_cli(card, ("--obs", "image"), want_counts(
+        transpose_bk=73, compose_image_b=73))
+    rnn = phase_rnn(args.seed, card)
+    rnn_image = phase_rnn_image(args.seed, card)
+    cli_rnn = phase_cli(card, ("--rnn", "gru"), want_counts(
+        transpose_bk=65, onehot_embed2_fwd=73, onehot_embed2_bwd=8),
+        plane_major=True)
+    prof = phase_profile(roll, train, image, rnn, card)
     env = phase_env_only(args.seed, card)
     env_img = phase_env_only(args.seed, card, "image")
     tim = phase_timings(roll, card, args.seed)
     tim["compose_image_b"] = phase_timings_k3(image, env_img, card,
                                               args.seed)
-    # K3's error: the sprite phase's and that of the three timed shapes
+    tim.update(phase_timings_k5(roll, rnn, card, args.seed))
+    # K3's error: the sprite phase's and that of the three timed shapes;
+    # K5's: their phases' and that of their timed shapes
     errs["compose_image_b"] = float(max(
         [errs["compose_image_b"]]
         + [k["max_abs_err"] for k in tim["compose_image_b"].values()]))
+    errs["onehot_embed2_fwd"] = max(
+        errs["onehot_embed2_fwd"], tim["onehot_embed2_fwd"]["max_abs_err"],
+        tim["onehot_embed2_fwd_update"]["max_abs_err"])
+    errs["onehot_embed2_bwd"] = max(errs["onehot_embed2_bwd"],
+                                    tim["onehot_embed2_bwd"]["max_abs_err"])
 
-    # launches: per train step on the train path (K1, K2f, K2b) and on the
-    # image train path (K3, which runs K1 73 times a step too); K3's times
-    # are those at the update's shape, where most of its time goes (the
-    # rollout's and the env-only shape's are in --json)
+    # launches: per train step on the train path (K1, K2f, K2b), on the
+    # image train path (K3, which runs K1 73 times a step too) and on the
+    # recurrent encode path with the plane-major embed (K5f, K5b); K3's and
+    # K5f's times are those at the update's shape, where most of their time
+    # goes (the other shapes' are in --json)
     kernels = []
     for name, src, line, path in (
             ("transpose_bk", "transpose.cu", "transpose.py:41", train),
             ("onehot_embed_fwd", "embed.cu", "embed.py:245", train),
             ("onehot_embed_bwd", "embed_bwd.cu", "embed.py:264", train),
-            ("compose_image_b", "sprite.cu", "sprite.py:280", image)):
-        k = tim[name]["update"] if name == "compose_image_b" else tim[name]
+            ("compose_image_b", "sprite.cu", "sprite.py:280", image),
+            ("onehot_embed2_fwd", "embed2.cu", "embed2.py:120", rnn),
+            ("onehot_embed2_bwd", "embed2.cu", "embed2.py:149", rnn)):
+        k = tim[name]
+        if name == "compose_image_b":
+            k = k["update"]
+        elif name == "onehot_embed2_fwd":
+            k = tim["onehot_embed2_fwd_update"]
         kernels.append(dict(
             name=name, route="cuda", source=f"marlgrid_tpu_torch/csrc/{src}",
             replaces=f"marlgrid_tpu/ops/{line}",
@@ -1312,6 +1762,10 @@ def main(argv=None):
                                metrics=image["metrics"],
                                peak_gb=image["peak_gb"]),
                            cli_image=cli_image,
+                           rnn={k: rnn[k] for k in (
+                               "counts", "seconds", "metrics", "peak_gb",
+                               "env_steps_per_s")},
+                           rnn_image=rnn_image, cli_rnn=cli_rnn,
                            env_only={k: env[k] for k in (
                                "env_steps_per_s", "seconds", "counts")},
                            env_only_image={k: env_img[k] for k in (
@@ -1321,7 +1775,9 @@ def main(argv=None):
     print(f"[done] all phases passed in {total_s:.1f} s; rollout "
           f"{roll['env_steps_per_s']:,.0f} env-steps/s, train "
           f"{train['env_steps_per_s']:,.0f}, image train "
-          f"{image['env_steps_per_s']:,.0f}, env-only "
+          f"{image['env_steps_per_s']:,.0f}, recurrent train "
+          f"{rnn['env_steps_per_s']:,.0f}, recurrent image train "
+          f"{rnn_image['env_steps_per_s']:,.0f}, env-only "
           f"{env['env_steps_per_s']:,.0f}, image env-only "
           f"{env_img['env_steps_per_s']:,.0f} env-steps/s on {card}")
     print(card)

@@ -1,1 +1,3 @@
-from .actor_critic import ActorCritic, OneHotEmbed, load_flax_params  # noqa: F401
+from .actor_critic import (  # noqa: F401
+    ActorCritic, FusedGRUCell, FusedLSTMCell, OneHotEmbed,
+    RecurrentActorCritic, load_flax_params)

@@ -139,7 +139,9 @@ def _recompute(env_params: EnvParams, cfg: PPOConfig) -> bool:
             "heterogeneous per-agent obs groups: ROADMAP Slice E")
     if cfg.rnn:
         raise NotImplementedError(
-            f"rnn={cfg.rnn!r}: recurrent cells come with ROADMAP Slice D")
+            f"rnn={cfg.rnn!r}: the recurrent family (ROADMAP Slice D) trains "
+            f"through parallel/ppo_rnn.py (init_state_rnn, "
+            f"make_train_step_rnn), not the feedforward step")
     if env_params.observation_style == "encode":
         if cfg.torso != "mlp":
             raise NotImplementedError(
@@ -182,9 +184,14 @@ def init_state(env_params: EnvParams, cfg: PPOConfig, generator=None,
     net = ActorCritic(cfg, env_params.view_size, generator, device=device,
                       tile_size=env_params.view_tile_size,
                       aux_dim=aux_dim(env_params) if rich else 0)
-    opt = torch.optim.Adam(net.parameters(), lr=cfg.lr, betas=(0.9, 0.999),
-                           eps=1e-8, foreach=False)
-    return net, opt
+    return net, make_optimizer(net, cfg)
+
+
+def make_optimizer(net, cfg: PPOConfig):
+    """Adam at optax's defaults (b1 0.9, b2 0.999, eps 1e-8 outside the
+    square root, single-tensor form) over ``net``'s parameters."""
+    return torch.optim.Adam(net.parameters(), lr=cfg.lr, betas=(0.9, 0.999),
+                            eps=1e-8, foreach=False)
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -231,6 +238,23 @@ def _gae(rew, value, done, last_value, gamma: float, lam: float):
         adv[t] = gae
         next_value = value[t]
     return adv, adv + value
+
+
+def step_labels(traj, last_value, cfg: PPOConfig, env_leading: bool):
+    """GAE over a trajectory with the agents folded into the batch (each
+    agent an independent sample; an env's done ends all its agents'
+    episodes): the per-step labels ``act``, ``logp``, ``val``, ``adv`` and
+    ``ret``, each in the trajectory's (T, B, N) layout (``env_leading``,
+    the image paths) or (T, N, B) (encode)."""
+    lead = traj["rew"].shape
+    T = lead[0]
+    done = (traj["done"][..., None] if env_leading
+            else traj["done"][:, None, :]).expand(lead)
+    val = traj["val"].reshape(T, -1)
+    adv, ret = _gae(traj["rew"].reshape(T, -1), val, done.reshape(T, -1),
+                    last_value.reshape(-1), cfg.gamma, cfg.gae_lambda)
+    return dict(act=traj["act"], logp=traj["logp"], val=traj["val"],
+                adv=adv.reshape(lead), ret=ret.reshape(lead))
 
 
 def _stack_states(states) -> EnvState:
@@ -358,6 +382,77 @@ def obs_blocks(obs: torch.Tensor, c: int) -> torch.Tensor:
         0, 2, 1, 3).reshape(N * T * (B // c), Fd, c)
 
 
+def ppo_loss(logits, value, lab, cfg: PPOConfig):
+    """The clipped PPO objective of the JAX ``loss_fn``: ``logits`` (..., A)
+    and ``value`` (...) against the labels ``lab`` (``act``, ``logp``,
+    ``val``, ``adv``, ``ret``, each (...), aligned sample for sample) ->
+    ``(total, {pg_loss, vf_loss, entropy, ratio_dev})``. The advantages are
+    normalized over the minibatch (population std, as ``jnp.std``)."""
+    eps = cfg.clip_eps
+    logp = F.log_softmax(logits, -1)
+    logp_a = logp.gather(-1, lab["act"].long()[..., None])[..., 0]
+    ratio = torch.exp(logp_a - lab["logp"])
+    adv = lab["adv"]
+    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    pg = -torch.minimum(ratio * adv,
+                        torch.clamp(ratio, 1 - eps, 1 + eps) * adv).mean()
+    v_clipped = lab["val"] + torch.clamp(value - lab["val"], -eps, eps)
+    vf = 0.5 * torch.maximum((value - lab["ret"]) ** 2,
+                             (v_clipped - lab["ret"]) ** 2).mean()
+    ent = -(F.softmax(logits, -1) * logp).sum(-1).mean()
+    total = pg + cfg.vf_coef * vf - cfg.ent_coef * ent
+    # |ratio - 1| on the first minibatch of an update is a row-alignment
+    # check: stored logp recomputed from stored obs at the same weights must
+    # agree
+    ratio_dev = (ratio - 1.0).abs().mean()
+    return total, dict(pg_loss=pg, vf_loss=vf, entropy=ent,
+                       ratio_dev=ratio_dev)
+
+
+def _take(v, idx):
+    """Blocks ``idx`` of a block tensor, of each leaf of an EnvState, or of
+    each tensor of a tuple (an LSTM carry)."""
+    if isinstance(v, EnvState):
+        return v.map(lambda x: x[idx])
+    if isinstance(v, tuple):
+        return tuple(x[idx] for x in v)
+    return v[idx]
+
+
+def run_epochs(blocked, G: int, used: int, loss_fn, params, optimizer, key,
+               cfg: PPOConfig, dev):
+    """The epochs of a PPO update over ``blocked`` ({name: (G, ...)}
+    blocks): per epoch a ``permutation(split(key)[1], G)``, its first
+    ``used`` blocks cut into ``n_minibatches`` gathers, and for each
+    ``loss_fn(batch) -> (total, aux)``, a backward pass, the global-norm
+    clip and an Adam step on ``params`` (in place). Returns the means over
+    every minibatch of ``loss`` and of each ``aux`` entry, as 0-d device
+    tensors."""
+    mb = used // cfg.n_minibatches
+    losses, auxs = [], []
+    key = key.to(dev)
+    for _ in range(cfg.n_epochs):
+        ks = rng.split(key)
+        key, pk = ks[0], ks[1]
+        perm = rng.permutation(pk, G)
+        for idx in perm[:used].reshape(cfg.n_minibatches, mb):
+            # blocks are consumed whole
+            batch = {k: _take(v, idx) for k, v in blocked.items()}
+            total, aux = loss_fn(batch)
+            with record_function("update.backward"):
+                grads = torch.autograd.grad(total, params)
+            with record_function("update.optimizer"):
+                for p, g in zip(params, grads):
+                    p.grad = g
+                clip_by_global_norm(grads, cfg.max_grad_norm)
+                optimizer.step()
+            losses.append(total.detach())
+            auxs.append({k: v.detach() for k, v in aux.items()})
+    metrics = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+    metrics["loss"] = torch.stack(losses).mean()
+    return metrics
+
+
 def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
                 device="cuda"):
     """Build ``update(traj, last_value, key) -> metrics``, the update half of
@@ -399,8 +494,6 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
         raise ValueError(f"fewer trajectory blocks ({G}) than minibatches "
                          f"({cfg.n_minibatches})")
     used = (G // cfg.n_minibatches) * cfg.n_minibatches
-    mb = used // cfg.n_minibatches
-    eps = cfg.clip_eps
     labels = ("act", "logp", "val", "adv", "ret")
 
     def policy(batch):
@@ -430,44 +523,12 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     def loss_fn(batch):
         logits, value, batch = policy(batch)
         with record_function("update.forward"):
-            logp = F.log_softmax(logits, -1)
-            logp_a = logp.gather(-1, batch["act"].long()[..., None])[..., 0]
-            ratio = torch.exp(logp_a - batch["logp"])
-            adv = batch["adv"]
-            # the population std, as jnp.std
-            adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
-            pg = -torch.minimum(ratio * adv,
-                                torch.clamp(ratio, 1 - eps, 1 + eps) * adv
-                                ).mean()
-            v_clipped = batch["val"] + torch.clamp(value - batch["val"],
-                                                   -eps, eps)
-            vf = 0.5 * torch.maximum((value - batch["ret"]) ** 2,
-                                     (v_clipped - batch["ret"]) ** 2).mean()
-            ent = -(F.softmax(logits, -1) * logp).sum(-1).mean()
-            total = pg + cfg.vf_coef * vf - cfg.ent_coef * ent
-            # |ratio - 1| on the first minibatch of an update is a
-            # row-alignment check: stored logp recomputed from stored obs
-            # at the same weights must agree
-            ratio_dev = (ratio - 1.0).abs().mean()
-        return total, dict(pg_loss=pg, vf_loss=vf, entropy=ent,
-                           ratio_dev=ratio_dev)
+            return ppo_loss(logits, value, batch, cfg)
 
     def blocks(traj, last_value):
         """GAE, then the trajectory cut into G blocks: {name: (G, ...)},
         with ``obs`` an EnvState on the recompute path."""
-        # fold agents into the batch: each agent is an independent sample
-        if recompute:                         # leaves (T, B, N)
-            done = traj["done"][..., None].expand(T, B, N)
-        else:                                 # leaves (T, N, B)
-            done = traj["done"][:, None, :].expand(T, N, B)
-        lead = traj["rew"].shape
-        val = traj["val"].reshape(T, -1)
-        adv, ret = _gae(traj["rew"].reshape(T, -1), val,
-                        done.reshape(T, -1), last_value.reshape(-1),
-                        cfg.gamma, cfg.gae_lambda)
-        per_step = dict(act=traj["act"], logp=traj["logp"],
-                        val=val.reshape(lead), adv=adv.reshape(lead),
-                        ret=ret.reshape(lead))
+        per_step = step_labels(traj, last_value, cfg, recompute)
         if recompute:
             def blk(x):                       # (T, B, ...) -> (G, c, ...)
                 return x.reshape((G, c) + x.shape[2:])
@@ -493,31 +554,8 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
                 f"block(s) (~{100 * (G - used) / G:.1f}% of each epoch's "
                 f"data). Pick n_minibatches dividing {G} to use all of it.",
                 stacklevel=3)
-        losses, auxs = [], []
-        key = key.to(dev)
-        for _ in range(cfg.n_epochs):
-            ks = rng.split(key)
-            key, pk = ks[0], ks[1]
-            perm = rng.permutation(pk, G)
-            for idx in perm[:used].reshape(cfg.n_minibatches, mb):
-                # blocks are consumed whole: (mb, F, c) codes or (mb, c, ...)
-                # state leaves, with (mb, c[, N]) labels
-                batch = {k: v.map(lambda x: x[idx]) if k == "obs" and
-                         recompute else v[idx] for k, v in blocked.items()}
-                total, aux = loss_fn(batch)
-                with record_function("update.backward"):
-                    grads = torch.autograd.grad(total, params)
-                with record_function("update.optimizer"):
-                    for p, g in zip(params, grads):
-                        p.grad = g
-                    clip_by_global_norm(grads, cfg.max_grad_norm)
-                    optimizer.step()
-                losses.append(total.detach())
-                auxs.append({k: v.detach() for k, v in aux.items()})
-        metrics = {k: torch.stack([a[k] for a in auxs]).mean()
-                   for k in auxs[0]}
-        metrics["loss"] = torch.stack(losses).mean()
-        return metrics
+        return run_epochs(blocked, G, used, loss_fn, params, optimizer, key,
+                          cfg, dev)
 
     return update
 

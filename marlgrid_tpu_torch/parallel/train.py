@@ -1,12 +1,16 @@
-"""Training entry point of the PyTorch port: feedforward PPO on one
-device, on 'encode' observations with the mlp torso or on 'image'/'rich'
-observations with the 'cnn_s2d' (default) or 'cnn_image' torso.
+"""Training entry point of the PyTorch port: PPO on one device, on
+'encode' observations with the mlp torso or on 'image'/'rich' observations
+with the 'cnn_s2d' (default) or 'cnn_image' torso, feedforward or, with
+``--rnn gru|lstm``, recurrent (``parallel/ppo_rnn.py``).
 
 Usage:
     python -m marlgrid_tpu_torch.parallel.train --scenario goal_cycle \
         --grid-size 13 --agents 4 --envs 4096 --iters 100 \
         [--obs image|rich [--torso cnn_image] [--observe rewards,...]] \
-        [--device cpu]
+        [--rnn gru|lstm [--bptt-window L]] [--device cpu]
+
+``MARLGRID_TPU_EMBED_V2=1`` in the environment routes the mlp torso's embed
+through the plane-major kernels (K5f, K5b), as it does for the JAX CLI.
 
 The flags and defaults are those of ``python -m marlgrid_tpu.parallel.train``
 plus ``--device`` (default ``cuda``). A flag whose path the port does not
@@ -30,14 +34,11 @@ from ..core.state import EnvParams, EnvState, FIELDS, default_agent_colors
 from ..device import resolve
 from ..utils import checkpoint as ckpt_mod
 from ..utils.metrics import MetricsLogger
-from . import ppo
+from . import ppo, ppo_rnn
 
 #: (is it asked for, flag, the ROADMAP slice that brings it) for each flag
 #: with no path in the port yet
 LATER = (
-    (lambda a: bool(a.rnn), "--rnn", "Slice D (recurrent)"),
-    (lambda a: bool(a.bptt_window), "--bptt-window",
-     "Slice D (recurrent)"),
     (lambda a: a.torso == "cnn", "--torso cnn",
      "Slice C (pixels): the encode cnn torso"),
     (lambda a: a.obs == "encode" and a.torso in ("cnn_image", "cnn_s2d"),
@@ -80,10 +81,13 @@ def parse_args(argv=None):
                    help="policy torso (default: mlp for encode obs, "
                         "cnn_s2d for image/rich; the port has no 'cnn')")
     p.add_argument("--rnn", default="", choices=["", "gru", "lstm"],
-                   help="recurrent policy cell (not in the port yet)")
+                   help="recurrent policy cell: sequence-aware PPO with "
+                        "env-block minibatches and done-masked hidden state "
+                        "(parallel/ppo_rnn.py)")
     p.add_argument("--bptt-window", type=int, default=0,
-                   help="truncated-BPTT window for --rnn (not in the port "
-                        "yet)")
+                   help="truncated-BPTT window for --rnn: chunk the T-step "
+                        "sequences into L-step windows (must divide "
+                        "--rollout; 0 = full sequences)")
     p.add_argument("--agent-config", default=None,
                    help="JSON list of per-agent kwargs (not in the port "
                         "yet)")
@@ -144,6 +148,14 @@ def build(args):
         if unsupported(args):
             raise SystemExit(f"{flag}: not in the PyTorch port yet; it comes "
                              f"with ROADMAP {slice_}")
+    if args.bptt_window and not args.rnn:
+        raise SystemExit("--bptt-window is a --rnn option")
+    if args.bptt_window and args.rollout % args.bptt_window:
+        raise SystemExit(f"--bptt-window {args.bptt_window} must divide "
+                         f"--rollout {args.rollout}")
+    if args.rnn and args.overlap:
+        raise SystemExit("--rnn does not compose with --overlap (the "
+                         "double-buffered variant is feedforward)")
     torso = args.torso or ("cnn_s2d" if args.obs in ("image", "rich")
                            else "mlp")
     if args.obs != "encode" and torso == "mlp":
@@ -175,7 +187,8 @@ def build(args):
     cfg = ppo.PPOConfig(n_envs=args.envs, rollout_len=args.rollout,
                         lr=args.lr, torso=torso, n_epochs=args.epochs,
                         n_minibatches=args.minibatches, hidden=args.hidden,
-                        board_pool=args.board_pool)
+                        board_pool=args.board_pool, rnn=args.rnn,
+                        bptt_window=args.bptt_window)
     if args.resume and not args.no_embed_palette:
         # the weights' shapes must match the checkpoint's vocabularies
         ck_cfg = ckpt_mod.load_config(args.resume)
@@ -194,8 +207,12 @@ def main(argv=None):
     ep, cfg = build(args)
     dev = resolve(args.device)
     key = rng.PRNGKey(args.seed, device=dev)
-    net, opt = ppo.init_state(ep, cfg, torch.Generator().manual_seed(
-        args.seed), device=dev)
+    gen = torch.Generator().manual_seed(args.seed)
+    h = None
+    if cfg.rnn:
+        net, opt, h = ppo_rnn.init_state_rnn(ep, cfg, gen, device=dev)
+    else:
+        net, opt = ppo.init_state(ep, cfg, gen, device=dev)
     env_state = ppo.init_env_batch(ep, cfg.n_envs, rng.fold_in(key, 1),
                                    stagger=not args.no_stagger, device=dev)
     key = rng.fold_in(key, 2)
@@ -209,13 +226,20 @@ def main(argv=None):
             env_state = EnvState(**tree["env_state"]).map(
                 lambda t: t.to(dev))
             key = tree["key"].to(dev)
+            if h is not None and "h" in tree:
+                h = ppo_rnn.map_carry(lambda t: t.to(dev), tree["h"])
         else:
-            print("warning: the checkpoint holds no env state and key; "
-                  "they restart fresh", flush=True)
+            print("warning: the checkpoint holds no env state and key"
+                  + (" or carry" if h is not None else "")
+                  + "; they restart fresh", flush=True)
 
     spc = max(1, args.steps_per_call)
     prev = None
-    if args.overlap:
+    if cfg.rnn:
+        step = ppo_rnn.make_train_step_rnn(ep, cfg, net, opt, device=dev)
+        if spc > 1:
+            step = ppo_rnn.multi_step_rnn(step, spc)
+    elif args.overlap:
         step, prime = ppo.make_train_step(ep, cfg, net, opt, device=dev,
                                           overlap=True)
         env_state, prev, key = prime(env_state, key)
@@ -234,11 +258,15 @@ def main(argv=None):
     t0 = time.time()
     last_logged = -1
     for it in range(n_calls):
-        for _ in range(spc):
-            if args.overlap:
-                env_state, prev, key, metrics = step(env_state, prev, key)
-            else:
-                env_state, key, metrics = step(env_state, key)
+        if cfg.rnn:
+            env_state, h, key, metrics = step(env_state, h, key)
+        else:
+            for _ in range(spc):
+                if args.overlap:
+                    env_state, prev, key, metrics = step(env_state, prev,
+                                                         key)
+                else:
+                    env_state, key, metrics = step(env_state, key)
         if (it + 1) % args.log_every == 0 or it == n_calls - 1:
             metrics = {k: float(v) for k, v in metrics.items()}
             n_it = it - last_logged
@@ -256,6 +284,8 @@ def main(argv=None):
                            env_state={f: getattr(env_state, f)
                                       for f in FIELDS},
                            key=key)
+            if h is not None:
+                payload["h"] = h
             ckpt_mod.save(args.checkpoint_dir, payload, step=it + 1,
                           config=run_config)
     log.close()

@@ -44,14 +44,15 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with ``device="cpu"`` it runs."""
     from marlgrid_tpu_torch.core import rng
     from marlgrid_tpu_torch.core.state import EnvParams
-    from marlgrid_tpu_torch.models import ActorCritic
-    from marlgrid_tpu_torch.parallel import ppo, train
+    from marlgrid_tpu_torch.models import ActorCritic, RecurrentActorCritic
+    from marlgrid_tpu_torch.parallel import ppo, ppo_rnn, train
     from marlgrid_tpu_torch.vector import VectorEnv
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ep = EnvParams(width=7, height=7, n_agents=1,
                    observation_style="encode")
     cfg = ppo.PPOConfig(n_envs=4, rollout_len=2, hidden=8)
+    rcfg = ppo.PPOConfig(n_envs=4, rollout_len=2, hidden=8, rnn="gru")
     key = rng.PRNGKey(0, device="cpu")
     for call in (lambda: rng.PRNGKey(0),
                  lambda: VectorEnv(ep, 4),
@@ -60,6 +61,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  lambda: ppo.make_rollout(ep, cfg, None),
                  lambda: ppo.init_state(ep, cfg),
                  lambda: ppo.make_train_step(ep, cfg, None, None),
+                 lambda: RecurrentActorCritic(rcfg, ep.view_size),
+                 lambda: ppo_rnn.init_state_rnn(ep, rcfg),
+                 lambda: ppo_rnn.make_train_step_rnn(ep, rcfg, None, None),
                  lambda: train.main(["--scenario", "empty", "--agents", "1",
                                      "--envs", "4", "--iters", "1"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -2,7 +2,8 @@
 on the CPU, tiny: its JSONL carries the JAX CLI's fields, its checkpoint's
 config.json holds the PPOConfig the JAX CLI builds from the same flags
 (palettes included), and a flag whose path the port lacks exits with the
-ROADMAP slice that brings it."""
+ROADMAP slice that brings it. The ``--rnn`` CLI is in
+``test_torch_ppo_rnn.py``."""
 import json
 
 import pytest
@@ -94,7 +95,8 @@ def test_cli_image(tmp_path):
 
 
 @pytest.mark.parametrize("flag,slice_", [
-    (["--rnn", "gru"], "Slice D"),
+    (["--rnn", "gru", "--shard-map"], "Slice G"),
+    (["--rnn", "gru", "--agent-config", "[{}]"], "Slice E"),
     (["--torso", "cnn"], "Slice C"),
     (["--torso", "cnn_s2d"], "Slice C"),
     (["--agent-config", "[{}]"], "Slice E"),
