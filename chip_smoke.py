@@ -22,17 +22,24 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    plain version at the rollout's and the update's shapes within 1e-5 of
    max |out|, and K5b (its three tables' gradients) at the update's shape
    within 1e-3 of max |dW_p|, deterministic, through its autograd Function;
+   the four embed kernels and K6 also at a hetero 5x5 view group's rollout
+   and update shapes (25 cells, the full vocabulary);
 4. the env engine and the observations (encode and image) on the card
    against the same code on the CPU (which the tests hold bit-equal to the
    JAX package), the mlp and cnn_s2d policies' logits on the card against
    the CPU's, and a small float32 train step of each path (feedforward
    encode and image; recurrent: GRU encode on the plane-major embed, LSTM
    encode, GRU image): the card's rollout and update against the CPU's
-   update of the same trajectory from the same weights;
+   update of the same trajectory from the same weights; then the same for
+   one step of each heterogeneous population (all-encode views 7/5/7/5,
+   with a GRU on the plane-major embed, and encode + image groups, the
+   image group held to the float32 image step's bounds);
 5. the rollout path: a PPO rollout at the train default's full width
    (goal_cycle 13x13, 4 agents, 7x7 encode, B = 4096, T = 64, hidden 128,
    board pool 256, stagger, the compact embed palettes) through
-   ``make_rollout``, with the launch counts read around it;
+   ``make_rollout``, with the launch counts read around it; then the K4
+   probe (``transpose_traj``) on its trajectory, bit-exact against the
+   plain version there and on odd uint8 and int32 shapes, and timed;
 6. the train path: ``make_train_step`` at the same width (2 epochs x 4
    minibatches), four train steps, with the launch counts of K1, K2f, K2b
    and K3 read around each (65 / 73 / 8 / 0) and train env-steps/s; then
@@ -51,14 +58,24 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    K3; each with train env-steps/s, its losses and its peak device memory;
    then the ``--rnn gru`` CLI, two iterations with a checkpoint (the carry
    included) and one resumed from it;
+8b. the heterogeneous populations at the same width (``--agent-config``,
+   the JAX perf gate's specs, no palettes): views 7/5/7/5 (K1 130, K2f
+   146, K2b 16 per step: two groups), the same with ``--rnn gru`` on the
+   plane-major embed (K1 130, K5f 146, K5b 16) and encode + image agents
+   at T = 32 (K1 74, K2f 41, K2b 8, K3 41), four train steps each with
+   train env-steps/s and peak memory, and each embed kernel held against
+   its plain version on the first step's own codes, tables and output
+   gradients; then the ``--agent-config`` CLI with a resume;
 9. torch.profiler over a short rollout, one train step, one image train
-   step and one recurrent train step, by stage;
+   step, one recurrent train step and one hetero train step, by stage;
 10. the env-only phase at bench.py's config (cluttered 15x15, 3 agents,
    25 clutter, B = 32768, T = 16 random actions, board pool 256), with
    encode and with image observations;
 11. the kernels' times with CUDA events at the rollout's and the update's
    shapes (K3 also at the image env-only shape), beside their bound, their
-   plain version's and one PyTorch call's time.
+   plain version's and one PyTorch call's time; then the K6 probe (the
+   embed-roofline split of K2f into 'full', 'build' and 'gemm') against
+   its plain versions and timed beside K2f.
 
 The last lines of standard output are the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
@@ -79,6 +96,20 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+
+#: the perf gate's heterogeneous populations (tests/test_perf_gate.py)
+HETERO_SPEC = ('[{"view_size":7},{"view_size":5},{"view_size":7},'
+               '{"view_size":5}]')
+MIXED_SPEC = ('[{"view_size":7},{"view_size":7,"observation_style":"image"},'
+              '{"view_size":7},{"view_size":7,"observation_style":"image"}]')
+#: the three hetero train paths: (train CLI flags, plane-major embed)
+HETERO_PATHS = {
+    "hetero": (("--agent-config", HETERO_SPEC), False),
+    "hetero-rnn": (("--agent-config", HETERO_SPEC, "--rnn", "gru"), True),
+    "hetero-mixed": (("--agent-config", MIXED_SPEC, "--rollout", "32"),
+                     False),
+}
 
 
 def card_line() -> str:
@@ -133,13 +164,16 @@ def kernel_wrappers():
     """Name -> wrapper of every kernel of the port; each wrapper counts its
     launches in ``.launches``."""
     from marlgrid_tpu_torch.ops import embed, embed2, sprite, transpose
+    from marlgrid_tpu_torch.probes import embed_roofline
 
     return {"transpose_bk": transpose.transpose_bk,
             "onehot_embed_fwd": embed.onehot_embed,
             "onehot_embed_bwd": embed.onehot_embed_bwd,
             "compose_image_b": sprite.compose_image_b,
             "onehot_embed2_fwd": embed2.onehot_embed2,
-            "onehot_embed2_bwd": embed2.onehot_embed2_bwd}
+            "onehot_embed2_bwd": embed2.onehot_embed2_bwd,
+            "transpose_traj": transpose.transpose_traj,
+            "embed_variant": embed_roofline.fwd_variant}
 
 
 def want_counts(**launches):
@@ -215,13 +249,30 @@ def _codes(R, cells, S, gen):
     return torch.cat(parts, 1).to(torch.uint8).cuda()
 
 
+#: the embed phases' extra cases, (R, cells, S): a hetero population's 5x5
+#: view group (25 cells, the full vocabulary: hetero runs have no palettes)
+#: of two agents at the rollout's shape (R = 2, S = 4096) and the update's
+#: (R = 1024 blocks of S = 128: 2 agents x 64 steps x 32 env chunks over 4
+#: minibatches); phase_hetero also holds each embed kernel on the inputs of
+#: a real step of each hetero path
+HETERO_ROLLOUT = (2, 25, 4096)
+HETERO_UPDATE = (1024, 25, 128)
+
+
 def phase_embed(palettes):
+    """K2f at the rollout's shape (R = 4, S = 4096) with the full
+    vocabularies and the goal_cycle palette, and at a hetero 5x5 group's
+    rollout and update shapes, against its plain version in float32 rounded
+    to bf16, within 1 bf16 ulp."""
     from marlgrid_tpu_torch.ops import embed as E
 
     gen = torch.Generator().manual_seed(1)
-    R, cells, S, H = 4, 49, 4096, 128
+    H = 128
     worst = 0.0
-    for name, pal in (("full", None), ("goal_cycle palette", palettes)):
+    for R, cells, S, name, pal in (
+            (4, 49, 4096, "full", None),
+            (4, 49, 4096, "goal_cycle palette", palettes),
+            (*HETERO_ROLLOUT, "full", None), (*HETERO_UPDATE, "full", None)):
         widths, values = E.vocab(pal)
         x = _codes(R, cells, S, gen)
         w = (torch.randn(cells, sum(widths), H, generator=gen) * 0.05).to(
@@ -231,63 +282,83 @@ def phase_embed(palettes):
         sync()
         ref = E.onehot_embed_plain(x, w.float(), widths, values,
                                    torch.float32).to(torch.bfloat16)
-        err = (out.float() - ref.float()).abs()
-        # 1 bf16 ulp of the reference; 2**-20 absolute covers the float32
-        # summation-order error where the sum cancels to near zero
-        bad = err > bf16_ulp(ref) + 2.0 ** -20
-        if out.shape != (R, S, H) or out.dtype != torch.bfloat16 or \
-                bad.any():
-            raise AssertionError(
-                f"K2f ({name}) beyond 1 bf16 ulp at {int(bad.sum())} of "
-                f"{bad.numel()} values (max abs err {float(err.max())})")
-        worst = max(worst, float(err.max()))
-        print(f"[K2f] {name} (R={R}, F={3 * cells}, S={S}, H={H}): max abs "
-              f"err {float(err.max()):.3e}, within 1 bf16 ulp")
+        worst = max(worst, _hold_k2f(out, ref, f"{name} (R={R}, "
+                                             f"F={3 * cells}, S={S}, H={H})"))
     return worst
 
 
+def _hold_k2f(out, ref, what):
+    """K2f's output within 1 bf16 ulp of its plain version's float32 sum
+    ``ref`` rounded to bf16; returns max |err|."""
+    err = (out.float() - ref.float()).abs()
+    # 1 bf16 ulp of the reference; 2**-20 absolute covers the float32
+    # summation-order error where the sum cancels to near zero
+    bad = err > bf16_ulp(ref) + 2.0 ** -20
+    if out.shape != ref.shape or out.dtype != torch.bfloat16 or bad.any():
+        raise AssertionError(
+            f"K2f {what} beyond 1 bf16 ulp at {int(bad.sum())} of "
+            f"{bad.numel()} values (max abs err {float(err.max())}), or "
+            f"{tuple(out.shape)} {out.dtype}")
+    print(f"[K2f] {what}: max abs err {float(err.max()):.3e}, within 1 bf16 "
+          f"ulp")
+    return float(err.max())
+
+
 def phase_embed_bwd(palettes):
-    """K2b at the update's shape (R = 2048 blocks of S = 128 samples)
-    against its plain version on the card. Both read the same bf16 dout
-    and sum in float32; only the order of the sums over up to 262,144
-    samples differs, so max |err| <= 1e-3 * max |dW|. Two launches on the
-    same inputs give the same bits, and the embed's autograd Function
-    returns K2b's gradient."""
+    """K2b at the update's shape (R = 2048 blocks of S = 128 samples), with
+    the full vocabularies and the goal_cycle palette, and at a hetero 5x5
+    group's (``HETERO_UPDATE``), against its plain version on the card
+    (:func:`_hold_k2b`); the embed's autograd Function returns K2b's
+    gradient."""
     from marlgrid_tpu_torch.ops import embed as E
 
     gen = torch.Generator().manual_seed(2)
-    R, cells, S, H = 2048, 49, 128, 128
+    H = 128
     worst = 0.0
-    for name, pal in (("full", None), ("goal_cycle palette", palettes)):
+    for R, cells, S, name, pal in (
+            (2048, 49, 128, "full", None),
+            (2048, 49, 128, "goal_cycle palette", palettes),
+            (*HETERO_UPDATE, "full", None)):
         widths, values = E.vocab(pal)
         x = _codes(R, cells, S, gen)
         dout = torch.randn(R, S, H, generator=gen).to(torch.bfloat16).cuda()
-        dw = E.onehot_embed_bwd(x, dout, widths, values)
-        again = E.onehot_embed_bwd(x, dout, widths, values)
-        sync()
-        ref = E.onehot_embed_bwd_plain(x, dout, widths, values)
-        err = float((dw - ref).abs().max())
-        scale = float(ref.abs().max())
-        if dw.shape != (cells, sum(widths), H) or dw.dtype != torch.float32 \
-                or not err <= 1e-3 * scale:
-            raise AssertionError(
-                f"K2b ({name}): max abs err {err} beyond 1e-3 of max |dW| "
-                f"{scale}, or shape {tuple(dw.shape)} {dw.dtype}")
-        if not torch.equal(dw, again):
-            raise AssertionError(f"K2b ({name}) differs between two launches")
+        what = f"{name} (R={R}, F={3 * cells}, S={S}, H={H})"
+        dw, err = _hold_k2b(x, dout, widths, values, what)
         w = (torch.randn(cells, sum(widths), H, generator=gen) * 0.05).cuda()
         w.requires_grad_(True)
         n0 = E.onehot_embed_bwd.launches
         (g,) = torch.autograd.grad(E.onehot_embed(x, w, widths, values), w,
                                    dout)
         if E.onehot_embed_bwd.launches != n0 + 1 or not torch.equal(g, dw):
-            raise AssertionError(f"K2b ({name}): the autograd Function did "
+            raise AssertionError(f"K2b {what}: the autograd Function did "
                                  f"not return K2b's gradient")
         worst = max(worst, err)
-        print(f"[K2b] {name} (R={R}, F={3 * cells}, S={S}, H={H}): max abs "
-              f"err {err:.3e} of max |dW| {scale:.3e} (tolerance 1e-3 of "
-              f"it), deterministic, through the autograd Function")
     return worst
+
+
+def _hold_k2b(x, dout, widths, values, what):
+    """K2b against its plain version on the same codes and bf16 ``dout``:
+    both sum in float32 and only the order of the sums over up to 262,144
+    samples differs, so max |err| <= 1e-3 * max |dW|; two launches give the
+    same bits. Returns (dW, max |err|)."""
+    from marlgrid_tpu_torch.ops import embed as E
+
+    dw = E.onehot_embed_bwd(x, dout, widths, values)
+    again = E.onehot_embed_bwd(x, dout, widths, values)
+    sync()
+    ref = E.onehot_embed_bwd_plain(x, dout, widths, values)
+    err = float((dw - ref).abs().max())
+    scale = float(ref.abs().max())
+    if dw.shape != ref.shape or dw.dtype != torch.float32 \
+            or not err <= 1e-3 * scale:
+        raise AssertionError(
+            f"K2b {what}: max abs err {err} beyond 1e-3 of max |dW| "
+            f"{scale}, or shape {tuple(dw.shape)} {dw.dtype}")
+    if not torch.equal(dw, again):
+        raise AssertionError(f"K2b {what} differs between two launches")
+    print(f"[K2b] {what}: max abs err {err:.3e} of max |dW| {scale:.3e} "
+          f"(tolerance 1e-3 of it), deterministic")
+    return dw, err
 
 
 def _tables2(cells, widths, H, gen):
@@ -297,91 +368,113 @@ def _tables2(cells, widths, H, gen):
 
 
 def phase_embed2(palettes):
-    """K5f against its plain version on the card at the rollout's shape
-    (R = 4, S = 4096) and the update's (R = 2048 rows of S = 128), with the
-    full vocabularies and the goal_cycle palette, on codes with state codes
-    above 19 and codes outside each vocabulary. Both read the tables as
-    bf16 and sum in float32 without rounding the output; only the order of
-    the sums differs, so max |err| <= 1e-5 * max |out|."""
+    """K5f against its plain version on the card (:func:`_hold_k5f`) at the
+    rollout's shape (R = 4, S = 4096) and the update's (R = 2048 rows of
+    S = 128), with the full vocabularies and the goal_cycle palette, and at
+    a hetero 5x5 group's rollout and update shapes, on codes with state
+    codes above 19 and codes outside each vocabulary."""
     from marlgrid_tpu_torch.ops import embed as E
     from marlgrid_tpu_torch.ops import embed2 as E2
 
     gen = torch.Generator().manual_seed(3)
-    cells, H = 49, 128
+    H = 128
     worst = 0.0
-    for R, S in ((4, 4096), (2048, 128)):
-        for name, pal in (("full", None), ("goal_cycle palette", palettes)):
-            widths, values = E.vocab(pal)
-            x = _codes(R, cells, S, gen)
-            ws = _tables2(cells, widths, H, gen)
-            with torch.no_grad():
-                out = E2.onehot_embed2(x, *ws, widths, values)
-            sync()
-            ref = E2.onehot_embed2_plain(x, *ws, widths, values)
-            err = float((out - ref).abs().max())
-            scale = float(ref.abs().max())
-            if out.shape != (R, S, H) or out.dtype != torch.float32 or \
-                    not err <= 1e-5 * scale:
-                raise AssertionError(
-                    f"K5f ({name}, R={R}, S={S}): max abs err {err} beyond "
-                    f"1e-5 of max |out| {scale}, or {tuple(out.shape)} "
-                    f"{out.dtype}")
-            worst = max(worst, err)
-            print(f"[K5f] {name} (R={R}, F={3 * cells}, S={S}, H={H}): max "
-                  f"abs err {err:.3e} of max |out| {scale:.3e} (tolerance "
-                  f"1e-5 of it)")
-            del out, ref
+    for R, cells, S, name, pal in (
+            (4, 49, 4096, "full", None),
+            (4, 49, 4096, "goal_cycle palette", palettes),
+            (2048, 49, 128, "full", None),
+            (2048, 49, 128, "goal_cycle palette", palettes),
+            (*HETERO_ROLLOUT, "full", None), (*HETERO_UPDATE, "full", None)):
+        widths, values = E.vocab(pal)
+        x = _codes(R, cells, S, gen)
+        ws = _tables2(cells, widths, H, gen)
+        with torch.no_grad():
+            out = E2.onehot_embed2(x, *ws, widths, values)
+        sync()
+        worst = max(worst, _hold_k5f(
+            out, E2.onehot_embed2_plain(x, *ws, widths, values),
+            f"{name} (R={R}, F={3 * cells}, S={S}, H={H})"))
     return worst
 
 
+def _hold_k5f(out, ref, what):
+    """K5f's output against its plain version's ``ref``: both read the
+    tables as bf16 and sum in float32 without rounding the output; only the
+    order of the sums differs, so max |err| <= 1e-5 * max |out|. Returns
+    max |err|."""
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    if out.shape != ref.shape or out.dtype != torch.float32 or \
+            not err <= 1e-5 * scale:
+        raise AssertionError(
+            f"K5f {what}: max abs err {err} beyond 1e-5 of max |out| "
+            f"{scale}, or {tuple(out.shape)} {out.dtype}")
+    print(f"[K5f] {what}: max abs err {err:.3e} of max |out| {scale:.3e} "
+          f"(tolerance 1e-5 of it)")
+    return err
+
+
 def phase_embed2_bwd(palettes):
-    """K5b at the update's shape (R = 2048, S = 128) against its plain
-    version on the card, both fed the same bf16 dout, per table within
-    1e-3 of max |dW_p| (float32 sums over 262,144 samples in another
-    order); two launches give the same bits, and the embed2 autograd
-    Function returns K5b's gradients."""
+    """K5b at the update's shape (R = 2048, S = 128), with the full
+    vocabularies and the goal_cycle palette, and at a hetero 5x5 group's
+    (``HETERO_UPDATE``), against its plain version on the card
+    (:func:`_hold_k5b`); the embed2 autograd Function returns K5b's
+    gradients."""
     from marlgrid_tpu_torch.ops import embed as E
     from marlgrid_tpu_torch.ops import embed2 as E2
 
     gen = torch.Generator().manual_seed(4)
-    R, cells, S, H = 2048, 49, 128, 128
+    H = 128
     worst = 0.0
-    for name, pal in (("full", None), ("goal_cycle palette", palettes)):
+    for R, cells, S, name, pal in (
+            (2048, 49, 128, "full", None),
+            (2048, 49, 128, "goal_cycle palette", palettes),
+            (*HETERO_UPDATE, "full", None)):
         widths, values = E.vocab(pal)
         x = _codes(R, cells, S, gen)
         dout = torch.randn(R, S, H, generator=gen).to(torch.bfloat16).cuda()
-        dws = E2.onehot_embed2_bwd(x, dout, widths, values)
-        again = E2.onehot_embed2_bwd(x, dout, widths, values)
-        sync()
-        refs = E2.onehot_embed2_bwd_plain(x, dout, widths, values)
-        errs = []
-        for p, (dw, ref, n) in enumerate(zip(dws, refs, widths)):
-            err = float((dw - ref).abs().max())
-            scale = float(ref.abs().max())
-            if dw.shape != (cells, n, H) or dw.dtype != torch.float32 or \
-                    not err <= 1e-3 * scale:
-                raise AssertionError(
-                    f"K5b ({name}) table {p}: max abs err {err} beyond 1e-3 "
-                    f"of max |dW| {scale}, or {tuple(dw.shape)} {dw.dtype}")
-            if not torch.equal(dw, again[p]):
-                raise AssertionError(f"K5b ({name}) table {p} differs "
-                                     f"between two launches")
-            errs.append((err, scale))
+        what = f"{name} (R={R}, F={3 * cells}, S={S}, H={H})"
+        dws, err = _hold_k5b(x, dout, widths, values, what)
         ws = [w.requires_grad_(True) for w in _tables2(cells, widths, H, gen)]
         n0 = E2.onehot_embed2_bwd.launches
         gs = torch.autograd.grad(E2.onehot_embed2(x, *ws, widths, values),
                                  ws, dout.float())
         if E2.onehot_embed2_bwd.launches != n0 + 1 or not all(
                 torch.equal(g, dw) for g, dw in zip(gs, dws)):
-            raise AssertionError(f"K5b ({name}): the autograd Function did "
+            raise AssertionError(f"K5b {what}: the autograd Function did "
                                  f"not return K5b's gradients")
-        worst = max([worst] + [e for e, _ in errs])
-        print(f"[K5b] {name} (R={R}, F={3 * cells}, S={S}, H={H}): max abs "
-              f"err per table "
-              f"{', '.join(f'{e:.3e} of {m:.3e}' for e, m in errs)} "
-              f"(tolerance 1e-3 of max |dW_p|), deterministic, through the "
-              f"autograd Function")
+        worst = max(worst, err)
     return worst
+
+
+def _hold_k5b(x, dout, widths, values, what):
+    """K5b against its plain version on the same codes and bf16 ``dout``,
+    per table within 1e-3 of max |dW_p| (float32 sums over up to 262,144
+    samples in another order); two launches give the same bits. Returns
+    (the three dW_p, max |err|)."""
+    from marlgrid_tpu_torch.ops import embed2 as E2
+
+    dws = E2.onehot_embed2_bwd(x, dout, widths, values)
+    again = E2.onehot_embed2_bwd(x, dout, widths, values)
+    sync()
+    refs = E2.onehot_embed2_bwd_plain(x, dout, widths, values)
+    errs = []
+    for p, (dw, ref) in enumerate(zip(dws, refs)):
+        err = float((dw - ref).abs().max())
+        scale = float(ref.abs().max())
+        if dw.shape != ref.shape or dw.dtype != torch.float32 or \
+                not err <= 1e-3 * scale:
+            raise AssertionError(
+                f"K5b {what} table {p}: max abs err {err} beyond 1e-3 of max "
+                f"|dW| {scale}, or {tuple(dw.shape)} {dw.dtype}")
+        if not torch.equal(dw, again[p]):
+            raise AssertionError(f"K5b {what} table {p} differs between two "
+                                 f"launches")
+        errs.append((err, scale))
+    print(f"[K5b] {what}: max abs err per table "
+          f"{', '.join(f'{e:.3e} of {m:.3e}' for e, m in errs)} (tolerance "
+          f"1e-3 of max |dW_p|), deterministic")
+    return dws, max(e for e, _ in errs)
 
 
 def _spread_prestige(ep, state):
@@ -586,6 +679,19 @@ TRAIN_TOL = {
     "encode gru plane-major": dict(metrics=1e-5, grad=1e-5, weights=1e-2),
     "encode lstm": dict(metrics=1e-2, grad=0.15, weights=0.3),
     "image gru": dict(metrics=1e-6, grad=1e-4, weights=1e-2),
+    # The hetero steps (reference_hetero) take the homogeneous paths'
+    # bounds: the all-encode and the mixed population's encode groups run
+    # the K2 route in bf16, as 'encode'; the recurrent one the plane-major
+    # embed, float32 sums as 'encode gru plane-major'. On an H100 they read
+    # metrics 2.9e-4 / 4.0e-7 / 3.8e-4, gradients 0.116 / 4.7e-7 / 0.111
+    # and weights 0.148 / 5.1e-5 / 0.120 (the homogeneous encode step in
+    # the same run: 1.1e-3, 0.070, 0.125). The mixed population's image
+    # group runs in float32 end to end and is held to 'image' (its step
+    # runs without the global-norm clip, which would tie its scale to the
+    # encode group's bf16 gradients).
+    "hetero": dict(metrics=1e-2, grad=0.15, weights=0.3),
+    "hetero-rnn": dict(metrics=1e-5, grad=1e-5, weights=1e-2),
+    "hetero-mixed": dict(metrics=1e-2, grad=0.15, weights=0.3),
 }
 
 
@@ -635,11 +741,7 @@ def reference_train(seed, kind, rnn="", plane_major=False):
     ms, grads, ws = {}, {}, {}
     for who, (net, opt) in nets.items():
         dev = devs[who]
-        first = grads.setdefault(who, {})
-        opt.register_step_pre_hook(lambda o, a, k, net=net, first=first: (
-            first.update({n: p.grad.detach().cpu().clone()
-                          for n, p in net.named_parameters()})
-            if not first else None))
+        _record_first_grads(net, opt, grads.setdefault(who, {}))
         tr = {k: v.map(lambda x: x.to(dev)) if k == "obs" and
               kind == "image" else v.to(dev) for k, v in traj.items()}
         if rnn:
@@ -651,26 +753,49 @@ def reference_train(seed, kind, rnn="", plane_major=False):
             m = update(tr, last.to(dev), key.to(dev))
         ms[who] = {k: float(v) for k, v in m.items()}
         ws[who] = {k: v.cpu().clone() for k, v in net.state_dict().items()}
+    _check_reference(f"{label} train step ({cfg.torso}, B=16, T=8)", tol, ms,
+                     grads, ws, w0)
+
+
+def _record_first_grads(net, opt, first):
+    """Keep the first Adam step's gradients of ``net`` in ``first``."""
+    opt.register_step_pre_hook(lambda o, a, k: (
+        first.update({n: p.grad.detach().cpu().clone()
+                      for n, p in net.named_parameters()})
+        if not first else None))
+
+
+def _check_reference(label, tol, ms, grads, ws, w0, part_of=None):
+    """Card against CPU after the same update (see :func:`reference_train`):
+    every metric within ``tol['metrics']``, each first gradient within
+    ``tol['grad']`` of its L2 norm, each weight tensor within
+    ``tol['weights']`` of the step's change in L2 norm. ``part_of`` maps a
+    weight's name to (its part's name, the part's bounds), which then hold
+    its gradient and weights, each part reported on its own."""
     merr = max(abs(ms["card"][k] - ms["cpu"][k]) for k in ms["cpu"])
     if not merr <= tol["metrics"]:
-        raise AssertionError(f"{label} train step metrics card vs CPU: {ms}")
-    gerr = werr = 0.0
+        raise AssertionError(f"{label} metrics card vs CPU: {ms}")
+    worst = {}
     for k, gc in grads["cpu"].items():
+        part, t = part_of(k) if part_of else ("", tol)
         e = float((grads["card"][k] - gc).norm() / gc.norm())
         d = float((ws["card"][k] - ws["cpu"][k]).norm()
                   / (ws["cpu"][k] - w0[k]).norm())
-        if not (e <= tol["grad"] and d <= tol["weights"]):
+        if not (e <= t["grad"] and d <= t["weights"]):
             raise AssertionError(
-                f"{label} train step {k}: first gradient {e:.3e} of its norm "
-                f"apart, weights {d:.3e} of the step's change apart")
-        gerr, werr = max(gerr, e), max(werr, d)
-    print(f"[reference] float32 {label} train step ({cfg.torso}, B=16, T=8), "
+                f"{label} {k}: first gradient {e:.3e} of its norm apart, "
+                f"weights {d:.3e} of the step's change apart")
+        ge, we, _ = worst.get(part, (0.0, 0.0, t))
+        worst[part] = (max(ge, e), max(we, d), t)
+    parts = "; ".join(
+        f"{part + ': ' if part else ''}first minibatch's gradients within "
+        f"{ge:.3e} of their L2 norm (tolerance {t['grad']:g}); weights "
+        f"within {we:.3e} of the step's change (tolerance {t['weights']:g})"
+        for part, (ge, we, t) in worst.items())
+    print(f"[reference] float32 {label}, "
           f"card vs CPU: metrics max abs err {merr:.3e} (tolerance "
-          f"{tol['metrics']:g}); first minibatch's gradients within "
-          f"{gerr:.3e} of their L2 norm (tolerance {tol['grad']:g}); weights "
-          f"within {werr:.3e} of the step's change (tolerance "
-          f"{tol['weights']:g}); loss {ms['card']['loss']:.5f} card, "
-          f"{ms['cpu']['loss']:.5f} CPU")
+          f"{tol['metrics']:g}); {parts}; loss {ms['card']['loss']:.5f} "
+          f"card, {ms['cpu']['loss']:.5f} CPU")
 
 
 def reference_image(seed):
@@ -1210,11 +1335,11 @@ def profile_stages(run, prefixes, card, title):
     return out
 
 
-def phase_profile(roll, train, image, rnn, card, T=8):
+def phase_profile(roll, train, image, rnn, hetero, card, T=8):
     """torch.profiler over a T-step rollout of the rollout path's config,
-    over one train step of the train path, one of the image train path and
-    one of the recurrent encode train path (``update.cell`` is its update's
-    cell loop)."""
+    over one train step of the train path, one of the image train path, one
+    of the recurrent encode train path (``update.cell`` is its update's
+    cell loop) and one of the all-encode hetero train path."""
     import dataclasses
 
     from marlgrid_tpu_torch.parallel import ppo
@@ -1239,8 +1364,12 @@ def phase_profile(roll, train, image, rnn, card, T=8):
                         ("rollout.", "update."), card,
                         "one recurrent train step (B=4096, T=64, GRU, "
                         "plane-major embed)")
+    he = profile_stages(lambda: hetero["step"](hetero["env"], hetero["key"]),
+                        ("rollout.", "update."), card,
+                        "one hetero train step (B=4096, T=64, views "
+                        "7/5/7/5)")
     return dict(rollout=out, train_step=tr, image_train_step=im,
-                rnn_train_step=rn)
+                rnn_train_step=rn, hetero_train_step=he)
 
 
 def phase_env_only(seed, card, style="encode"):
@@ -1322,8 +1451,11 @@ def _bag_rows(codes, widths, values, cells, cw):
 
 
 def _bound(k):
+    """The least time for ``k``'s work: its bytes at the memory rate, its
+    operations at ``k['ops_per_s']`` (float32 outside the tensor cores
+    unless it says otherwise), whichever is longer."""
     t_bytes = k["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_ops = k["ops"] / F32_OPS_PER_S * 1e3
+    t_ops = k["ops"] / k.get("ops_per_s", F32_OPS_PER_S) * 1e3
     k["bound_ms"] = max(t_bytes, t_ops)
     k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     return k
@@ -1656,6 +1788,444 @@ def phase_timings(roll, card, seed):
                 onehot_embed_fwd_update=k2u, onehot_embed_bwd=k2b)
 
 
+def phase_transpose_traj(roll, card):
+    """K4 (transpose_traj) against its plain version, bit for bit: on the
+    encode rollout's trajectory obs, (T, N, F, B) = (64, 4, 147, 4096) uint8
+    (154.1 MB), and on random odd shapes in uint8 and int32; then its
+    device time at the trajectory's shape beside its bound (each byte read
+    once and written once), the plain version's and the library call's
+    (``x.permute(1, 0, 3, 2).contiguous()``, which the plain version is).
+    No train path launches K4 (its TPU kernel has no caller either): the
+    launches it reports are this probe's."""
+    from marlgrid_tpu_torch.ops import transpose as T
+
+    gen = torch.Generator().manual_seed(5)
+    n0 = T.transpose_traj.launches
+    cases = [("encode trajectory", roll["traj_obs"])]
+    for shape in ((5, 3, 75, 300), (3, 2, 33, 31)):
+        cases.append(("random", torch.randint(
+            0, 256, shape, generator=gen, dtype=torch.int32).to(
+                torch.uint8).cuda()))
+        cases.append(("random", torch.randint(
+            -2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+            dtype=torch.int32).cuda()))
+    for what, x in cases:
+        y = T.transpose_traj(x)
+        sync()
+        if not torch.equal(y, T.transpose_traj_plain(x)):
+            raise AssertionError(f"K4 differs from its plain version: {what}")
+        print(f"[K4] {what} {tuple(x.shape)} {x.dtype}: bit-exact")
+    x = roll["traj_obs"]
+    k = dict(bytes=2 * x.numel() * x.element_size(), ops=0, max_abs_err=0.0)
+    k["ms"], k["host_ms"] = time_ms(lambda: T.transpose_traj(x), iters=20)
+    k["plain_ms"], _ = time_ms(lambda: T.transpose_traj_plain(x), iters=20)
+    k["library_ms"], _ = time_ms(
+        lambda: x.permute(1, 0, 3, 2).contiguous(), iters=20)
+    _bound(k)
+    k["probe_launches"] = T.transpose_traj.launches - n0
+    print(f"[time] K4 at the encode trajectory's shape {tuple(x.shape)} "
+          f"uint8: {k['ms'] * 1e3:.2f} us (host {k['host_ms'] * 1e3:.2f} us "
+          f"per call), plain {k['plain_ms'] * 1e3:.2f} us, "
+          f"x.permute(1, 0, 3, 2).contiguous() {k['library_ms'] * 1e3:.2f} "
+          f"us, bound {k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}: "
+          f"{k['bytes'] / 1e6:.1f} MB); {k['probe_launches']} probe "
+          f"launches [{card}]")
+    return k
+
+
+def phase_embed_roofline(roll, tim, palettes, card, seed):
+    """K6 (the embed-roofline probe, ``probes/embed_roofline.py``), each
+    mode against its plain version on the card: at K2f's rollout shape
+    (R = 4, F = 147, S = 4096, H = 128) and update shape (R = 2048,
+    S = 128), with the full vocabularies and the goal_cycle palette, and
+    at a hetero 5x5 group's two shapes (25 cells, full vocabulary), on
+    codes across and beyond both vocabularies ('build' exact; 'full' and
+    'gemm' within 1e-5 of max |out|: float32 sums in another order). Then
+    each mode's device time at both shapes with the train path's codes and
+    table (palette), beside K2f's time of the same run, its bound, its plain
+    version's and, where one PyTorch call computes the same function, that
+    call's: ``embedding_bag(sum)`` for 'full'; for 'gemm' ``torch.mm`` of
+    the broadcast first code row (materialized beforehand) by the (cells *
+    cw, H) table, the TPU probe's dense product; none for 'build'.
+
+    Bounds, of the function each mode computes: 'full' as K2f's (one
+    float32 add per in-vocabulary code per hidden unit; codes, the bf16
+    table and the float32 output once); 'build' one add per (feature,
+    sample) and the codes and float32 output once; 'gemm' computes
+    x[r, 0, s] * colsum(W)[h]: the table's column sums and one multiply
+    per output at the float32 rate, and the first code row, the table and
+    the float32 output once. 'gemm' also reports ``gemm_bound_ms``, the
+    roofline of the dense product the kernel (and the TPU probe) does
+    instead: 2 * R * S * cells * cw * H operations at the bf16 tensor-core
+    rate (uint8 codes are exact in bf16, the products exact in float32),
+    or the same bytes if longer."""
+    import torch.nn.functional as F
+
+    from marlgrid_tpu_torch.ops import embed as E
+    from marlgrid_tpu_torch.parallel import ppo
+    from marlgrid_tpu_torch.probes import embed_roofline as P
+
+    gen = torch.Generator().manual_seed(seed + 6)
+    H = 128
+    n0 = P.fwd_variant.launches
+    worst = dict.fromkeys(P.MODES, 0.0)
+    for R, cells, S, name, pal in (
+            (4, 49, 4096, "full", None),
+            (4, 49, 4096, "goal_cycle palette", palettes),
+            (2048, 49, 128, "full", None),
+            (2048, 49, 128, "goal_cycle palette", palettes),
+            (*HETERO_ROLLOUT, "full", None), (*HETERO_UPDATE, "full", None)):
+        widths, values = E.vocab(pal)
+        x = _codes(R, cells, S, gen)
+        w = (torch.randn(cells, sum(widths), H, generator=gen) * 0.05).to(
+            torch.bfloat16).cuda()
+        errs = []
+        for mode in P.MODES:
+            out = P.fwd_variant(x, w, widths, values, mode)
+            sync()
+            ref = P.fwd_variant_plain(x, w, widths, values, mode)
+            err = float((out - ref).abs().max())
+            scale = float(ref.abs().max())
+            ok = err == 0 if mode == "build" else err <= 1e-5 * scale
+            if out.shape != (R, S, H) or out.dtype != torch.float32 \
+                    or not ok:
+                raise AssertionError(
+                    f"K6 {mode} ({name}, R={R}, F={3 * cells}, S={S}): max "
+                    f"abs err {err} of max |out| {scale}, or "
+                    f"{tuple(out.shape)} {out.dtype}")
+            worst[mode] = max(worst[mode], err)
+            errs.append(f"{mode} {err:.3e} of {scale:.3e}")
+            del out, ref
+        print(f"[K6] {name} (R={R}, F={3 * cells}, S={S}, H={H}): max "
+              f"abs err {', '.join(errs)} (build exact, full and gemm "
+              f"within 1e-5 of max |out|)")
+
+    emb = roll["net"].torso0
+    table = emb.table().detach().to(torch.bfloat16).contiguous()
+    widths, values = emb.widths, emb.values
+    cells, cw = table.shape[:2]
+    cfg = roll["cfg"]
+    blocks = ppo.obs_blocks(roll["traj_obs"], ppo.block_size(
+        cfg.n_envs, cfg.rollout_len, roll["ep"].n_agents))
+    pick = torch.randperm(blocks.shape[0],
+                          generator=torch.Generator().manual_seed(seed))
+    update_codes = blocks[pick[:blocks.shape[0] // cfg.n_minibatches]
+                          .cuda()].contiguous()
+    out = {}
+    for where, codes, k2f in (
+            ("rollout's shape", roll["obs"], tim["onehot_embed_fwd"]),
+            ("update's shape", update_codes,
+             tim["onehot_embed_fwd_update"])):
+        R, Fd, S = codes.shape
+        n_valid, bag_idx = _bag_rows(codes, widths, values, cells, cw)
+        bag_w = torch.cat([table.reshape(cells * cw, H),
+                           torch.zeros(1, H, dtype=table.dtype,
+                                       device="cuda")])
+        x0 = codes[:, 0, :].reshape(R * S, 1).to(torch.bfloat16).expand(
+            R * S, cells * cw).contiguous()
+        w2 = table.reshape(cells * cw, H)
+        library = dict(full=lambda: F.embedding_bag(bag_idx, bag_w,
+                                                    mode="sum"),
+                       build=None, gemm=lambda: torch.mm(x0, w2))
+        shape = dict(
+            full=dict(bytes=codes.numel() + table.numel() * 2
+                      + R * S * H * 4, ops=n_valid * H),
+            build=dict(bytes=codes.numel() + R * S * H * 4, ops=R * Fd * S),
+            gemm=dict(bytes=R * S + table.numel() * 2 + R * S * H * 4,
+                      ops=R * S * H + cells * cw * H))
+        shape["gemm"]["gemm_bound_ms"] = max(
+            shape["gemm"]["bytes"] / HBM_BYTES_PER_S,
+            2 * R * S * cells * cw * H / BF16_OPS_PER_S) * 1e3
+        for mode in P.MODES:
+            k = shape[mode]
+            with torch.no_grad():
+                k["ms"], k["host_ms"] = time_ms(
+                    lambda: P.fwd_variant(codes, table, widths, values,
+                                          mode), iters=20)
+                k["plain_ms"], _ = time_ms(
+                    lambda: P.fwd_variant_plain(codes, table, widths, values,
+                                                mode), iters=5, warmup=1)
+                k["library_ms"] = (None if library[mode] is None else
+                                   time_ms(library[mode], iters=20)[0])
+            k["max_abs_err"] = worst[mode]
+            _bound(k)
+            k["k2f_ms"] = k2f["ms"]
+            out[f"{mode} {where}"] = k
+            lib = ("none" if k["library_ms"] is None
+                   else f"{k['library_ms'] * 1e3:.2f} us")
+            dense = ("" if mode != "gemm" else f"; the dense product's "
+                     f"roofline {k['gemm_bound_ms'] * 1e3:.2f} us")
+            print(f"[time] K6 {mode} at the {where} (R={R}, F={Fd}, S={S}, "
+                  f"H={H}, palette): {k['ms'] * 1e3:.2f} us (K2f "
+                  f"{k2f['ms'] * 1e3:.2f} us in this run), plain "
+                  f"{k['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
+                  f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}){dense} "
+                  f"[{card}]")
+        del x0, bag_idx, bag_w
+    out["probe_launches"] = P.fwd_variant.launches - n0
+    print(f"[K6] {out['probe_launches']} probe launches")
+    return out
+
+
+def hetero_counts(ep, cfg, plane_major):
+    """The kernel launches of one hetero train step, counted from the code:
+    every render of the rollout (T + 1 of them) launches K1 once per group
+    and K3 once per pixel group; every policy call (T + 1) the embed's
+    forward (K2f, or K5f on the plane-major route) once per encode group;
+    every minibatch the embed's forward and backward (K2b, K5b) once per
+    encode group and, for the re-render, K1 and K3 once per pixel group."""
+    from marlgrid_tpu_torch.vector import obs_groups
+
+    groups = obs_groups(ep)
+    n_pix = sum(gp.observation_style != "encode" for _, gp in groups)
+    n_enc = len(groups) - n_pix
+    T1, n_up = cfg.rollout_len + 1, cfg.n_epochs * cfg.n_minibatches
+    fwd, bwd = (("onehot_embed2_fwd", "onehot_embed2_bwd") if plane_major
+                else ("onehot_embed_fwd", "onehot_embed_bwd"))
+    return want_counts(transpose_bk=T1 * len(groups) + n_up * n_pix,
+                       compose_image_b=(T1 + n_up) * n_pix,
+                       **{fwd: (T1 + n_up) * n_enc, bwd: n_up * n_enc})
+
+
+def capture_embeds(nets):
+    """Forward hooks on each encode group's embed (``torso0``) that keep,
+    from the calls that follow, the codes and tables of its first call
+    without a gradient (the rollout's) and of its first call with one (the
+    update's), with the gradient that reaches that call's output: per
+    group index, {'rollout': (x, tables), 'update': (x, tables, [dout])}.
+    Returns (captured, hook handles)."""
+    captured, handles = {}, []
+    for g, net in enumerate(nets):
+        if net.kind != "mlp":
+            continue
+        got = captured.setdefault(g, {})
+
+        def hook(mod, inputs, out, got=got):
+            where = "update" if out.requires_grad else "rollout"
+            if where in got:
+                return
+            x = inputs[0].reshape((-1,) + tuple(inputs[0].shape[-2:]))
+            got[where] = (x.detach().clone(),
+                          [t.detach().clone() for t in mod.tables()], [])
+            if out.requires_grad:
+                out.register_hook(
+                    lambda d: got["update"][2].append(d.detach().clone()))
+
+        handles.append(net.torso0.register_forward_hook(hook))
+    return captured, handles
+
+
+def hold_embeds(nets, captured, name):
+    """Each embed kernel of a hetero step against its plain version on the
+    inputs :func:`capture_embeds` kept from a real step: the forward (K2f,
+    or K5f on the plane-major route) on the rollout's and the update's
+    codes and tables, the backward (K2b, K5b) on the update's codes and
+    the bf16 gradient of that call's output, with the bounds of the embed
+    phases. Returns {kernel name: max |err|}."""
+    from marlgrid_tpu_torch.ops import embed as E
+    from marlgrid_tpu_torch.ops import embed2 as E2
+
+    worst = {}
+    for g, got in captured.items():
+        emb = nets[g].torso0
+        widths, values = emb.widths, emb.values
+        if set(got) != {"rollout", "update"} or len(got["update"][2]) != 1:
+            raise AssertionError(f"{name} group {g}: the embed's rollout and "
+                                 f"update calls were not both seen")
+        for where in ("rollout", "update"):
+            x, tables = got[where][:2]
+            what = (f"{name} group {g} {where} (R={x.shape[0]}, "
+                    f"F={x.shape[1]}, S={x.shape[2]}, real codes)")
+            with torch.no_grad():
+                if emb.plane_major:
+                    out = E2.onehot_embed2(x, *tables, widths, values)
+                    err = _hold_k5f(out, E2.onehot_embed2_plain(
+                        x, *tables, widths, values), what)
+                    kname = "onehot_embed2_fwd"
+                else:
+                    w = E.pack_weights(*tables).to(torch.bfloat16)
+                    out = E.onehot_embed(x, w, widths, values)
+                    err = _hold_k2f(out, E.onehot_embed_plain(
+                        x, w.float(), widths, values, torch.float32).to(
+                            torch.bfloat16), what)
+                    kname = "onehot_embed_fwd"
+            worst[kname] = max(worst.get(kname, 0.0), err)
+        x, _, (dout,) = got["update"]
+        dout = dout.to(torch.bfloat16).reshape(
+            x.shape[0], x.shape[2], -1).contiguous()
+        what = (f"{name} group {g} update (R={x.shape[0]}, F={x.shape[1]}, "
+                f"S={x.shape[2]}, real codes and dout)")
+        if emb.plane_major:
+            kname, (_, err) = "onehot_embed2_bwd", _hold_k5b(
+                x, dout, widths, values, what)
+        else:
+            kname, (_, err) = "onehot_embed_bwd", _hold_k2b(
+                x, dout, widths, values, what)
+        worst[kname] = max(worst.get(kname, 0.0), err)
+    return worst
+
+
+def phase_hetero(seed, card, name, steps=4):
+    """A hetero train path at full width (``HETERO_PATHS[name]``'s CLI
+    config: goal_cycle 13x13, B = 4096, hidden 128, 2 epochs x 4
+    minibatches, no palettes; T = 64, or 32 for the mixed population):
+    ``steps`` train steps through the CLI's own trainer selection, the
+    launch counts read around each (:func:`hetero_counts`), each step's
+    metrics, the peak device memory and train env-steps/s. The first
+    step's embed inputs are kept (:func:`capture_embeds`) and each embed
+    kernel is held against its plain version on them after the steps."""
+    from marlgrid_tpu_torch.core import rng
+    from marlgrid_tpu_torch.parallel import ppo
+    from marlgrid_tpu_torch.parallel import train as train_mod
+
+    flags, plane_major = HETERO_PATHS[name]
+    ep, cfg = cli_config(*flags)
+    B, T = cfg.n_envs, cfg.rollout_len
+    dev = torch.device("cuda")
+    with embed_v2(plane_major):
+        net, opt, h = train_mod.init(ep, cfg,
+                                     torch.Generator().manual_seed(seed), dev)
+    kinds = [n.kind for n in net]
+    if plane_major and not all(n.torso0.plane_major for n in net):
+        raise AssertionError(f"{name}: the plane-major embed is not on")
+    key = rng.PRNGKey(seed, device="cuda")
+    env = ppo.init_env_batch(ep, B, rng.fold_in(key, 1), stagger=True,
+                             device="cuda")
+    key = rng.fold_in(key, 2)
+    step = train_mod.make_step(ep, cfg, net, opt, dev)
+    want = hetero_counts(ep, cfg, plane_major)
+    w0 = [p.detach().clone() for p in net.parameters()]
+    secs, metrics = [], []
+    captured, hooks = capture_embeds(net)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        sync()
+        zero_counts()
+        t0 = time.perf_counter()
+        if h is None:
+            env, key, m = step(env, key)
+        else:
+            env, h, key, m = step(env, h, key)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        for hook in hooks:
+            hook.remove()
+        hooks = []
+        got = read_counts()
+        if got != want:
+            raise AssertionError(f"{name} train step {i}: launches {got}, "
+                                 f"want {want}")
+        m = {k: float(v) for k, v in m.items()}
+        if not (all(math.isfinite(v) for v in m.values())
+                and m["entropy"] > 0 and m["n_episodes"] > 0):
+            raise AssertionError(f"{name} train step {i}: metrics {m}")
+        if h is not None and not all(bool(torch.isfinite(x).all())
+                                     for x in h.values()):
+            raise AssertionError(f"{name} train step {i}: carry not finite")
+        metrics.append(m)
+        print(f"[{name}] train step {i}: {secs[-1]:.3f} s, loss "
+              f"{m['loss']:.5f}, entropy {m['entropy']:.4f}, ratio_dev "
+              f"{m['ratio_dev']:.4f}, {m['n_episodes']:.0f} episodes, mean "
+              f"episode return {m['episode_return']:.4f}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if all(torch.equal(p, q) for p, q in zip(net.parameters(), w0)):
+        raise AssertionError(f"the {name} train steps changed no weight")
+    errs = hold_embeds(net, captured, name)
+    del captured
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    print(f"[{name}] launches per train step: {got} (want {want})")
+    print(f"[{name}] {' '.join(flags)}: groups {kinds}, B={B} T={T}: "
+          f"{', '.join(f'{t:.3f}' for t in secs)} s per step; median of "
+          f"steps 1-{steps - 1}: {B * T / steady:,.0f} train env-steps/s; "
+          f"peak device memory {peak_gb:.2f} GB [{card}]")
+    return dict(counts=got, seconds=secs, metrics=metrics, peak_gb=peak_gb,
+                env_steps_per_s=B * T / steady, step=step, env=env, h=h,
+                key=key, embed_errs=errs)
+
+
+def _to(tree, dev):
+    """A trajectory or carry (tensors in lists, tuples, dicts and
+    EnvStates; None kept) on ``dev``."""
+    from marlgrid_tpu_torch.core.state import EnvState
+
+    if isinstance(tree, EnvState):
+        return tree.map(lambda x: x.to(dev))
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, dev) for v in tree)
+    return None if tree is None else tree.to(dev)
+
+
+def reference_hetero(seed, name):
+    """A hetero train step at a small size in float32 (``HETERO_PATHS``'s
+    population with B = 16, T = 8, hidden 32, board pool 4, episodes of 12
+    steps): the card's rollout, then the card's and the CPU's update of that
+    trajectory (and, recurrent, the carry that entered it) from the same
+    weights and key, held to ``TRAIN_TOL[name]`` as
+    :func:`reference_train` holds the homogeneous steps. The mixed
+    population's image group is float32 end to end on both devices (K3 is
+    exact) and is held to ``TRAIN_TOL['image']``; its step runs without the
+    global-norm clip, whose one factor over every group would carry the
+    encode group's bf16 differences into the image group's step (the
+    all-encode step keeps the clip)."""
+    import dataclasses
+
+    from marlgrid_tpu_torch.core import rng
+    from marlgrid_tpu_torch.parallel import ppo, ppo_hetero
+    from marlgrid_tpu_torch.parallel import ppo_hetero_mixed as mixed
+    from marlgrid_tpu_torch.parallel import ppo_hetero_rnn as hrnn
+    from marlgrid_tpu_torch.parallel import train as train_mod
+
+    flags, plane_major = HETERO_PATHS[name]
+    ep, cfg = cli_config(*flags, "--envs", "16", "--rollout", "8",
+                         "--hidden", "32", "--board-pool", "4",
+                         "--max-steps", "12")
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    if name == "hetero-mixed":
+        cfg = dataclasses.replace(cfg, max_grad_norm=math.inf)
+    devs = {"card": "cuda", "cpu": "cpu"}
+    with embed_v2(plane_major):
+        made = {who: train_mod.init(ep, cfg,
+                                    torch.Generator().manual_seed(seed),
+                                    torch.device(dev))
+                for who, dev in devs.items()}
+    rollout, update = {
+        "hetero": (ppo_hetero.make_rollout_hetero,
+                   ppo_hetero.make_update_hetero),
+        "hetero-rnn": (ppo_hetero.make_rollout_hetero,
+                       hrnn.make_update_hetero_rnn),
+        "hetero-mixed": (mixed.make_rollout_hetero_mixed,
+                         mixed.make_update_hetero_mixed)}[name]
+    key = rng.PRNGKey(seed, device="cuda")
+    env = ppo.init_env_batch(ep, cfg.n_envs, rng.fold_in(key, 1),
+                             device="cuda")
+    h0 = made["card"][2]
+    _, key, traj, last, _ = rollout(ep, cfg, made["card"][0],
+                                    device="cuda")(env, rng.fold_in(key, 2),
+                                                   h0)
+    w0 = {k: v.clone() for k, v in made["cpu"][0].state_dict().items()}
+    ms, grads, ws = {}, {}, {}
+    for who, (net, opt, _) in made.items():
+        dev = devs[who]
+        _record_first_grads(net, opt, grads.setdefault(who, {}))
+        up = update(ep, cfg, net, opt, device=dev)
+        args = (_to(traj, dev),) + ((_to(h0, dev),) if h0 is not None
+                                    else ()) + (last.to(dev), key.to(dev))
+        ms[who] = {k: float(v) for k, v in up(*args).items()}
+        ws[who] = {k: v.cpu().clone() for k, v in net.state_dict().items()}
+    kinds = [n.kind for n in made["cpu"][0]]
+
+    def part_of(k):
+        # state_dict names of the group list start with the group's index
+        if kinds[int(k.split(".")[0])] == "mlp":
+            return "encode groups", TRAIN_TOL[name]
+        return "image groups", TRAIN_TOL["image"]
+
+    _check_reference(f"{name} train step ({len(kinds)} groups, B=16, T=8)",
+                     TRAIN_TOL[name], ms, grads, ws, w0, part_of)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1688,7 +2258,10 @@ def main(argv=None):
                 onehot_embed2_bwd=phase_embed2_bwd(pals),
                 compose_image_b=phase_sprite(args.seed))
     phase_reference(args.seed)
+    for name in HETERO_PATHS:
+        reference_hetero(args.seed, name)
     roll = phase_rollout(args.seed, card)
+    tim_k4 = phase_transpose_traj(roll, card)
     train = phase_train(args.seed, card)
     cli = phase_cli(card, (), want_counts(
         transpose_bk=65, onehot_embed_fwd=73, onehot_embed_bwd=8))
@@ -1700,13 +2273,22 @@ def main(argv=None):
     cli_rnn = phase_cli(card, ("--rnn", "gru"), want_counts(
         transpose_bk=65, onehot_embed2_fwd=73, onehot_embed2_bwd=8),
         plane_major=True)
-    prof = phase_profile(roll, train, image, rnn, card)
+    hetero = {name: phase_hetero(args.seed, card, name)
+              for name in HETERO_PATHS}
+    for v in hetero.values():
+        for kname, err in v["embed_errs"].items():
+            errs[kname] = max(errs[kname], err)
+    cli_hetero = phase_cli(card, HETERO_PATHS["hetero"][0], hetero_counts(
+        *cli_config(*HETERO_PATHS["hetero"][0]), plane_major=False))
+    prof = phase_profile(roll, train, image, rnn, hetero["hetero"], card)
     env = phase_env_only(args.seed, card)
     env_img = phase_env_only(args.seed, card, "image")
     tim = phase_timings(roll, card, args.seed)
     tim["compose_image_b"] = phase_timings_k3(image, env_img, card,
                                               args.seed)
     tim.update(phase_timings_k5(roll, rnn, card, args.seed))
+    tim["embed_variant"] = phase_embed_roofline(roll, tim, pals, card,
+                                                args.seed)
     # K3's error: the sprite phase's and that of the three timed shapes;
     # K5's: their phases' and that of their timed shapes
     errs["compose_image_b"] = float(max(
@@ -1722,7 +2304,11 @@ def main(argv=None):
     # image train path (K3, which runs K1 73 times a step too) and on the
     # recurrent encode path with the plane-major embed (K5f, K5b); K3's and
     # K5f's times are those at the update's shape, where most of their time
-    # goes (the other shapes' are in --json)
+    # goes (the other shapes' are in --json). K4 and K6 are probes that no
+    # train path launches ("launches" 0, "probe_launches" their phases'
+    # count); K6 has one entry per mode, at the update's shape, 'gemm' with
+    # its dense product's roofline beside its bound.
+    tim["transpose_traj"] = tim_k4
     kernels = []
     for name, src, line, path in (
             ("transpose_bk", "transpose.cu", "transpose.py:41", train),
@@ -1742,6 +2328,23 @@ def main(argv=None):
             launches=path["counts"][name], max_abs_err=errs[name],
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"]))
+    probes = [("transpose_traj", "transpose.cu",
+               "marlgrid_tpu/ops/transpose.py:67", tim_k4,
+               tim_k4["probe_launches"])]
+    for mode in ("full", "build", "gemm"):
+        probes.append((f"embed_variant_{mode}", "embed.cu",
+                       "scripts/embed_roofline.py:104",
+                       tim["embed_variant"][f"{mode} update's shape"],
+                       tim["embed_variant"]["probe_launches"]))
+    for name, src, replaces, k, n_probe in probes:
+        kernels.append(dict(
+            name=name, route="cuda", source=f"marlgrid_tpu_torch/csrc/{src}",
+            replaces=replaces, launches=0, probe_launches=n_probe,
+            max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
+            bound_ms=k["bound_ms"], bound_by=k["bound_by"],
+            library_ms=k["library_ms"]))
+        if "gemm_bound_ms" in k:
+            kernels[-1]["gemm_bound_ms"] = k["gemm_bound_ms"]
     total_s = time.perf_counter() - t_start
     if args.json:
         with open(args.json, "w") as f:
@@ -1766,6 +2369,10 @@ def main(argv=None):
                                "counts", "seconds", "metrics", "peak_gb",
                                "env_steps_per_s")},
                            rnn_image=rnn_image, cli_rnn=cli_rnn,
+                           hetero={n: {k: v[k] for k in (
+                               "counts", "seconds", "metrics", "peak_gb",
+                               "env_steps_per_s")} for n, v in hetero.items()},
+                           cli_hetero=cli_hetero,
                            env_only={k: env[k] for k in (
                                "env_steps_per_s", "seconds", "counts")},
                            env_only_image={k: env_img[k] for k in (
@@ -1777,7 +2384,10 @@ def main(argv=None):
           f"{train['env_steps_per_s']:,.0f}, image train "
           f"{image['env_steps_per_s']:,.0f}, recurrent train "
           f"{rnn['env_steps_per_s']:,.0f}, recurrent image train "
-          f"{rnn_image['env_steps_per_s']:,.0f}, env-only "
+          f"{rnn_image['env_steps_per_s']:,.0f}, "
+          + "".join(f"{n} train {v['env_steps_per_s']:,.0f}, "
+                    for n, v in hetero.items())
+          + f"env-only "
           f"{env['env_steps_per_s']:,.0f}, image env-only "
           f"{env_img['env_steps_per_s']:,.0f} env-steps/s on {card}")
     print(card)

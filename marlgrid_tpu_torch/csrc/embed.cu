@@ -28,6 +28,21 @@
 // float32 registers. The table is small enough to stay in L2 and, one
 // cell at a time, in L1. No one-hot operand exists anywhere.
 
+//
+// The same source holds the embed-roofline probe's three variants (kernel
+// K6, replacing the TPU probe scripts/embed_roofline.py::_fwd_variant), a
+// `Mode` template parameter on the one kernel, each with a float32 store:
+//   kFull  - K2f's function, out[r, s, :] = sum of the selected W rows;
+//   kBuild - the index half alone: the code loads and the slot lookup, no
+//            table read; out[r, s, h] = the number of (cell, plane) pairs
+//            whose code selects a row (the row-sum of the one-hot);
+//   kGemm  - the sum half alone: no lookup; every one of the cells * cw
+//            table rows is read and multiplied by the sample's first code
+//            (the TPU probe's dense product against a broadcast code row),
+//            out[r, s, h] = float(codes[r, 0, s]) * sum_k W[k, h].
+// kGemm walks all cells * cw rows per sample on purpose: a precomputed
+// column sum would compute the same values and measure nothing.
+
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -39,35 +54,52 @@ constexpr int kLut = 3 * 256;    // code -> slot, per plane
 constexpr int kStaticSmem = 48 * 1024;
 constexpr int kMaxSmem = 227 * 1024;
 
+enum Mode { kFull = 0, kBuild = 1, kGemm = 2 };
+
+__device__ __forceinline__ void store2(__nv_bfloat162* p, float2 v) {
+  *p = __floats2bfloat162_rn(v.x, v.y);   // one rounding, to nearest even
+}
+
+__device__ __forceinline__ void store2(float2* p, float2 v) { *p = v; }
+
+template <int kMode, typename Out2>
 __global__ void onehot_embed_fwd_kernel(
     const uint8_t* __restrict__ codes,        // (R, F, S)
     const __nv_bfloat162* __restrict__ w,     // (cells * cw, H / 2)
     const int16_t* __restrict__ lut,          // (3, 256)
-    __nv_bfloat162* __restrict__ out,         // (R, S, H / 2)
+    Out2* __restrict__ out,                   // (R, S, H / 2)
     int F, int S, int cells, int cw, int H2) {
-  extern __shared__ int32_t rows[];           // (F, TS) W row or -1
+  // (F, TS) W row or -1; kGemm keeps the TS first codes here as floats
+  extern __shared__ int32_t rows[];
   __shared__ int16_t slut[kLut];
   const int ts = blockDim.y * kSpt;
   const int r = blockIdx.y;
   const int s0 = blockIdx.x * ts;
   const int nthreads = blockDim.x * blockDim.y;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-
-  for (int i = tid; i < kLut; i += nthreads) slut[i] = lut[i];
-  __syncthreads();
-
   const uint8_t* xr = codes + static_cast<size_t>(r) * F * S;
-  for (int i = tid; i < F * ts; i += nthreads) {
-    const int f = i / ts;
-    const int s = i - f * ts;
-    int row = -1;
-    if (s0 + s < S) {
-      const int p = f / cells;
-      const int j = f - p * cells;
-      const int slot = slut[p * 256 + xr[static_cast<size_t>(f) * S + s0 + s]];
-      row = slot < 0 ? -1 : j * cw + slot;
+  float* x0 = reinterpret_cast<float*>(rows);
+
+  if (kMode == kGemm) {
+    for (int s = tid; s < ts; s += nthreads) {
+      x0[s] = s0 + s < S ? static_cast<float>(xr[s0 + s]) : 0.f;
     }
-    rows[i] = row;
+  } else {
+    for (int i = tid; i < kLut; i += nthreads) slut[i] = lut[i];
+    __syncthreads();
+    for (int i = tid; i < F * ts; i += nthreads) {
+      const int f = i / ts;
+      const int s = i - f * ts;
+      int row = -1;
+      if (s0 + s < S) {
+        const int p = f / cells;
+        const int j = f - p * cells;
+        const int slot =
+            slut[p * 256 + xr[static_cast<size_t>(f) * S + s0 + s]];
+        row = slot < 0 ? -1 : j * cw + slot;
+      }
+      rows[i] = row;
+    }
   }
   __syncthreads();
 
@@ -75,39 +107,50 @@ __global__ void onehot_embed_fwd_kernel(
   float2 acc[kSpt];
 #pragma unroll
   for (int k = 0; k < kSpt; ++k) acc[k] = make_float2(0.f, 0.f);
-  for (int f = 0; f < F; ++f) {
-    const int32_t* rf = rows + f * ts + threadIdx.y;
+  if (kMode == kGemm) {
+    float xs[kSpt];
 #pragma unroll
-    for (int k = 0; k < kSpt; ++k) {
-      const int row = rf[k * blockDim.y];
-      if (row >= 0) {
-        const float2 v =
-            __bfloat1622float2(w[static_cast<size_t>(row) * H2 + h2]);
-        acc[k].x += v.x;
-        acc[k].y += v.y;
+    for (int k = 0; k < kSpt; ++k) xs[k] = x0[threadIdx.y + k * blockDim.y];
+    const int n_rows = cells * cw;
+    for (int j = 0; j < n_rows; ++j) {
+      const float2 v = __bfloat1622float2(w[static_cast<size_t>(j) * H2 + h2]);
+#pragma unroll
+      for (int k = 0; k < kSpt; ++k) {
+        acc[k].x = fmaf(xs[k], v.x, acc[k].x);
+        acc[k].y = fmaf(xs[k], v.y, acc[k].y);
+      }
+    }
+  } else {
+    for (int f = 0; f < F; ++f) {
+      const int32_t* rf = rows + f * ts + threadIdx.y;
+#pragma unroll
+      for (int k = 0; k < kSpt; ++k) {
+        const int row = rf[k * blockDim.y];
+        if (row >= 0) {
+          if (kMode == kBuild) {
+            acc[k].x += 1.f;
+            acc[k].y += 1.f;
+          } else {
+            const float2 v =
+                __bfloat1622float2(w[static_cast<size_t>(row) * H2 + h2]);
+            acc[k].x += v.x;
+            acc[k].y += v.y;
+          }
+        }
       }
     }
   }
 #pragma unroll
   for (int k = 0; k < kSpt; ++k) {
     const int s = s0 + threadIdx.y + k * blockDim.y;
-    if (s < S) {
-      out[(static_cast<size_t>(r) * S + s) * H2 + h2] =
-          __floats2bfloat162_rn(acc[k].x, acc[k].y);
-    }
+    if (s < S) store2(&out[(static_cast<size_t>(r) * S + s) * H2 + h2], acc[k]);
   }
 }
 
-}  // namespace
-
-// codes (R, F, S) uint8, w (cells * cw, H) bf16, lut (3, 256) int16 slot or
-// -1, out (R, S, H) bf16; all contiguous on `device`, H even,
-// F == 3 * cells. Launches on `stream`; returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a shape the kernel does not take.
-extern "C" int onehot_embed_fwd(const void* codes, const void* w,
-                                const void* lut, void* out, int R, int F,
-                                int S, int cells, int cw, int H, int device,
-                                void* stream) {
+template <int kMode, typename Out2>
+int launch(const void* codes, const void* w, const void* lut, void* out,
+           int R, int F, int S, int cells, int cw, int H, int device,
+           void* stream) {
   // this library links its own CUDA runtime: select the tensors' device
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -126,18 +169,53 @@ extern "C" int onehot_embed_fwd(const void* codes, const void* w,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (smem > kStaticSmem) {
-    cudaFuncSetAttribute(onehot_embed_fwd_kernel,
+    cudaFuncSetAttribute(onehot_embed_fwd_kernel<kMode, Out2>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
   }
   const int ts = by * kSpt;
   const dim3 block(h2, by);
   const dim3 grid((S + ts - 1) / ts, R);
-  onehot_embed_fwd_kernel<<<grid, block, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+  onehot_embed_fwd_kernel<kMode, Out2><<<grid, block, smem,
+                                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(codes),
       static_cast<const __nv_bfloat162*>(w),
-      static_cast<const int16_t*>(lut), static_cast<__nv_bfloat162*>(out),
-      F, S, cells, cw, h2);
+      static_cast<const int16_t*>(lut), static_cast<Out2*>(out), F, S, cells,
+      cw, h2);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K2f. codes (R, F, S) uint8, w (cells * cw, H) bf16, lut (3, 256) int16
+// slot or -1, out (R, S, H) bf16; all contiguous on `device`, H even,
+// F == 3 * cells. Launches on `stream`; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape the kernel does not take.
+extern "C" int onehot_embed_fwd(const void* codes, const void* w,
+                                const void* lut, void* out, int R, int F,
+                                int S, int cells, int cw, int H, int device,
+                                void* stream) {
+  return launch<kFull, __nv_bfloat162>(codes, w, lut, out, R, F, S, cells,
+                                       cw, H, device, stream);
+}
+
+// K6, the probe: the same arguments with a float32 out (R, S, H) and `mode`
+// 0 (full), 1 (build) or 2 (gemm); cudaErrorInvalidValue for another mode.
+extern "C" int embed_variant_fwd(const void* codes, const void* w,
+                                 const void* lut, void* out, int R, int F,
+                                 int S, int cells, int cw, int H, int mode,
+                                 int device, void* stream) {
+  switch (mode) {
+    case kFull:
+      return launch<kFull, float2>(codes, w, lut, out, R, F, S, cells, cw, H,
+                                   device, stream);
+    case kBuild:
+      return launch<kBuild, float2>(codes, w, lut, out, R, F, S, cells, cw,
+                                    H, device, stream);
+    case kGemm:
+      return launch<kGemm, float2>(codes, w, lut, out, R, F, S, cells, cw, H,
+                                   device, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Dict
 
 import numpy as np
 import torch
@@ -356,16 +355,21 @@ class RecurrentActorCritic(_Torso):
         return (z, torch.zeros_like(z)) if self.rnn == "lstm" else z
 
 
-def load_flax_params(params) -> Dict[str, torch.Tensor]:
+def load_flax_params(params):
     """A state_dict for :class:`ActorCritic` or :class:`RecurrentActorCritic`
     from the flax model's parameters as numpy arrays (``{'params': {...}}``
-    or the inner dict): ``torso0/{w0,w1,w2,bias}`` as they are (mlp), or the
+    or the inner dict), or, for the hetero trainers' per-group list of flax
+    trees, the list of their state_dicts (one per group, in group order).
+    Each is ``torso0/{w0,w1,w2,bias}`` as they are (mlp, any view size and
+    either vocabulary: the shapes come with the arrays), or the
     conv kernels ``conv1``/``Conv_0``/``Conv_1`` (kh, kw, in, out) as torch's
     (out, in, kh, kw) with their biases and ``conv1_bias`` (pixels torsos);
     the recurrent cell's ``cell/{i,h}`` kernels transposed, ``cell/i/bias``
     and the GRU's ``cell/hn_bias``; and the ``torso``, ``pi`` and ``v``
     Dense layers' ``kernel`` (in, out) transposed to torch's ``weight``
     (out, in)."""
+    if isinstance(params, (list, tuple)):
+        return [load_flax_params(p) for p in params]
     p = params.get("params", params)
 
     def t(a):

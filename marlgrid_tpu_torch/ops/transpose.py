@@ -1,9 +1,11 @@
-"""Batch-major -> batch-minor transpose: kernel K1 and its plain version.
+"""Layout swaps: the batch-major -> batch-minor transpose (kernel K1), the
+trajectory transpose (kernel K4) and their plain versions.
 
-Counterpart of ``marlgrid_tpu/ops/transpose.py::transpose_bk``. On a CUDA
-tensor the wrapper launches the hand-written kernel in
-``csrc/transpose.cu``; on a CPU tensor it takes the plain version. There is
-no fallback: a CUDA tensor the kernel does not take raises.
+Counterpart of ``marlgrid_tpu/ops/transpose.py`` (``transpose_bk`` and
+``transpose_traj``). On a CUDA tensor a wrapper launches its hand-written
+kernel in ``csrc/transpose.cu``; on a CPU tensor it takes the plain
+version. There is no fallback: a CUDA tensor the kernel does not take
+raises.
 """
 from __future__ import annotations
 
@@ -49,3 +51,45 @@ def transpose_bk(x: torch.Tensor) -> torch.Tensor:
 
 #: launches of the K1 kernel in this process (CUDA calls only)
 transpose_bk.launches = 0
+
+_TRAJ_ARGTYPES = ((ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 5
+                  + (ctypes.c_void_p,))
+_TRAJ_SYMBOLS = {torch.uint8: "transpose_traj_b8",
+                 torch.int32: "transpose_traj_b32"}
+
+
+def transpose_traj_plain(x: torch.Tensor) -> torch.Tensor:
+    """(T, N, F, B) -> (N, T, B, F), contiguous: the reference the kernel is
+    held to."""
+    return x.permute(1, 0, 3, 2).contiguous()
+
+
+def transpose_traj(x: torch.Tensor) -> torch.Tensor:
+    """(T, N, F, B) uint8 or int32 -> (N, T, B, F), bit-exact: the bulk swap
+    of a batch-minor trajectory into sample-major rows."""
+    if x.device.type == "cpu":
+        return transpose_traj_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"transpose_traj: unsupported device {x.device}")
+    if x.dim() != 4 or x.dtype not in _TRAJ_SYMBOLS or \
+            not x.is_contiguous():
+        raise ValueError(f"transpose_traj: wants a contiguous 4-D uint8 or "
+                         f"int32 tensor (T, N, F, B), got {x.dtype} "
+                         f"{tuple(x.shape)} contiguous={x.is_contiguous()}")
+    T, N, F, B = x.shape
+    if T * N > 65535 or F > 65535 * 32 or B >= 2 ** 31:
+        raise ValueError(f"transpose_traj: shape {tuple(x.shape)} beyond the "
+                         f"grid (T*N <= 65535 planes, F <= 2097120)")
+    y = torch.empty((N, T, B, F), dtype=x.dtype, device=x.device)
+    fn = _build.function("transpose", _TRAJ_SYMBOLS[x.dtype], _TRAJ_ARGTYPES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(x.data_ptr(), y.data_ptr(), T, N, F, B, x.device.index, stream)
+    if rc != 0:
+        raise RuntimeError(f"transpose_traj: kernel launch failed "
+                           f"(cudaError {rc})")
+    transpose_traj.launches += 1
+    return y
+
+
+#: launches of the K4 kernel in this process (CUDA calls only)
+transpose_traj.launches = 0

@@ -135,8 +135,11 @@ def _recompute(env_params: EnvParams, cfg: PPOConfig) -> bool:
     for the JAX package's other paths, naming the ROADMAP slice that
     brings them."""
     if env_params.has_hetero_obs:
-        raise NotImplementedError(
-            "heterogeneous per-agent obs groups: ROADMAP Slice E")
+        raise ValueError(
+            "heterogeneous per-agent obs groups train through "
+            "parallel/ppo_hetero.py (all-encode groups), ppo_hetero_rnn.py "
+            "(recurrent) or ppo_hetero_mixed.py (mixed styles), not the "
+            "shared-policy step")
     if cfg.rnn:
         raise NotImplementedError(
             f"rnn={cfg.rnn!r}: the recurrent family (ROADMAP Slice D) trains "
@@ -382,31 +385,39 @@ def obs_blocks(obs: torch.Tensor, c: int) -> torch.Tensor:
         0, 2, 1, 3).reshape(N * T * (B // c), Fd, c)
 
 
-def ppo_loss(logits, value, lab, cfg: PPOConfig):
-    """The clipped PPO objective of the JAX ``loss_fn``: ``logits`` (..., A)
-    and ``value`` (...) against the labels ``lab`` (``act``, ``logp``,
-    ``val``, ``adv``, ``ret``, each (...), aligned sample for sample) ->
-    ``(total, {pg_loss, vf_loss, entropy, ratio_dev})``. The advantages are
-    normalized over the minibatch (population std, as ``jnp.std``)."""
+def ppo_terms(logits, value, lab, adv, cfg: PPOConfig):
+    """The per-sample terms of the clipped PPO objective: ``logits``
+    (..., A) and ``value`` (...) against the labels ``lab`` (``act``,
+    ``logp``, ``val``, ``ret``, each (...), aligned sample for sample) and
+    the normalized advantages ``adv`` -> (policy loss, value loss, entropy,
+    |ratio - 1|), each (...)."""
     eps = cfg.clip_eps
     logp = F.log_softmax(logits, -1)
     logp_a = logp.gather(-1, lab["act"].long()[..., None])[..., 0]
     ratio = torch.exp(logp_a - lab["logp"])
-    adv = lab["adv"]
-    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
-    pg = -torch.minimum(ratio * adv,
-                        torch.clamp(ratio, 1 - eps, 1 + eps) * adv).mean()
+    pg = -torch.minimum(ratio * adv, torch.clamp(ratio, 1 - eps, 1 + eps)
+                        * adv)
     v_clipped = lab["val"] + torch.clamp(value - lab["val"], -eps, eps)
     vf = 0.5 * torch.maximum((value - lab["ret"]) ** 2,
-                             (v_clipped - lab["ret"]) ** 2).mean()
-    ent = -(F.softmax(logits, -1) * logp).sum(-1).mean()
-    total = pg + cfg.vf_coef * vf - cfg.ent_coef * ent
+                             (v_clipped - lab["ret"]) ** 2)
+    ent = -(F.softmax(logits, -1) * logp).sum(-1)
     # |ratio - 1| on the first minibatch of an update is a row-alignment
     # check: stored logp recomputed from stored obs at the same weights must
     # agree
-    ratio_dev = (ratio - 1.0).abs().mean()
-    return total, dict(pg_loss=pg, vf_loss=vf, entropy=ent,
-                       ratio_dev=ratio_dev)
+    return pg, vf, ent, (ratio - 1.0).abs()
+
+
+def ppo_loss(logits, value, lab, cfg: PPOConfig):
+    """The clipped PPO objective of the JAX ``loss_fn``: :func:`ppo_terms`
+    averaged over the minibatch -> ``(total, {pg_loss, vf_loss, entropy,
+    ratio_dev})``. The advantages ``lab['adv']`` are normalized over the
+    minibatch (population std, as ``jnp.std``)."""
+    adv = lab["adv"]
+    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    pg, vf, ent, dev = (x.mean() for x in ppo_terms(logits, value, lab, adv,
+                                                     cfg))
+    total = pg + cfg.vf_coef * vf - cfg.ent_coef * ent
+    return total, dict(pg_loss=pg, vf_loss=vf, entropy=ent, ratio_dev=dev)
 
 
 def _take(v, idx):
@@ -419,25 +430,34 @@ def _take(v, idx):
     return v[idx]
 
 
-def run_epochs(blocked, G: int, used: int, loss_fn, params, optimizer, key,
-               cfg: PPOConfig, dev):
-    """The epochs of a PPO update over ``blocked`` ({name: (G, ...)}
-    blocks): per epoch a ``permutation(split(key)[1], G)``, its first
-    ``used`` blocks cut into ``n_minibatches`` gathers, and for each
+def shuffled_blocks(blocked, G: int, used: int, cfg: PPOConfig):
+    """``minibatches(pk)`` for :func:`run_epochs` over ``blocked``
+    ({name: (G, ...)} blocks): a ``permutation(pk, G)``, its first ``used``
+    blocks cut into ``n_minibatches`` gathers of whole blocks."""
+    mb = used // cfg.n_minibatches
+
+    def minibatches(pk):
+        perm = rng.permutation(pk, G)
+        for idx in perm[:used].reshape(cfg.n_minibatches, mb):
+            yield {k: _take(v, idx) for k, v in blocked.items()}
+
+    return minibatches
+
+
+def run_epochs(minibatches, loss_fn, params, optimizer, key, cfg: PPOConfig,
+               dev):
+    """The epochs of a PPO update: per epoch the minibatches of
+    ``minibatches(split(key)[1])`` (:func:`shuffled_blocks`), and for each
     ``loss_fn(batch) -> (total, aux)``, a backward pass, the global-norm
     clip and an Adam step on ``params`` (in place). Returns the means over
     every minibatch of ``loss`` and of each ``aux`` entry, as 0-d device
     tensors."""
-    mb = used // cfg.n_minibatches
     losses, auxs = [], []
     key = key.to(dev)
     for _ in range(cfg.n_epochs):
         ks = rng.split(key)
         key, pk = ks[0], ks[1]
-        perm = rng.permutation(pk, G)
-        for idx in perm[:used].reshape(cfg.n_minibatches, mb):
-            # blocks are consumed whole
-            batch = {k: _take(v, idx) for k, v in blocked.items()}
+        for batch in minibatches(pk):
             total, aux = loss_fn(batch)
             with record_function("update.backward"):
                 grads = torch.autograd.grad(total, params)
@@ -554,8 +574,8 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
                 f"block(s) (~{100 * (G - used) / G:.1f}% of each epoch's "
                 f"data). Pick n_minibatches dividing {G} to use all of it.",
                 stacklevel=3)
-        return run_epochs(blocked, G, used, loss_fn, params, optimizer, key,
-                          cfg, dev)
+        return run_epochs(shuffled_blocks(blocked, G, used, cfg), loss_fn,
+                          params, optimizer, key, cfg, dev)
 
     return update
 

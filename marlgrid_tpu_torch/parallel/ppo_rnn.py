@@ -43,7 +43,7 @@ from ..device import resolve
 from ..models import RecurrentActorCritic
 from .ppo import (PPOConfig, _stack_states, aux_dim, episode_metrics,
                   make_optimizer, ppo_loss, rich_aux, run_epochs,
-                  step_labels)
+                  shuffled_blocks, step_labels)
 
 _LABELS = ("act", "logp", "val", "adv", "ret")
 
@@ -79,9 +79,10 @@ def _image_path(env_params: EnvParams, cfg: PPOConfig) -> bool:
         raise ValueError(f"recurrent PPO: rnn={cfg.rnn!r}, want 'gru' or "
                          f"'lstm'")
     if env_params.has_hetero_obs:
-        raise NotImplementedError(
-            "heterogeneous per-agent obs groups (the hetero recurrent "
-            "trainer): ROADMAP Slice E")
+        raise ValueError(
+            "heterogeneous per-agent obs groups train through "
+            "parallel/ppo_hetero_rnn.py, not the shared-policy recurrent "
+            "step")
     style = env_params.observation_style
     if style == "encode":
         if cfg.torso != "mlp":
@@ -347,8 +348,8 @@ def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
                 f"{G - used} block(s) (~{100 * (G - used) / G:.1f}% of each "
                 f"epoch's data). Pick n_minibatches dividing {G} to use all "
                 f"of it.", stacklevel=3)
-        return run_epochs(blocked, G, used, loss_fn, params, optimizer, key,
-                          cfg, dev)
+        return run_epochs(shuffled_blocks(blocked, G, used, cfg), loss_fn,
+                          params, optimizer, key, cfg, dev)
 
     return update
 

@@ -1,13 +1,19 @@
 """Training entry point of the PyTorch port: PPO on one device, on
 'encode' observations with the mlp torso or on 'image'/'rich' observations
 with the 'cnn_s2d' (default) or 'cnn_image' torso, feedforward or, with
-``--rnn gru|lstm``, recurrent (``parallel/ppo_rnn.py``).
+``--rnn gru|lstm``, recurrent (``parallel/ppo_rnn.py``). With
+``--agent-config`` (a JSON list of per-agent ``GridAgentInterface`` kwargs)
+the agents that share an observation config form a group with its own
+policy: all-encode groups train through ``parallel/ppo_hetero.py`` (with
+``--rnn``, ``ppo_hetero_rnn.py``), groups of mixed styles through
+``ppo_hetero_mixed.py``.
 
 Usage:
     python -m marlgrid_tpu_torch.parallel.train --scenario goal_cycle \
         --grid-size 13 --agents 4 --envs 4096 --iters 100 \
         [--obs image|rich [--torso cnn_image] [--observe rewards,...]] \
-        [--rnn gru|lstm [--bptt-window L]] [--device cpu]
+        [--rnn gru|lstm [--bptt-window L]] \
+        [--agent-config '[{"view_size":7},{"view_size":5}]'] [--device cpu]
 
 ``MARLGRID_TPU_EMBED_V2=1`` in the environment routes the mlp torso's embed
 through the plane-major kernels (K5f, K5b), as it does for the JAX CLI.
@@ -25,16 +31,19 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import torch
 
-from ..core import obs as obs_mod, rng
+from ..agents import GridAgentInterface, agents_to_params_fields
+from ..core import constants as C, obs as obs_mod, rng
 from ..core.state import EnvParams, EnvState, FIELDS, default_agent_colors
 from ..device import resolve
 from ..utils import checkpoint as ckpt_mod
 from ..utils.metrics import MetricsLogger
-from . import ppo, ppo_rnn
+from ..vector import obs_groups
+from . import ppo, ppo_hetero, ppo_hetero_mixed, ppo_hetero_rnn, ppo_rnn
 
 #: (is it asked for, flag, the ROADMAP slice that brings it) for each flag
 #: with no path in the port yet
@@ -44,8 +53,6 @@ LATER = (
     (lambda a: a.obs == "encode" and a.torso in ("cnn_image", "cnn_s2d"),
      "--torso cnn_image|cnn_s2d with --obs encode",
      "Slice C (pixels): the row-major obs store"),
-    (lambda a: bool(a.agent_config), "--agent-config",
-     "Slice E (heterogeneous populations)"),
     (lambda a: a.shard_map, "--shard-map",
      "Slice G (multi-device)"),
     (lambda a: a.distributed, "--distributed",
@@ -89,8 +96,10 @@ def parse_args(argv=None):
                         "sequences into L-step windows (must divide "
                         "--rollout; 0 = full sequences)")
     p.add_argument("--agent-config", default=None,
-                   help="JSON list of per-agent kwargs (not in the port "
-                        "yet)")
+                   help="JSON list of per-agent GridAgentInterface kwargs "
+                        "(one object per agent; unset kwargs take the "
+                        "scalar flags): heterogeneous populations, one "
+                        "policy per observation group")
     p.add_argument("--hidden", type=int, default=128,
                    help="policy hidden width (PPOConfig.hidden)")
     p.add_argument("--epochs", type=int, default=2)
@@ -167,20 +176,38 @@ def build(args):
             f"--observe: unknown field(s) "
             f"{sorted(observe - {'rewards', 'position', 'orientation'})} "
             f"(valid: rewards,position,orientation)")
-    ep = EnvParams(
-        width=args.grid_size, height=args.grid_size, n_agents=args.agents,
-        scenario=args.scenario, max_steps=args.max_steps,
-        view_size=args.view_size, observation_style=args.obs,
-        observe_rewards="rewards" in observe,
-        observe_position="position" in observe,
-        observe_orientation="orientation" in observe,
-        reward_decay=args.scenario != "goal_cycle",
-        agent_colors=default_agent_colors(args.agents))
+    if args.agent_config:
+        ep = EnvParams(
+            width=args.grid_size, height=args.grid_size,
+            scenario=args.scenario, max_steps=args.max_steps,
+            reward_decay=args.scenario != "goal_cycle",
+            **agents_to_params_fields(agent_list(args, observe)))
+    else:
+        ep = EnvParams(
+            width=args.grid_size, height=args.grid_size,
+            n_agents=args.agents, scenario=args.scenario,
+            max_steps=args.max_steps, view_size=args.view_size,
+            observation_style=args.obs,
+            observe_rewards="rewards" in observe,
+            observe_position="position" in observe,
+            observe_orientation="orientation" in observe,
+            reward_decay=args.scenario != "goal_cycle",
+            agent_colors=default_agent_colors(args.agents))
     if args.prestige_beta is not None:
         ep = ep.replace(prestige_beta=args.prestige_beta)
     if args.prestige_scale is not None:
         ep = ep.replace(prestige_scale=args.prestige_scale)
-    if observe and args.obs != "rich":
+    if ep.has_hetero_obs:
+        if args.overlap:
+            raise SystemExit("heterogeneous agent configs train without "
+                             "--overlap (the double-buffered variant is the "
+                             "shared-policy step's)")
+        if args.rnn and is_mixed(ep):
+            raise SystemExit("hetero recurrent training is encode-only "
+                             "(ppo_hetero_rnn.py); mixed-style groups train "
+                             "feedforward (drop --rnn)")
+    if observe and not any(ep.agent_obs_style(i) == "rich"
+                           for i in range(ep.n_agents)):
         print(f"warning: --observe {args.observe!r} is consumed by the "
               f"'rich' observation style only; --obs {args.obs} trains "
               f"WITHOUT these features (use --obs rich)", flush=True)
@@ -195,11 +222,105 @@ def build(args):
         if ck_cfg is None or ck_cfg.get("ppo", {}).get(
                 "embed_palettes") is None:
             args.no_embed_palette = True
-    if args.obs == "encode" and torso == "mlp" and not args.no_embed_palette:
+    if (args.obs == "encode" and torso == "mlp" and not ep.has_hetero_obs
+            and not args.no_embed_palette):
+        # hetero groups keep the full vocabularies, as the JAX CLI does
         pals = obs_mod.encode_palettes(ep)
         if pals is not None:
             cfg = dataclasses.replace(cfg, embed_palettes=pals)
     return ep, cfg
+
+
+def agent_list(args, observe):
+    """The ``--agent-config`` agents: one GridAgentInterface per JSON object,
+    its unset kwargs taken from the scalar flags (the colors from the
+    default per-index order). Exits with the JAX CLI's messages on bad
+    JSON, a spec that is not a non-empty list of objects, or an agent's bad
+    kwargs."""
+    try:
+        spec = json.loads(args.agent_config)
+    except ValueError as e:
+        raise SystemExit(f"--agent-config: invalid JSON ({e})")
+    if not isinstance(spec, list) or not spec \
+            or not all(isinstance(kw, dict) for kw in spec):
+        raise SystemExit("--agent-config must be a non-empty JSON list "
+                         "of per-agent kwargs objects")
+    colors = default_agent_colors(len(spec))
+    agents = []
+    for i, kw in enumerate(spec):
+        kw = dict(kw)
+        kw.setdefault("color", C.COLOR_NAMES[colors[i]])
+        kw.setdefault("view_size", args.view_size)
+        kw.setdefault("observation_style", args.obs)
+        kw.setdefault("observe_rewards", "rewards" in observe)
+        kw.setdefault("observe_position", "position" in observe)
+        kw.setdefault("observe_orientation", "orientation" in observe)
+        try:
+            agents.append(GridAgentInterface(**kw))
+        except (TypeError, KeyError, AssertionError) as e:
+            raise SystemExit(f"--agent-config agent {i}: {e}")
+    return agents
+
+
+def is_mixed(ep: EnvParams) -> bool:
+    """Whether some observation group of a hetero population renders
+    pixels (the mixed-style trainer's case)."""
+    return any(gp.observation_style != "encode" for _, gp in obs_groups(ep))
+
+
+def init(ep: EnvParams, cfg, generator, dev):
+    """``(net, optimizer, h)`` of the trainer that ``ep`` and ``cfg`` select
+    (``h`` None for feedforward; a hetero population's ``net`` is the
+    ModuleList of its groups' policies)."""
+    if ep.has_hetero_obs and cfg.rnn:
+        return ppo_hetero_rnn.init_state_hetero_rnn(ep, cfg, generator,
+                                                    device=dev)
+    if ep.has_hetero_obs:
+        init_fn = (ppo_hetero_mixed.init_state_hetero_mixed if is_mixed(ep)
+                   else ppo_hetero.init_state_hetero)
+        return init_fn(ep, cfg, generator, device=dev) + (None,)
+    if cfg.rnn:
+        return ppo_rnn.init_state_rnn(ep, cfg, generator, device=dev)
+    return ppo.init_state(ep, cfg, generator, device=dev) + (None,)
+
+
+def make_step(ep: EnvParams, cfg, net, opt, dev):
+    """The train step of the trainer that ``ep`` and ``cfg`` select
+    (without ``--overlap``)."""
+    if ep.has_hetero_obs and cfg.rnn:
+        return ppo_hetero_rnn.make_train_step_hetero_rnn(ep, cfg, net, opt,
+                                                         device=dev)
+    if ep.has_hetero_obs:
+        make = (ppo_hetero_mixed.make_train_step_hetero_mixed if is_mixed(ep)
+                else ppo_hetero.make_train_step_hetero)
+        return make(ep, cfg, net, opt, device=dev)
+    if cfg.rnn:
+        return ppo_rnn.make_train_step_rnn(ep, cfg, net, opt, device=dev)
+    return ppo.make_train_step(ep, cfg, net, opt, device=dev)
+
+
+def _state_dict(net):
+    """The weights to checkpoint: the net's state_dict, or a hetero
+    population's list of per-group state_dicts."""
+    if isinstance(net, torch.nn.ModuleList):
+        return [n.state_dict() for n in net]
+    return net.state_dict()
+
+
+def _load_state_dict(net, sd):
+    if isinstance(net, torch.nn.ModuleList):
+        for n, s in zip(net, sd, strict=True):
+            n.load_state_dict(s)
+    else:
+        net.load_state_dict(sd)
+
+
+def _carry_to(h, dev):
+    """A carry (a tensor, an LSTM's pair, or a hetero dict of either) on
+    ``dev``."""
+    if isinstance(h, dict):
+        return {g: _carry_to(x, dev) for g, x in h.items()}
+    return ppo_rnn.map_carry(lambda t: t.to(dev), h)
 
 
 def main(argv=None):
@@ -208,11 +329,7 @@ def main(argv=None):
     dev = resolve(args.device)
     key = rng.PRNGKey(args.seed, device=dev)
     gen = torch.Generator().manual_seed(args.seed)
-    h = None
-    if cfg.rnn:
-        net, opt, h = ppo_rnn.init_state_rnn(ep, cfg, gen, device=dev)
-    else:
-        net, opt = ppo.init_state(ep, cfg, gen, device=dev)
+    net, opt, h = init(ep, cfg, gen, dev)
     env_state = ppo.init_env_batch(ep, cfg.n_envs, rng.fold_in(key, 1),
                                    stagger=not args.no_stagger, device=dev)
     key = rng.fold_in(key, 2)
@@ -220,14 +337,14 @@ def main(argv=None):
         # load on the CPU: load_state_dict moves each tensor where it
         # belongs (Adam keeps its step counts on the CPU)
         tree = ckpt_mod.restore(args.resume, map_location="cpu")
-        net.load_state_dict(tree["net"])
+        _load_state_dict(net, tree["net"])
         opt.load_state_dict(tree["opt"])
         if "env_state" in tree and "key" in tree:
             env_state = EnvState(**tree["env_state"]).map(
                 lambda t: t.to(dev))
             key = tree["key"].to(dev)
             if h is not None and "h" in tree:
-                h = ppo_rnn.map_carry(lambda t: t.to(dev), tree["h"])
+                h = _carry_to(tree["h"], dev)
         else:
             print("warning: the checkpoint holds no env state and key"
                   + (" or carry" if h is not None else "")
@@ -235,16 +352,14 @@ def main(argv=None):
 
     spc = max(1, args.steps_per_call)
     prev = None
-    if cfg.rnn:
-        step = ppo_rnn.make_train_step_rnn(ep, cfg, net, opt, device=dev)
-        if spc > 1:
-            step = ppo_rnn.multi_step_rnn(step, spc)
-    elif args.overlap:
+    if args.overlap:
         step, prime = ppo.make_train_step(ep, cfg, net, opt, device=dev,
                                           overlap=True)
         env_state, prev, key = prime(env_state, key)
     else:
-        step = ppo.make_train_step(ep, cfg, net, opt, device=dev)
+        step = make_step(ep, cfg, net, opt, dev)
+        if cfg.rnn and spc > 1:
+            step = ppo_rnn.multi_step_rnn(step, spc)
     log = MetricsLogger(args.metrics)
     run_config = dict(format=1, env_params=ep.to_dict(),
                       ppo=ppo.ppo_config_to_dict(cfg))
@@ -280,7 +395,7 @@ def main(argv=None):
                     **metrics)
         if (args.checkpoint_dir and args.checkpoint_every
                 and (it + 1) % args.checkpoint_every == 0):
-            payload = dict(net=net.state_dict(), opt=opt.state_dict(),
+            payload = dict(net=_state_dict(net), opt=opt.state_dict(),
                            env_state={f: getattr(env_state, f)
                                       for f in FIELDS},
                            key=key)

@@ -1,9 +1,9 @@
 """The batched env API (PyTorch port of ``marlgrid_tpu/vector.py``).
 
 ``VectorEnv`` steps B env instances in lockstep on one device: state in,
-state out, with 'encode', 'image' or 'rich' observations. Homogeneous
-observation configs only; heterogeneous per-agent obs groups wait for
-ROADMAP Slice E.
+state out, with 'encode', 'image' or 'rich' observations, homogeneous or,
+when the params hold per-agent observation configs, one observation program
+per config group (:func:`obs_groups`).
 """
 from __future__ import annotations
 
@@ -12,6 +12,17 @@ import torch
 from .core import grid_gen, obs as obs_mod, rng, step as step_mod
 from .core.state import EnvParams
 from .device import resolve
+
+
+def obs_groups(params: EnvParams):
+    """The agents grouped by their per-agent observation config:
+    ``[(idxs, gp), ...]`` in order of first appearance, ``idxs`` the agent
+    indices that share the homogeneous params ``gp``
+    (``params.agent_obs_params(i)``)."""
+    groups = {}
+    for i in range(params.n_agents):
+        groups.setdefault(params.agent_obs_params(i), []).append(i)
+    return [(tuple(idxs), gp) for gp, idxs in groups.items()]
 
 
 class VectorEnv:
@@ -27,23 +38,26 @@ class VectorEnv:
     uint8 ('image'), or for 'rich' a dict of batched fields: ``pov`` (the
     image) plus ``reward`` (B, N), ``position`` (B, N, 2) and
     ``orientation`` (B, N) as the params' ``observe_*`` flags ask. With
-    ``auto_reset`` a finished env restarts on the step's shared fresh board
-    (``step_autoreset_batch``).
+    per-agent observation configs, ``obs`` is ``{g: obs of group g}`` over
+    ``self.obs_groups``, each (B, n_g, ...) in its group's style: encode
+    groups render only their own observers against one shared painted
+    board; image and rich groups render every agent in the group's config
+    and keep the group's columns. With ``auto_reset`` a finished env
+    restarts on the step's shared fresh board (``step_autoreset_batch``).
     """
 
     def __init__(self, params: EnvParams, n_envs: int,
                  auto_reset: bool = True, device="cuda"):
-        if params.has_hetero_obs:
-            raise NotImplementedError(
-                "VectorEnv: heterogeneous per-agent obs groups are ported "
-                "with ROADMAP Slice E")
         self.params = params
         self.n_envs = n_envs
         self.auto_reset = auto_reset
         self.device = resolve(device)
+        self.obs_groups = (obs_groups(params) if params.has_hetero_obs
+                           else None)
 
-    def obs(self, state):
-        p = self.params
+    @staticmethod
+    def _one(p: EnvParams, state):
+        """One homogeneous config's batched obs (array, or the rich dict)."""
         if p.observation_style != "rich":
             return obs_mod.all_agent_obs_b(p, state)
         d = {"pov": obs_mod.all_agent_obs_b(
@@ -55,6 +69,24 @@ class VectorEnv:
         if p.observe_orientation:
             d["orientation"] = state.agent_dir
         return d
+
+    def obs(self, state):
+        if self.obs_groups is None:
+            return self._one(self.params, state)
+        shared = (obs_mod.pack_grid_with_agents(self.params, state)
+                  if any(gp.observation_style == "encode"
+                         for _, gp in self.obs_groups) else None)
+        out = {}
+        for g, (idxs, gp) in enumerate(self.obs_groups):
+            if gp.observation_style == "encode":
+                out[g] = obs_mod.all_obs_encode_b(gp, state, observers=idxs,
+                                                  packed=shared)
+                continue
+            cols = torch.tensor(idxs, device=state.agent_dir.device)
+            full = self._one(gp, state)
+            out[g] = ({k: v[:, cols] for k, v in full.items()}
+                      if isinstance(full, dict) else full[:, cols])
+        return out
 
     def reset(self, key: torch.Tensor):
         keys = rng.split(key.to(self.device), self.n_envs)

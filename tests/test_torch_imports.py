@@ -45,15 +45,33 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from marlgrid_tpu_torch.core import rng
     from marlgrid_tpu_torch.core.state import EnvParams
     from marlgrid_tpu_torch.models import ActorCritic, RecurrentActorCritic
-    from marlgrid_tpu_torch.parallel import ppo, ppo_rnn, train
+    from marlgrid_tpu_torch.parallel import (ppo, ppo_hetero,
+                                             ppo_hetero_mixed, ppo_hetero_rnn,
+                                             ppo_rnn, train)
     from marlgrid_tpu_torch.vector import VectorEnv
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ep = EnvParams(width=7, height=7, n_agents=1,
                    observation_style="encode")
+    het = EnvParams(width=7, height=7, n_agents=2, agent_colors=(0, 4),
+                    observation_style="encode", agent_view_sizes=(5, 3))
+    mix = het.replace(agent_obs_styles=("encode", "image"))
     cfg = ppo.PPOConfig(n_envs=4, rollout_len=2, hidden=8)
     rcfg = ppo.PPOConfig(n_envs=4, rollout_len=2, hidden=8, rnn="gru")
     key = rng.PRNGKey(0, device="cpu")
+    hetero_calls = (
+        lambda: VectorEnv(het, 4),
+        lambda: ppo_hetero.init_state_hetero(het, cfg),
+        lambda: ppo_hetero.make_train_step_hetero(het, cfg, None, None),
+        lambda: ppo_hetero_rnn.init_state_hetero_rnn(het, rcfg),
+        lambda: ppo_hetero_rnn.make_train_step_hetero_rnn(het, rcfg, None,
+                                                          None),
+        lambda: ppo_hetero_mixed.init_state_hetero_mixed(mix, cfg),
+        lambda: ppo_hetero_mixed.make_train_step_hetero_mixed(mix, cfg, [],
+                                                              None),
+        lambda: train.main(["--scenario", "empty", "--agent-config",
+                            '[{"view_size":5},{"view_size":3}]', "--envs",
+                            "4", "--iters", "1"]))
     for call in (lambda: rng.PRNGKey(0),
                  lambda: VectorEnv(ep, 4),
                  lambda: ppo.init_env_batch(ep, 4, key),
@@ -65,7 +83,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  lambda: ppo_rnn.init_state_rnn(ep, rcfg),
                  lambda: ppo_rnn.make_train_step_rnn(ep, rcfg, None, None),
                  lambda: train.main(["--scenario", "empty", "--agents", "1",
-                                     "--envs", "4", "--iters", "1"])):
+                                     "--envs", "4", "--iters", "1"])
+                 ) + hetero_calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     state, obs = VectorEnv(ep, 4, device="cpu").reset(key)

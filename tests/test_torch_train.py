@@ -2,8 +2,9 @@
 on the CPU, tiny: its JSONL carries the JAX CLI's fields, its checkpoint's
 config.json holds the PPOConfig the JAX CLI builds from the same flags
 (palettes included), and a flag whose path the port lacks exits with the
-ROADMAP slice that brings it. The ``--rnn`` CLI is in
-``test_torch_ppo_rnn.py``."""
+ROADMAP slice that brings it. ``--agent-config`` trains each of the three
+hetero trainers, checkpoints and resumes, and rejects bad specs with the
+JAX CLI's messages. The ``--rnn`` CLI is in ``test_torch_ppo_rnn.py``."""
 import json
 
 import pytest
@@ -96,10 +97,10 @@ def test_cli_image(tmp_path):
 
 @pytest.mark.parametrize("flag,slice_", [
     (["--rnn", "gru", "--shard-map"], "Slice G"),
-    (["--rnn", "gru", "--agent-config", "[{}]"], "Slice E"),
+    (["--rnn", "gru", "--agent-config", "[{}]", "--shard-map"], "Slice G"),
     (["--torso", "cnn"], "Slice C"),
     (["--torso", "cnn_s2d"], "Slice C"),
-    (["--agent-config", "[{}]"], "Slice E"),
+    (["--agent-config", "[{}]", "--distributed"], "Slice G"),
     (["--shard-map"], "Slice G"),
     (["--model-shards", "2"], "Slice G"),
     (["--profile-dir", "p"], "Slice F"),
@@ -107,3 +108,76 @@ def test_cli_image(tmp_path):
 def test_unsupported_flag_names_its_slice(flag, slice_):
     with pytest.raises(SystemExit, match=slice_):
         train.main(TINY + flag)
+
+
+HETERO = ["--device", "cpu", "--scenario", "goal_cycle", "--grid-size", "9",
+          "--envs", "8", "--rollout", "4", "--iters", "2", "--hidden", "16",
+          "--max-steps", "4", "--epochs", "1", "--minibatches", "2"]
+VIEWS = '[{"view_size":5},{"view_size":3},{"view_size":5}]'
+MIXED = ('[{"view_size":5},{"view_size":5,"observation_style":"image",'
+         '"view_tile_size":4}]')
+
+
+@pytest.mark.parametrize("spec,rnn,kinds", [
+    (VIEWS, [], ["mlp", "mlp"]),
+    (VIEWS, ["--rnn", "gru"], ["mlp", "mlp"]),
+    (MIXED, [], ["mlp", "cnn_s2d"]),
+], ids=["views", "views-gru", "mixed"])
+def test_cli_agent_config(tmp_path, spec, rnn, kinds):
+    """--agent-config at a tiny size: one policy per observation group, no
+    embed palettes, the JAX CLI's env params for the same flags in
+    config.json, two iterations with a checkpoint (the per-group weights,
+    and the per-group carry with --rnn), then one resumed from it."""
+    from marlgrid_tpu.agents import GridAgentInterface as JAgent
+    from marlgrid_tpu.agents import agents_to_params_fields as j_fields
+
+    metrics = tmp_path / "m.jsonl"
+    ck = tmp_path / "ck"
+    nets = train.main(HETERO + rnn + ["--agent-config", spec, "--metrics",
+                                      str(metrics), "--checkpoint-dir",
+                                      str(ck), "--checkpoint-every", "2"])
+    assert [n.kind for n in nets] == kinds
+    recs = [json.loads(line) for line in metrics.read_text().splitlines()]
+    assert [r["step"] for r in recs] == [0, 1]
+    assert recs[-1]["n_episodes"] > 0 and recs[-1]["entropy"] > 0
+    agents = []
+    for i, kw in enumerate(json.loads(spec)):
+        kw.setdefault("color", ("red", "blue", "purple")[i])
+        kw.setdefault("observation_style", "encode")
+        agents.append(JAgent(**kw))
+    jep = JEnvParams(width=9, height=9, scenario="goal_cycle", max_steps=4,
+                     reward_decay=False, **j_fields(agents))
+    config = json.loads((ck / "config.json").read_text())
+    assert config["env_params"] == json.loads(json.dumps(jep.to_dict()))
+    assert config["ppo"]["embed_palettes"] is None
+    assert config["ppo"]["rnn"] == (rnn[-1] if rnn else "")
+    tree = torch.load(ck / "step_2.pt", weights_only=True)
+    assert isinstance(tree["net"], list) and len(tree["net"]) == len(kinds)
+    if rnn:
+        assert {g: tuple(h.shape) for g, h in tree["h"].items()} == {
+            0: (2, 8, 16), 1: (1, 8, 16)}
+    resumed = train.main(HETERO + rnn + ["--agent-config", spec, "--resume",
+                                         str(ck), "--iters", "1",
+                                         "--metrics", str(metrics)])
+    recs = [json.loads(line) for line in metrics.read_text().splitlines()]
+    assert [r["step"] for r in recs] == [0]
+    for a, b in zip(resumed, nets):
+        assert not torch.equal(next(a.parameters()), next(b.parameters()))
+
+
+@pytest.mark.parametrize("flag,match", [
+    (["--agent-config", "[not json"], "invalid JSON"),
+    (["--agent-config", '{"view_size": 5}'], "non-empty JSON list"),
+    (["--agent-config", "[]"], "non-empty JSON list"),
+    (["--agent-config", '[{"view_size": 4}]'], "agent 0: view_size must be"),
+    (["--agent-config", '[{}, {"color": "mauve"}]'], "agent 1"),
+    (["--agent-config", MIXED, "--rnn", "gru"], "encode-only"),
+    (["--agent-config", VIEWS, "--overlap"], "without --overlap"),
+    (["--agent-config", VIEWS, "--rnn", "gru", "--bptt-window", "2"],
+     "homogeneous-only"),
+])
+def test_agent_config_rejects(flag, match):
+    """Bad --agent-config specs exit with the JAX CLI's messages, as do
+    --rnn with mixed styles, --overlap and a BPTT window."""
+    with pytest.raises(SystemExit, match=match):
+        train.main(HETERO + flag)
