@@ -17,7 +17,7 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    composite) against its plain version, bit-exact, on the ids of real
    views (goal_cycle at the rollout's shape, cluttered, doorkey with hidden
    keys and a view offset; prestige over all 8 levels) in the standard,
-   (N, B) and s2d layouts, and on random ids in its other two variants;
+   (N, B) and s2d layouts, and on random ids in its other variants;
    K5f (onehot_embed2, the plane-major embed, float32 out) against its
    plain version at the rollout's and the update's shapes within 1e-5 of
    max |out|, and K5b (its three tables' gradients) at the update's shape
@@ -73,9 +73,10 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    encode and with image observations;
 11. the kernels' times with CUDA events at the rollout's and the update's
    shapes (K3 also at the image env-only shape), beside their bound, their
-   plain version's and one PyTorch call's time; then the K6 probe (the
-   embed-roofline split of K2f into 'full', 'build' and 'gemm') against
-   its plain versions and timed beside K2f.
+   plain version's and one PyTorch call's time (K2b also beside torch.mm
+   of its one-hot matrix by dout, the tensor-core yardstick); then the K6
+   probe (the embed-roofline split of K2f into 'full', 'build' and 'gemm')
+   against its plain versions and timed beside K2f.
 
 The last lines of standard output are the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
@@ -305,20 +306,24 @@ def _hold_k2f(out, ref, what):
 
 
 def phase_embed_bwd(palettes):
-    """K2b at the update's shape (R = 2048 blocks of S = 128 samples), with
-    the full vocabularies and the goal_cycle palette, and at a hetero 5x5
-    group's (``HETERO_UPDATE``), against its plain version on the card
-    (:func:`_hold_k2b`); the embed's autograd Function returns K2b's
-    gradient."""
+    """K2b at the update's shape (R = 2048 blocks of S = 128 samples, H =
+    128), with the full vocabularies and the goal_cycle palette, and at a
+    hetero 5x5 group's (``HETERO_UPDATE``), against its plain version on
+    the card (:func:`_hold_k2b`); then at two odd shapes that take the
+    kernel's other paths (S not a multiple of 16: codes read byte by byte;
+    H = 20: 4-byte copies of dout into a 32-unit tile; H = 200: two
+    128-unit tiles, the second padded). The embed's autograd Function
+    returns K2b's gradient."""
     from marlgrid_tpu_torch.ops import embed as E
 
     gen = torch.Generator().manual_seed(2)
-    H = 128
     worst = 0.0
-    for R, cells, S, name, pal in (
-            (2048, 49, 128, "full", None),
-            (2048, 49, 128, "goal_cycle palette", palettes),
-            (*HETERO_UPDATE, "full", None)):
+    for R, cells, S, H, name, pal in (
+            (2048, 49, 128, 128, "full", None),
+            (2048, 49, 128, 128, "goal_cycle palette", palettes),
+            (*HETERO_UPDATE, 128, "full", None),
+            (48, 49, 100, 20, "full", None),
+            (64, 25, 48, 200, "goal_cycle palette", palettes)):
         widths, values = E.vocab(pal)
         x = _codes(R, cells, S, gen)
         dout = torch.randn(R, S, H, generator=gen).to(torch.bfloat16).cuda()
@@ -504,9 +509,11 @@ def phase_sprite(seed):
     the ids of real views: goal_cycle at the rollout's shape (B = 4096,
     N = 4), a cluttered 15x15 and a doorkey with hidden keys and a view
     offset, after random steps with prestige over all 8 levels, in the
-    standard, (N, B), s2d and (N, B) s2d layouts; then random ids at T = 16
-    (tables read through the read-only cache) and T = 5 (single-byte
-    stores), the kernel's other two variants."""
+    standard, (N, B), s2d and (N, B) s2d layouts (16-byte s2d pieces,
+    8-byte standard granules); then random ids at T = 16 (tables read
+    through the read-only cache), T = 4 (s2d pieces, and single-byte
+    granules in 16-byte stores) and T = 5 (single-byte granules and
+    stores), the kernel's other variants."""
     from marlgrid_tpu_torch.core import constants as C
     from marlgrid_tpu_torch.core import grid_gen, obs, rng, step
     from marlgrid_tpu_torch.core.state import EnvParams, default_agent_colors
@@ -560,7 +567,7 @@ def phase_sprite(seed):
         check(ep, ids, layouts, f"{what}, B={B}, N={ep.n_agents}, seen "
                                 f"levels {levels}")
     gen = torch.Generator().manual_seed(seed)
-    for T, vs in ((16, 7), (5, 5)):
+    for T, vs in ((16, 7), (4, 5), (5, 5)):
         ep = ep_of(3, view_size=vs, view_tile_size=T)
         shape = (3, vs, vs, 257)
         ids = [torch.randint(0, hi, shape, generator=gen, dtype=torch.int32)
@@ -1500,9 +1507,15 @@ def time_k2f(codes, table, widths, values, where, card):
 
 def time_k2b(codes, table, widths, values, card, seed):
     """K2b at the update's shape beside its bound, its plain version and
-    the backward of embedding_bag(sum) over the same row indices (timed as
-    forward + backward minus forward), with a bf16 dout like the one the
-    update gives it."""
+    two one-call yardsticks: the backward of embedding_bag(sum) over the
+    same row indices (timed as forward + backward minus forward), and the
+    tensor-core route, ``torch.mm`` of the one-hot matrix (built before the
+    timing, bf16, transposed) by ``dout`` (``library_mm_ms``); with a bf16
+    dout like the one the update gives it. The bound is the least time over
+    the routes: its bytes at the memory rate, or else the lesser of its
+    float32 adds (one per in-vocabulary code per hidden unit) at 67 TFLOP/s
+    and the dense bf16 product (2 * samples * cells * cw * H) at
+    989 TFLOP/s."""
     import torch.nn.functional as F
 
     from marlgrid_tpu_torch.ops import embed as E
@@ -1513,8 +1526,14 @@ def time_k2b(codes, table, widths, values, card, seed):
     dout = (torch.randn(R, S, H, generator=gen) * 1e-3).to(
         torch.bfloat16).cuda()
     n_valid, bag_idx = _bag_rows(codes, widths, values, cells, cw)
+    adds, mma = n_valid * H, 2 * R * S * cells * cw * H
     k = dict(bytes=codes.numel() + dout.numel() * 2 + cells * cw * H * 4,
-             ops=n_valid * H)
+             adds_ms=adds / F32_OPS_PER_S * 1e3,
+             mma_ms=mma / BF16_OPS_PER_S * 1e3)
+    if k["mma_ms"] < k["adds_ms"]:
+        k.update(ops=mma, ops_per_s=BF16_OPS_PER_S)
+    else:
+        k.update(ops=adds)
     k["ms"], k["host_ms"] = time_ms(
         lambda: E.onehot_embed_bwd(codes, dout, widths, values))
     k["plain_ms"], _ = time_ms(lambda: E.onehot_embed_bwd_plain(
@@ -1533,6 +1552,19 @@ def time_k2b(codes, table, widths, values, card, seed):
                                bag_w, d_flat)
     kern = E.onehot_embed_bwd(codes, dout, widths, values)
     gap = float((g[:-1].float().reshape(cells, cw, H) - kern).abs().max())
+    del g, bag_w
+    # the one-hot count matrix (R*S, cells*cw), bf16 (entries 0 or 1,
+    # exact): row indices past the table (no row) drop out
+    onehot = torch.zeros(R * S, cells * cw + 1, dtype=torch.bfloat16,
+                         device="cuda")
+    onehot.scatter_add_(1, bag_idx, torch.ones_like(
+        bag_idx, dtype=torch.bfloat16))
+    onehot = onehot[:, :-1].contiguous()
+    k["library_mm_ms"], _ = time_ms(lambda: torch.mm(onehot.t(), d_flat),
+                                    iters=20)
+    mm_gap = float((torch.mm(onehot.t(), d_flat).float().reshape(
+        cells, cw, H) - kern).abs().max())
+    del onehot
     _bound(k)
     print(f"[time] K2b at the update's shape (R={R}, F={Fd}, S={S}, H={H}, "
           f"palette, {n_valid} codes in the vocabulary): "
@@ -1540,8 +1572,12 @@ def time_k2b(codes, table, widths, values, card, seed):
           f"call), plain {k['plain_ms'] * 1e3:.2f} us, embedding_bag "
           f"backward {k['library_ms'] * 1e3:.2f} us (forward+backward "
           f"{both_ms * 1e3:.2f} us minus forward {fwd_ms * 1e3:.2f} us; its "
-          f"bf16 gradient within {gap:.3e} of K2b's), bound "
-          f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}) [{card}]")
+          f"bf16 gradient within {gap:.3e} of K2b's), torch.mm of the "
+          f"one-hot by dout {k['library_mm_ms'] * 1e3:.2f} us (its bf16 "
+          f"product within {mm_gap:.3e} of K2b's), bound "
+          f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}; float32 adds "
+          f"{k['adds_ms'] * 1e3:.2f} us, bf16 product "
+          f"{k['mma_ms'] * 1e3:.2f} us) [{card}]")
     return k
 
 
@@ -1705,8 +1741,10 @@ def time_k3(ep, ids, layout, where, card, plain_iters=3):
                              f"{where}: max abs err {k['max_abs_err']}")
     del out, ref
     _bound(k)
+    k["granule"] = sprite.granule(T, layout.get("s2d", False))
     print(f"[time] K3 at the {where} ({N * B} images of {vs * T}x{vs * T}x3,"
-          f" {layout}): {k['ms'] * 1e3:.2f} us (host "
+          f" {layout}, {k['granule']}-byte granules): "
+          f"{k['ms'] * 1e3:.2f} us (host "
           f"{k['host_ms'] * 1e3:.2f} us per call), plain "
           f"{k['plain_ms'] * 1e3:.2f} us, F.embedding of the base ids "
           f"{k['library_ms'] * 1e3:.2f} us, bound {k['bound_ms'] * 1e3:.2f} "
@@ -2328,6 +2366,8 @@ def main(argv=None):
             launches=path["counts"][name], max_abs_err=errs[name],
             ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"]))
+        if "library_mm_ms" in k:
+            kernels[-1]["library_mm_ms"] = k["library_mm_ms"]
     probes = [("transpose_traj", "transpose.cu",
                "marlgrid_tpu/ops/transpose.py:67", tim_k4,
                tim_k4["probe_launches"])]

@@ -346,3 +346,48 @@ def encode_palettes(params: EnvParams):
     colors |= set(params.agent_colors)
     return (tuple(sorted(types)), tuple(sorted(colors)),
             tuple(sorted(states)))
+
+
+def validate_encode_palette(params: EnvParams, key=None, n_envs: int = 4,
+                            n_steps: int = 24, device="cuda"):
+    """Check that the scenario's declared palette covers every code its
+    'encode' obs show (the JAX package's ``validate_encode_palette``): a
+    compact vocabulary maps an out-of-vocabulary code to an all-zero embed
+    row, so an incomplete ``register_scenario(palette=...)`` would train on
+    blanked cells without a word.
+
+    Resets ``n_envs`` boards and random-walks them ``n_steps`` steps with
+    the JAX function's keys (the same boards), checking every observed
+    (type, color, state) plane code against :func:`encode_palettes`; raises
+    ValueError naming the missing codes and the step that showed them.
+    ``key``: a ``(2,)`` key (default ``PRNGKey(0)``), its device the one the
+    sweep runs on; else it runs on ``device``."""
+    from . import grid_gen, rng, step as step_mod
+
+    pals = encode_palettes(params)
+    if pals is None:
+        return
+    key = rng.PRNGKey(0, device=device) if key is None else key
+    state = grid_gen.reset(params, rng.split(rng.fold_in(key, 0), n_envs))
+    vocabs = [set(v) for v in pals]
+    names = ("type", "color", "state")
+
+    def check(state, t):
+        obs = all_obs_encode_b(params, state).cpu().numpy()
+        for i, vocab in enumerate(vocabs):
+            missing = set(np.unique(obs[..., i]).tolist()) - vocab
+            if missing:
+                raise ValueError(
+                    f"scenario {params.scenario!r}: encode palette misses "
+                    f"{names[i]} codes {sorted(missing)} (observed at "
+                    f"random-walk step {t}; declared vocabulary "
+                    f"{sorted(vocab)}). Fix the register_scenario("
+                    f"palette=…) declaration, or disable compact embed "
+                    f"vocabularies (--no-embed-palette)")
+
+    check(state, 0)
+    for t in range(n_steps):
+        key, ak = rng.split(key)
+        acts = rng.randint(ak, (n_envs, params.n_agents), 0, C.N_ACTIONS)
+        state = step_mod.step_autoreset_batch(params, state, acts)[0]
+        check(state, t + 1)

@@ -6,9 +6,10 @@ layer, ``out[r, s, :] = sum over view cells of W_type[code] + W_color[code]
 + W_state[min(code, 19)]``, on feature-major codes ``(R, 3*cells, S)``, and
 its gradient with respect to the table. On CUDA tensors the wrappers launch
 the hand-written kernels: the gather-sum of ``csrc/embed.cu`` (float32 sums,
-one rounding to bf16, as the TPU kernel) and the scatter-add of
-``csrc/embed_bwd.cu`` (bf16 ``dout``, float32 sums). On CPU tensors they
-take the plain dense one-hot formulation. There is no fallback between them.
+one rounding to bf16, as the TPU kernel) and the one-hot product of
+``csrc/embed_bwd.cu`` on the tensor cores (bf16 ``dout``, float32 sums). On
+CPU tensors they take the plain dense one-hot formulation. There is no
+fallback between them.
 
 :func:`onehot_embed` is differentiable in the table: when the table needs a
 gradient it runs through an autograd Function whose backward is K2b on the
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,14 +30,16 @@ from . import _build
 N_STATE_CODES = 20                      # door states + bonus phases
 WIDTHS = (C.N_TYPES + 1, C.N_COLORS + 1, N_STATE_CODES)
 _ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
-_BWD_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 7
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 10
                  + (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p))
-#: K2b plan: bytes of float32 partial table per block, blocks to aim for
-#: (two per SM of an H100), samples staged per step (csrc/embed_bwd.cu kTile)
-_BWD_TABLE_BYTES = 64 * 1024
+#: K2b plan (csrc/embed_bwd.cu): blocks to aim for, a constant (two per SM
+#: of an H100) so the plan and the bits never depend on the card; samples
+#: staged per step (kSteps); rows per warp (kWarpRows); warps per block
 _BWD_BLOCKS = 2 * 132
-_BWD_TILE = 32
+_BWD_STEP = 128
+_BWD_WARP_ROWS = 32
+_BWD_WARPS = 8
 
 
 def vocab(palettes=None):
@@ -170,18 +174,41 @@ def _forward(x, w, widths, values, dtype) -> torch.Tensor:
     return out
 
 
-def _bwd_plan(R: int, S: int, cells: int, cw: int, H: int):
+class BwdPlan(NamedTuple):
+    """K2b's launch plan (see :func:`bwd_plan`)."""
+    bn: int          # hidden units per block (16, 32, 64 or 128)
+    bm: int          # table rows per block
+    row_groups: int  # blocks over the cells * cw rows
+    n_groups: int    # blocks over the hidden units
+    span: int        # view cells the rows of one block touch, at most
+    chunk: int       # samples per block, a multiple of _BWD_STEP
+    n_chunks: int    # blocks over the R * S samples
+
+
+def bwd_plan(R: int, S: int, cells: int, cw: int, H: int) -> BwdPlan:
     """K2b's launch plan, a function of the shapes only (so a run repeats
-    itself bit for bit on any card): ``(cb, chunk, n_chunks)`` = view cells
-    per block, samples per chunk, chunks."""
-    M = R * S
-    cb = max(1, min(cells, 1024 // (H // 2), _BWD_TABLE_BYTES // (cw * H * 4)))
-    groups = -(-cells // cb)
-    cb = -(-cells // groups)                       # balance the groups
-    n_chunks = max(1, min(-(-_BWD_BLOCKS // groups), -(-M // _BWD_TILE)))
-    chunk = -(-max(M, 1) // n_chunks)
-    chunk = -(-chunk // _BWD_TILE) * _BWD_TILE
-    return cb, chunk, -(-max(M, 1) // chunk)
+    itself bit for bit on any card).
+
+    The (cells * cw, H) gradient is cut into tiles of ``bm`` rows by ``bn``
+    hidden units (bn the least of 16, 32, 64, 128 that holds H, else 128;
+    a warp keeps 32 rows by min(bn, 64) units of float32 sums in
+    registers, so bm = 32 * 8 warps / (bn / min(bn, 64))). The samples are
+    cut into ``n_chunks`` chunks of ``chunk`` so that the grid is at most
+    ``_BWD_BLOCKS`` blocks, one wave (or one chunk, where the tiles alone
+    are more); each block sums its chunk, and a second pass adds the chunks
+    in order."""
+    bn = next((b for b in (16, 32, 64) if H <= b), 128)
+    bm = _BWD_WARP_ROWS * _BWD_WARPS // (bn // min(bn, 64))
+    rows = cells * cw
+    row_groups = -(-rows // bm)
+    span = max((min(rows, r0 + bm) - 1) // cw - r0 // cw + 1
+               for r0 in range(0, rows, bm))
+    n_groups = -(-H // bn)
+    M = max(R * S, 1)
+    steps = -(-M // _BWD_STEP)
+    n_chunks = max(1, min(_BWD_BLOCKS // (row_groups * n_groups), steps))
+    chunk = -(-steps // n_chunks) * _BWD_STEP
+    return BwdPlan(bn, bm, row_groups, n_groups, span, chunk, -(-M // chunk))
 
 
 def onehot_embed_bwd(x, dout, widths=WIDTHS, values=None) -> torch.Tensor:
@@ -189,8 +216,9 @@ def onehot_embed_bwd(x, dout, widths=WIDTHS, values=None) -> torch.Tensor:
     (R, S, H) bf16 -> (cells, sum(widths), H) float32, on the card.
 
     CPU tensors take :func:`onehot_embed_bwd_plain`. CUDA tensors launch
-    the two-pass scatter-add of ``csrc/embed_bwd.cu`` (deterministic: the
-    same inputs give the same bits)."""
+    the two passes of ``csrc/embed_bwd.cu``: per (row tile, sample chunk)
+    the one-hot product on the tensor cores, then the chunks' sum in order
+    (deterministic: the same inputs give the same bits)."""
     if x.device.type == "cpu":
         return onehot_embed_bwd_plain(x, dout, widths, values)
     if x.device.type != "cuda" or dout.device != x.device:
@@ -205,16 +233,20 @@ def onehot_embed_bwd(x, dout, widths=WIDTHS, values=None) -> torch.Tensor:
             f"onehot_embed_bwd: wants codes (R, 3*cells, S) and contiguous "
             f"bf16 dout (R, S, H) with even H <= 2048; got codes "
             f"{tuple(x.shape)}, dout {dout.dtype} {tuple(dout.shape)}")
-    cb, chunk, n_chunks = _bwd_plan(R, S, cells, cw, H)
+    if cw > 250:
+        raise ValueError(f"onehot_embed_bwd: {cw} table rows per cell; the "
+                         f"kernel takes at most 250")
+    plan = bwd_plan(R, S, cells, cw, H)
     lut = _slot_table_on(tuple(widths), values, x.device)
-    partial = torch.empty((n_chunks, cells, cw, H), dtype=torch.float32,
+    partial = torch.empty((plan.n_chunks, cells, cw, H), dtype=torch.float32,
                           device=x.device)
     dw = torch.empty((cells, cw, H), dtype=torch.float32, device=x.device)
     fn = _build.function("embed_bwd", "onehot_embed_bwd", _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), dout.data_ptr(), lut.data_ptr(),
-            partial.data_ptr(), dw.data_ptr(), R, F, S, cells, cw, H, cb,
-            chunk, n_chunks, x.device.index, stream)
+            partial.data_ptr(), dw.data_ptr(), R, F, S, cells, widths[0],
+            widths[1], cw, H, plan.bn, plan.span, plan.chunk, plan.n_chunks,
+            x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"onehot_embed_bwd: kernel launch failed "
                            f"(cudaError {rc})")

@@ -25,13 +25,32 @@ import numpy as np
 import torch
 
 from . import _build
-from .embed import N_STATE_CODES, WIDTHS, _bwd_plan, _check_codes, slot_table
+from .embed import N_STATE_CODES, WIDTHS, _check_codes, slot_table
 
 _FWD_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 9 + (
     ctypes.c_void_p,)
 _BWD_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 9
                  + (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p))
+#: K5b plan: bytes of float32 partial table per block, blocks to aim for
+#: (two per SM of an H100), samples staged per step (csrc/embed2.cu kTile)
+_BWD_TABLE_BYTES = 64 * 1024
+_BWD_BLOCKS = 2 * 132
+_BWD_TILE = 32
+
+
+def _bwd_plan(R: int, S: int, cells: int, cw: int, H: int):
+    """K5b's launch plan, a function of the shapes only (so a run repeats
+    itself bit for bit on any card): ``(cb, chunk, n_chunks)`` = view cells
+    per block, samples per chunk, chunks."""
+    M = R * S
+    cb = max(1, min(cells, 1024 // (H // 2), _BWD_TABLE_BYTES // (cw * H * 4)))
+    groups = -(-cells // cb)
+    cb = -(-cells // groups)                       # balance the groups
+    n_chunks = max(1, min(-(-_BWD_BLOCKS // groups), -(-M // _BWD_TILE)))
+    chunk = -(-max(M, 1) // n_chunks)
+    chunk = -(-chunk // _BWD_TILE) * _BWD_TILE
+    return cb, chunk, -(-max(M, 1) // chunk)
 
 
 def plane_slot_table(widths=WIDTHS, values=None) -> np.ndarray:

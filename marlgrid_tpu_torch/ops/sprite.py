@@ -7,10 +7,13 @@ overlay row, prestige level), become uint8 pixels, each
 ``alpha(agent) ? trunc_u8(agent_rgb * PRESTIGE_DIM[level]) : base_rgb``,
 in the standard image layout or the space-to-depth (s2d) one. On a CUDA
 tensor the wrapper launches the hand-written kernel in ``csrc/sprite.cu``,
-a table lookup into the full sprite tables (no palette, no matmul); on a
-CPU tensor it takes the plain version. There is no fallback: a CUDA call
-the kernel cannot serve raises, and an id out of range stops the kernel
-(the next synchronisation raises).
+a lookup into the full sprite tables (no palette, no matmul) that copies
+granules of 16, 8 or 1 bytes: the tables are re-laid once in the image's
+byte order for the layout (:func:`kernel_tables`), and each granule of an
+image is mapped to its view cell and its offset in a re-laid row
+(:func:`granule_map`). On a CPU tensor it takes the plain version. There
+is no fallback: a CUDA call the kernel cannot serve raises, and an id out
+of range stops the kernel (the next synchronisation raises).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from ..core import constants as C
 from ..device import const
 from . import _build
 
-_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5
+_ARGTYPES = ((ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 6
              + (ctypes.c_longlong,) * 2 + (ctypes.c_int, ctypes.c_void_p))
 
 
@@ -45,6 +48,85 @@ def tables(tile_size: int, device) -> tuple:
     never write to them."""
     return tuple(torch.from_numpy(t.copy()).to(device)
                  for t in _tables_np(tile_size))
+
+
+def granule(tile_size: int, s2d: bool) -> int:
+    """Bytes of the kernel's granule, a run of image bytes that shows one
+    view cell's re-laid row in order: 16 in s2d (a 48-byte block lies in
+    one tile), 8 in the standard layout when a tile row is a multiple of 8
+    bytes (T % 8 == 0), else 1 (the byte path)."""
+    if s2d:
+        return 16
+    return 8 if tile_size % 8 == 0 else 1
+
+
+def _row_offsets(T: int, s2d: bool) -> np.ndarray:
+    """(T, T, 3): where byte (ty, tx, c) of a sprite goes in a re-laid table
+    row, the order in which the image stores the tile's bytes: pixel-major
+    (each tile row's T*3 bytes together) for the standard layout; for s2d
+    each 4 x 4 block's 48 bytes together, as channel (ty%4)*12 + (tx%4)*3 +
+    c of block (ty//4, tx//4)."""
+    ty, tx, c = np.meshgrid(np.arange(T), np.arange(T), np.arange(3),
+                            indexing="ij")
+    if not s2d:
+        return (ty * T + tx) * 3 + c
+    return (((ty // 4) * (T // 4) + tx // 4) * 48 + (ty % 4) * 12
+            + (tx % 4) * 3 + c)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_tables(tile_size: int, s2d: bool, device) -> tuple:
+    """The kernel's tables, each row re-laid by :func:`_row_offsets`:
+    ``(base (N_BASE_APPEAR + 1, T*T*3), over (N_PRESTIGE_LEVELS,
+    N_AGENT_APPEAR, T*T*3), mask (N_AGENT_APPEAR, T*T*3))`` uint8 on
+    ``device``. ``over[l, a]`` is agent row a's rgb times PRESTIGE_DIM[l]
+    truncated to uint8, the plain version's own float32 product; ``mask``
+    is 255 where the agent row's alpha is nonzero (row 0, no agent, is all
+    zero). Cached and shared: never write to them."""
+    T = tile_size
+    if s2d and T % 4:
+        raise ValueError(f"the s2d layout needs T % 4 == 0, got {T}")
+    blut, alut = tables(T, device)
+    dim = const(C.PRESTIGE_DIM, torch.float32, device)
+    over = (alut[None, ..., :3].float()
+            * dim[:, None, None, None, None]).to(torch.uint8)
+    mask = (alut[..., 3:] > 0).expand(alut.shape[:3] + (3,)).to(
+        torch.uint8) * 255
+    src = np.empty(T * T * 3, np.int64)      # re-laid offset -> (ty, tx, c)
+    src[_row_offsets(T, s2d).reshape(-1)] = np.arange(T * T * 3)
+    src = torch.as_tensor(src, device=device)
+    return tuple(t.reshape(t.shape[:-3] + (-1,))[..., src].contiguous()
+                 for t in (blut, over, mask))
+
+
+@functools.lru_cache(maxsize=None)
+def granule_map(view_size: int, tile_size: int, s2d: bool, device):
+    """(G, map): :func:`granule` G and, per granule of an image (G bytes
+    from byte i*G), an int32 holding the view cell it shows (vi*vs + vj,
+    the ids' cell order) in its low 16 bits and its byte offset in a
+    re-laid table row in its high 16, on ``device``. Raises if a granule
+    would straddle two cells or a row's order, or sit unaligned."""
+    vs, T = view_size, tile_size
+    side, G = vs * T, granule(T, s2d)
+    if T * T * 3 >= 2 ** 16 or vs * vs > 2 ** 16:
+        raise ValueError(f"compose_image_b: view {vs}, tile {T} too large "
+                         f"for the kernel's 16-bit granule map")
+    o = np.arange(side * side * 3)
+    if s2d:
+        blk, ch = np.divmod(o, 48)
+        br, bq = np.divmod(blk, side // 4)
+        r, q, c = br * 4 + ch // 12, bq * 4 + ch % 12 // 3, ch % 3
+    else:
+        p, c = np.divmod(o, 3)
+        r, q = np.divmod(p, side)
+    cell = ((q // T) * vs + r // T).reshape(-1, G)
+    off = _row_offsets(T, s2d)[r % T, q % T, c].reshape(-1, G)
+    if not ((cell == cell[:, :1]).all() and (off[:, 0] % G == 0).all()
+            and (off == off[:, :1] + np.arange(G)).all()):
+        raise RuntimeError(f"compose_image_b: {G}-byte granules do not "
+                           f"follow the re-laid rows at T={T}, s2d={s2d}")
+    gmap = (cell[:, 0] | off[:, 0] << 16).astype(np.int32)
+    return G, torch.as_tensor(gmap, device=device)
 
 
 def _image_shape(vs: int, T: int, s2d: bool):
@@ -123,8 +205,8 @@ def compose_image_b(params, base_id, agent_id, alvl, nb_layout=False,
                              f"got {t.dtype} contiguous={t.is_contiguous()}")
     if N * vs * vs * B >= 2 ** 31:
         raise ValueError(f"compose_image_b: {N * B} views too many")
-    blut, alut = tables(T, base_id.device)
-    dims = const(C.PRESTIGE_DIM, torch.float32, base_id.device)
+    base_t, over, mask = kernel_tables(T, s2d, base_id.device)
+    G, gmap = granule_map(vs, T, s2d, base_id.device)
     lead = (N, B) if nb_layout else (B, N)
     out = torch.empty(lead + _image_shape(vs, T, s2d), dtype=torch.uint8,
                       device=base_id.device)
@@ -132,9 +214,9 @@ def compose_image_b(params, base_id, agent_id, alvl, nb_layout=False,
     fn = _build.function("sprite", "compose_image_b", _ARGTYPES)
     stream = torch.cuda.current_stream(base_id.device).cuda_stream
     rc = fn(base_id.data_ptr(), agent_id.data_ptr(), alvl.data_ptr(),
-            blut.data_ptr(), alut.data_ptr(), dims.data_ptr(), out.data_ptr(),
-            N, B, vs, T, int(s2d), stride_n, stride_b, base_id.device.index,
-            stream)
+            base_t.data_ptr(), over.data_ptr(), mask.data_ptr(),
+            gmap.data_ptr(), out.data_ptr(), N, B, vs, T, int(s2d), G,
+            stride_n, stride_b, base_id.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"compose_image_b: kernel launch failed "
                            f"(cudaError {rc})")

@@ -45,6 +45,10 @@ from ..utils.metrics import MetricsLogger
 from ..vector import obs_groups
 from . import ppo, ppo_hetero, ppo_hetero_mixed, ppo_hetero_rnn, ppo_rnn
 
+#: the scenarios whose palettes the tests sweep; a custom scenario's palette
+#: is checked when training starts (core/obs.py::validate_encode_palette)
+BUILTIN_SCENARIOS = ("empty", "cluttered", "doorkey", "goal_cycle")
+
 #: (is it asked for, flag, the ROADMAP slice that brings it) for each flag
 #: with no path in the port yet
 LATER = (
@@ -227,6 +231,11 @@ def build(args):
         # hetero groups keep the full vocabularies, as the JAX CLI does
         pals = obs_mod.encode_palettes(ep)
         if pals is not None:
+            if ep.scenario not in BUILTIN_SCENARIOS:
+                # a custom palette must cover every code the obs show, or
+                # the embed would zero the missing ones silently
+                obs_mod.validate_encode_palette(
+                    ep, device=resolve(args.device))
             cfg = dataclasses.replace(cfg, embed_palettes=pals)
     return ep, cfg
 

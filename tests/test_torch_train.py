@@ -10,6 +10,7 @@ import json
 import pytest
 import torch
 
+from marlgrid_tpu.core import constants as C
 from marlgrid_tpu.core import obs as jobs
 from marlgrid_tpu.core.state import EnvParams as JEnvParams
 from marlgrid_tpu.core.state import default_agent_colors
@@ -181,3 +182,57 @@ def test_agent_config_rejects(flag, match):
     --rnn with mixed styles, --overlap and a BPTT window."""
     with pytest.raises(SystemExit, match=match):
         train.main(HETERO + flag)
+
+
+CUSTOM = ["--device", "cpu", "--scenario", "my_cluttered", "--grid-size",
+          "9", "--agents", "2", "--envs", "8", "--rollout", "4", "--iters",
+          "1", "--minibatches", "2", "--hidden", "16"]
+
+
+@pytest.fixture
+def my_cluttered():
+    """Registers ``my_cluttered`` (the cluttered builder under another name,
+    so the palette check runs) in both packages with the palette the test
+    passes, and removes it from both afterwards."""
+    from marlgrid_tpu.core import grid_gen as jgg
+    from marlgrid_tpu_torch.core import grid_gen as tgg
+
+    def register(palette):
+        for gg in (jgg, tgg):
+            gg.register_scenario("my_cluttered", gg.SCENARIOS["cluttered"],
+                                 lambda p: p.n_clutter + 1, palette=palette)
+        return "my_cluttered"
+
+    yield register
+    for gg in (jgg, tgg):
+        for table in (gg.SCENARIOS, gg._N_EVENTS, gg.SCENARIO_PALETTES):
+            table.pop("my_cluttered", None)
+
+
+def test_custom_palette_missing_codes_refused(my_cluttered):
+    """A custom scenario whose palette misses the goal: the port's CLI
+    refuses to train with the JAX check's ValueError, word for word (type
+    code 7 missing at random-walk step 0, from the same keys and boards)."""
+    my_cluttered(())
+    jep = JEnvParams(width=9, height=9, n_agents=2, scenario="my_cluttered",
+                     agent_colors=default_agent_colors(2))
+    with pytest.raises(ValueError) as jax_err:
+        jobs.validate_encode_palette(jep)
+    with pytest.raises(ValueError) as port_err:
+        train.main(CUSTOM)
+    assert "misses type codes [7] (observed at random-walk step 0" in str(
+        port_err.value)
+    assert str(port_err.value) == str(jax_err.value)
+
+
+def test_custom_palette_complete_accepted(my_cluttered):
+    """The same scenario with a palette that holds the goal: the port's
+    check sweeps every step without error, and the CLI trains with it."""
+    from marlgrid_tpu_torch.core import obs as tobs
+    from marlgrid_tpu_torch.core.state import EnvParams
+
+    my_cluttered(((C.GOAL, 3, 0),))
+    ep = EnvParams(width=9, height=9, n_agents=2, scenario="my_cluttered",
+                   agent_colors=default_agent_colors(2))
+    assert tobs.validate_encode_palette(ep, device="cpu") is None
+    train.main(CUSTOM)
