@@ -10,7 +10,9 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    in parallel) and print the build seconds and ptxas' report;
 2. K1 (transpose_bk) against its plain version, bit-exact;
 3. K2f (onehot_embed forward) against its plain version computed in
-   float32 and rounded to bf16, within 1 bf16 ulp; K2b (its weight
+   float32 and rounded to bf16, within 1 bf16 ulp, at the rollout's and
+   the update's shapes with both vocabularies and at odd shapes (R = 3,
+   S = 100 and 4097, H = 24 and 136), two launches bit-equal; K2b (its weight
    gradient) against its plain version at the update's shape, both fed the
    same bf16 dout, within 1e-3 of max |dW|, deterministic, and reached
    through the embed's autograd Function; K3 (compose_image_b, the sprite
@@ -18,9 +20,10 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    views (goal_cycle at the rollout's shape, cluttered, doorkey with hidden
    keys and a view offset; prestige over all 8 levels) in the standard,
    (N, B) and s2d layouts, and on random ids in its other variants;
-   K5f (onehot_embed2, the plane-major embed, float32 out) against its
-   plain version at the rollout's and the update's shapes within 1e-5 of
-   max |out|, and K5b (its three tables' gradients) at the update's shape
+   K5f (onehot_embed2, the plane-major embed, float32 out; K2f's
+   tensor-core kernel over three tables) against its plain version at the
+   same shapes as K2f within 1e-5 of max |out|, two launches bit-equal,
+   and K5b (its three tables' gradients) at the update's shape
    within 1e-3 of max |dW_p|, deterministic, through its autograd Function;
    the four embed kernels and K6 also at a hetero 5x5 view group's rollout
    and update shapes (25 cells, the full vocabulary);
@@ -72,9 +75,13 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    25 clutter, B = 32768, T = 16 random actions, board pool 256), with
    encode and with image observations;
 11. the kernels' times with CUDA events at the rollout's and the update's
-   shapes (K3 also at the image env-only shape), beside their bound, their
-   plain version's and one PyTorch call's time (K2b also beside torch.mm
-   of its one-hot matrix by dout, the tensor-core yardstick); then the K6
+   shapes (K3 also at the image env-only shape; K2f and K5f also at a
+   hetero 5x5 group's update shape with the full vocabulary, on the hetero
+   phases' own inputs), beside their bound (for the one-hot products the
+   least over the routes: bytes, float32 adds, the dense bf16 product),
+   their plain version's and one PyTorch call's time (K2f, K5f, K2b and
+   K5b also beside torch.mm of their one-hot matrix, the tensor-core
+   yardstick); then the K6
    probe (the embed-roofline split of K2f into 'full', 'build' and 'gemm')
    against its plain versions and timed beside K2f.
 
@@ -260,31 +267,55 @@ HETERO_ROLLOUT = (2, 25, 4096)
 HETERO_UPDATE = (1024, 25, 128)
 
 
+#: the forward embeds' odd shapes, (R, cells, S, H, vocabulary): S not a
+#: multiple of the kernel's 128-sample tile (100) or of 16 (4097), H not a
+#: multiple of its 16-unit groups (24: one 32-unit group, half of it
+#: padding; 136: the last group of 8 units, or of 8 of 32 at the full
+#: vocabulary), R = 3
+ODD_FWD = ((3, 49, 100, 24, "full"),
+           (3, 49, 4097, 136, "goal_cycle palette"),
+           (3, 25, 100, 136, "goal_cycle palette"),
+           (3, 25, 4097, 24, "full"))
+
+
+def _fwd_cases(palettes):
+    """(R, cells, S, H, name, palettes) of the forward embeds' checks: the
+    rollout's shape (R = 4, S = 4096) and the update's (R = 2048 rows of
+    S = 128) with the full vocabularies and the goal_cycle palette, a
+    hetero 5x5 group's rollout and update shapes, and ``ODD_FWD``."""
+    pal = {"full": None, "goal_cycle palette": palettes}
+    return ([(R, 49, S, 128, name, pal[name])
+             for R, S in ((4, 4096), (2048, 128)) for name in pal]
+            + [(*HETERO_ROLLOUT, 128, "full", None),
+               (*HETERO_UPDATE, 128, "full", None)]
+            + [(R, cells, S, H, name, pal[name])
+               for R, cells, S, H, name in ODD_FWD])
+
+
 def phase_embed(palettes):
-    """K2f at the rollout's shape (R = 4, S = 4096) with the full
-    vocabularies and the goal_cycle palette, and at a hetero 5x5 group's
-    rollout and update shapes, against its plain version in float32 rounded
-    to bf16, within 1 bf16 ulp."""
+    """K2f at every shape of :func:`_fwd_cases`, against its plain version
+    in float32 rounded to bf16, within 1 bf16 ulp; two calls give the same
+    bits."""
     from marlgrid_tpu_torch.ops import embed as E
 
     gen = torch.Generator().manual_seed(1)
-    H = 128
     worst = 0.0
-    for R, cells, S, name, pal in (
-            (4, 49, 4096, "full", None),
-            (4, 49, 4096, "goal_cycle palette", palettes),
-            (*HETERO_ROLLOUT, "full", None), (*HETERO_UPDATE, "full", None)):
+    for R, cells, S, H, name, pal in _fwd_cases(palettes):
         widths, values = E.vocab(pal)
         x = _codes(R, cells, S, gen)
         w = (torch.randn(cells, sum(widths), H, generator=gen) * 0.05).to(
             torch.bfloat16).cuda()
+        what = f"{name} (R={R}, F={3 * cells}, S={S}, H={H})"
         with torch.no_grad():
             out = E.onehot_embed(x, w, widths, values)
+            again = E.onehot_embed(x, w, widths, values)
         sync()
         ref = E.onehot_embed_plain(x, w.float(), widths, values,
                                    torch.float32).to(torch.bfloat16)
-        worst = max(worst, _hold_k2f(out, ref, f"{name} (R={R}, "
-                                             f"F={3 * cells}, S={S}, H={H})"))
+        worst = max(worst, _hold_k2f(out, ref, what))
+        if not torch.equal(out, again):
+            raise AssertionError(f"K2f {what} differs between two launches")
+        print(f"[K2f] {what}: two launches bit-equal")
     return worst
 
 
@@ -373,32 +404,28 @@ def _tables2(cells, widths, H, gen):
 
 
 def phase_embed2(palettes):
-    """K5f against its plain version on the card (:func:`_hold_k5f`) at the
-    rollout's shape (R = 4, S = 4096) and the update's (R = 2048 rows of
-    S = 128), with the full vocabularies and the goal_cycle palette, and at
-    a hetero 5x5 group's rollout and update shapes, on codes with state
-    codes above 19 and codes outside each vocabulary."""
+    """K5f against its plain version on the card (:func:`_hold_k5f`) at
+    every shape of :func:`_fwd_cases`, on codes with state codes above 19
+    and codes outside each vocabulary; two calls give the same bits."""
     from marlgrid_tpu_torch.ops import embed as E
     from marlgrid_tpu_torch.ops import embed2 as E2
 
     gen = torch.Generator().manual_seed(3)
-    H = 128
     worst = 0.0
-    for R, cells, S, name, pal in (
-            (4, 49, 4096, "full", None),
-            (4, 49, 4096, "goal_cycle palette", palettes),
-            (2048, 49, 128, "full", None),
-            (2048, 49, 128, "goal_cycle palette", palettes),
-            (*HETERO_ROLLOUT, "full", None), (*HETERO_UPDATE, "full", None)):
+    for R, cells, S, H, name, pal in _fwd_cases(palettes):
         widths, values = E.vocab(pal)
         x = _codes(R, cells, S, gen)
         ws = _tables2(cells, widths, H, gen)
+        what = f"{name} (R={R}, F={3 * cells}, S={S}, H={H})"
         with torch.no_grad():
             out = E2.onehot_embed2(x, *ws, widths, values)
+            again = E2.onehot_embed2(x, *ws, widths, values)
         sync()
         worst = max(worst, _hold_k5f(
-            out, E2.onehot_embed2_plain(x, *ws, widths, values),
-            f"{name} (R={R}, F={3 * cells}, S={S}, H={H})"))
+            out, E2.onehot_embed2_plain(x, *ws, widths, values), what))
+        if not torch.equal(out, again):
+            raise AssertionError(f"K5f {what} differs between two launches")
+        print(f"[K5f] {what}: two launches bit-equal")
     return worst
 
 
@@ -1468,9 +1495,44 @@ def _bound(k):
     return k
 
 
+def _least_route(k, adds, mma):
+    """Set ``k``'s operations to the lesser of its two routes: ``adds``
+    float32 adds at 67 TFLOP/s, or a dense bf16 product of ``mma``
+    operations at 989 TFLOP/s (``adds_ms`` and ``mma_ms`` kept beside)."""
+    k.update(adds_ms=adds / F32_OPS_PER_S * 1e3,
+             mma_ms=mma / BF16_OPS_PER_S * 1e3)
+    if k["mma_ms"] < k["adds_ms"]:
+        k.update(ops=mma, ops_per_s=BF16_OPS_PER_S)
+    else:
+        k.update(ops=adds)
+    return k
+
+
+def _onehot_bf16(bag_idx, rows):
+    """The (samples, rows) one-hot count matrix of :func:`_bag_rows`'
+    indices, bf16 (entries 0 or 1, exact): indices past the table (no row)
+    drop out."""
+    onehot = torch.zeros(bag_idx.shape[0], rows + 1, dtype=torch.bfloat16,
+                         device="cuda")
+    onehot.scatter_add_(1, bag_idx, torch.ones_like(
+        bag_idx, dtype=torch.bfloat16))
+    return onehot[:, :-1].contiguous()
+
+
+def _vocab_name(values):
+    return "full vocabulary" if values is None else "palette"
+
+
 def time_k2f(codes, table, widths, values, where, card):
-    """K2f beside its bound, its plain version and embedding_bag(sum) over
-    each sample's F row indices (the one-call yardstick)."""
+    """K2f held against its plain version (:func:`_hold_k2f`) and timed
+    beside its bound, its plain version and two one-call yardsticks:
+    embedding_bag(sum) over each sample's F row indices, and the
+    tensor-core route, ``torch.mm`` of the one-hot matrix (built before the
+    timing, bf16) by the bf16 table (``library_mm_ms``). The bound is the
+    least time over the routes: its bytes (codes, table, bf16 output) at
+    the memory rate, or else the lesser of its float32 adds (one per
+    in-vocabulary code per hidden unit) and the dense bf16 product
+    (2 * samples * cells * cw * H)."""
     import torch.nn.functional as F
 
     from marlgrid_tpu_torch.ops import embed as E
@@ -1478,9 +1540,15 @@ def time_k2f(codes, table, widths, values, where, card):
     R, Fd, S = codes.shape
     cells, cw, H = table.shape
     n_valid, bag_idx = _bag_rows(codes, widths, values, cells, cw)
+    k = _least_route(
+        dict(bytes=codes.numel() + table.numel() * 2 + R * S * H * 2),
+        n_valid * H, 2 * R * S * cells * cw * H)
+    what = f"{where} (R={R}, F={Fd}, S={S}, H={H}, {_vocab_name(values)})"
     with torch.no_grad():
-        k = dict(bytes=codes.numel() + table.numel() * 2 + R * S * H * 2,
-                 ops=n_valid * H)
+        kern = E.onehot_embed(codes, table, widths, values)
+        k["max_abs_err"] = _hold_k2f(kern, E.onehot_embed_plain(
+            codes, table.float(), widths, values, torch.float32).to(
+                torch.bfloat16), what)
         k["ms"], k["host_ms"] = time_ms(
             lambda: E.onehot_embed(codes, table, widths, values))
         k["plain_ms"], _ = time_ms(lambda: E.onehot_embed_plain(
@@ -1492,16 +1560,26 @@ def time_k2f(codes, table, widths, values, where, card):
         k["library_ms"], _ = time_ms(
             lambda: F.embedding_bag(bag_idx, bag_w, mode="sum"))
         bag = F.embedding_bag(bag_idx, bag_w, mode="sum").reshape(R, S, H)
-        kern = E.onehot_embed(codes, table, widths, values)
         gap = float((bag.float() - kern.float()).abs().max())
+        del bag, bag_w
+        onehot = _onehot_bf16(bag_idx, cells * cw)
+        w2 = table.reshape(cells * cw, H)
+        k["library_mm_ms"], _ = time_ms(lambda: torch.mm(onehot, w2),
+                                        iters=20)
+        mm_gap = float((torch.mm(onehot, w2).float().reshape(R, S, H)
+                        - kern.float()).abs().max())
+        del onehot
     _bound(k)
-    print(f"[time] K2f at the {where} (R={R}, F={Fd}, S={S}, H={H}, "
-          f"palette, {n_valid} of {codes.numel()} codes in the vocabulary):"
-          f" {k['ms'] * 1e3:.2f} us (host {k['host_ms'] * 1e3:.2f} us per "
-          f"call), plain {k['plain_ms'] * 1e3:.2f} us, embedding_bag "
-          f"{k['library_ms'] * 1e3:.2f} us (max abs diff to K2f "
-          f"{gap:.3e}), bound {k['bound_ms'] * 1e3:.2f} us "
-          f"({k['bound_by']}) [{card}]")
+    print(f"[time] K2f at the {what}, {n_valid} of {codes.numel()} codes "
+          f"in the vocabulary: {k['ms'] * 1e3:.2f} us (host "
+          f"{k['host_ms'] * 1e3:.2f} us per call), plain "
+          f"{k['plain_ms'] * 1e3:.2f} us, embedding_bag "
+          f"{k['library_ms'] * 1e3:.2f} us (max abs diff to K2f {gap:.3e}), "
+          f"torch.mm of the one-hot by the table "
+          f"{k['library_mm_ms'] * 1e3:.2f} us (max abs diff {mm_gap:.3e}), "
+          f"bound {k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}; float32 "
+          f"adds {k['adds_ms'] * 1e3:.2f} us, bf16 product "
+          f"{k['mma_ms'] * 1e3:.2f} us) [{card}]")
     return k
 
 
@@ -1526,14 +1604,9 @@ def time_k2b(codes, table, widths, values, card, seed):
     dout = (torch.randn(R, S, H, generator=gen) * 1e-3).to(
         torch.bfloat16).cuda()
     n_valid, bag_idx = _bag_rows(codes, widths, values, cells, cw)
-    adds, mma = n_valid * H, 2 * R * S * cells * cw * H
-    k = dict(bytes=codes.numel() + dout.numel() * 2 + cells * cw * H * 4,
-             adds_ms=adds / F32_OPS_PER_S * 1e3,
-             mma_ms=mma / BF16_OPS_PER_S * 1e3)
-    if k["mma_ms"] < k["adds_ms"]:
-        k.update(ops=mma, ops_per_s=BF16_OPS_PER_S)
-    else:
-        k.update(ops=adds)
+    k = _least_route(
+        dict(bytes=codes.numel() + dout.numel() * 2 + cells * cw * H * 4),
+        n_valid * H, 2 * R * S * cells * cw * H)
     k["ms"], k["host_ms"] = time_ms(
         lambda: E.onehot_embed_bwd(codes, dout, widths, values))
     k["plain_ms"], _ = time_ms(lambda: E.onehot_embed_bwd_plain(
@@ -1553,13 +1626,7 @@ def time_k2b(codes, table, widths, values, card, seed):
     kern = E.onehot_embed_bwd(codes, dout, widths, values)
     gap = float((g[:-1].float().reshape(cells, cw, H) - kern).abs().max())
     del g, bag_w
-    # the one-hot count matrix (R*S, cells*cw), bf16 (entries 0 or 1,
-    # exact): row indices past the table (no row) drop out
-    onehot = torch.zeros(R * S, cells * cw + 1, dtype=torch.bfloat16,
-                         device="cuda")
-    onehot.scatter_add_(1, bag_idx, torch.ones_like(
-        bag_idx, dtype=torch.bfloat16))
-    onehot = onehot[:, :-1].contiguous()
+    onehot = _onehot_bf16(bag_idx, cells * cw)
     k["library_mm_ms"], _ = time_ms(lambda: torch.mm(onehot.t(), d_flat),
                                     iters=20)
     mm_gap = float((torch.mm(onehot.t(), d_flat).float().reshape(
@@ -1582,10 +1649,14 @@ def time_k2b(codes, table, widths, values, card, seed):
 
 
 def time_k5f(codes, ws, widths, values, where, card):
-    """K5f beside its bound (codes in, bf16 tables in, float32 out; one add
-    per in-vocabulary code per hidden unit), its plain version and
+    """K5f held against its plain version (:func:`_hold_k5f`) and timed
+    beside its bound, its plain version and two one-call yardsticks:
     embedding_bag(sum) over each sample's F row indices into the float32
-    tables (the one-call yardstick)."""
+    tables, and ``torch.mm`` of the one-hot matrix (built before the
+    timing, bf16) by the packed bf16 tables (``library_mm_ms``; its output
+    is bf16, K5f's float32). The bound is the least time over the routes:
+    its bytes (codes, bf16 tables, float32 output) at the memory rate, or
+    else the lesser of its float32 adds and the dense bf16 product."""
     import torch.nn.functional as F
 
     from marlgrid_tpu_torch.ops import embed as E
@@ -1595,40 +1666,51 @@ def time_k5f(codes, ws, widths, values, where, card):
     cells, H = Fd // 3, ws[0].shape[-1]
     cw = sum(widths)
     n_valid, bag_idx = _bag_rows(codes, widths, values, cells, cw)
+    k = _least_route(
+        dict(bytes=codes.numel() + cells * cw * H * 2 + R * S * H * 4),
+        n_valid * H, 2 * R * S * cells * cw * H)
+    what = f"{where} (R={R}, F={Fd}, S={S}, H={H}, {_vocab_name(values)})"
     with torch.no_grad():
-        k = dict(bytes=codes.numel() + cells * cw * H * 2 + R * S * H * 4,
-                 ops=n_valid * H)
+        kern = E2.onehot_embed2(codes, *ws, widths, values)
+        k["max_abs_err"] = _hold_k5f(kern, E2.onehot_embed2_plain(
+            codes, *ws, widths, values), what)
         k["ms"], k["host_ms"] = time_ms(
             lambda: E2.onehot_embed2(codes, *ws, widths, values))
         k["plain_ms"], _ = time_ms(lambda: E2.onehot_embed2_plain(
             codes, *ws, widths, values), iters=5, warmup=1)
-        bag_w = torch.cat([E.pack_weights(*ws).float().reshape(cells * cw, H),
-                           torch.zeros(1, H, device="cuda")])
+        packed = E.pack_weights(*ws).reshape(cells * cw, H)
+        bag_w = torch.cat([packed.float(), torch.zeros(1, H, device="cuda")])
         k["library_ms"], _ = time_ms(
             lambda: F.embedding_bag(bag_idx, bag_w, mode="sum"))
         bag = F.embedding_bag(bag_idx, bag_w, mode="sum").reshape(R, S, H)
-        kern = E2.onehot_embed2(codes, *ws, widths, values)
-        ref = E2.onehot_embed2_plain(codes, *ws, widths, values)
-        k["max_abs_err"] = float((kern - ref).abs().max())
         gap = float((bag - kern).abs().max())
-        if not k["max_abs_err"] <= 1e-5 * float(ref.abs().max()):
-            raise AssertionError(f"K5f at the {where}: max abs err "
-                                 f"{k['max_abs_err']}")
+        del bag, bag_w
+        onehot = _onehot_bf16(bag_idx, cells * cw)
+        w2 = packed.to(torch.bfloat16).contiguous()
+        k["library_mm_ms"], _ = time_ms(lambda: torch.mm(onehot, w2),
+                                        iters=20)
+        del onehot
     _bound(k)
-    print(f"[time] K5f at the {where} (R={R}, F={Fd}, S={S}, H={H}, "
-          f"palette, {n_valid} of {codes.numel()} codes in the vocabulary):"
-          f" {k['ms'] * 1e3:.2f} us (host {k['host_ms'] * 1e3:.2f} us per "
-          f"call), plain {k['plain_ms'] * 1e3:.2f} us, embedding_bag "
+    print(f"[time] K5f at the {what}, {n_valid} of {codes.numel()} codes "
+          f"in the vocabulary: {k['ms'] * 1e3:.2f} us (host "
+          f"{k['host_ms'] * 1e3:.2f} us per call), plain "
+          f"{k['plain_ms'] * 1e3:.2f} us, embedding_bag "
           f"{k['library_ms'] * 1e3:.2f} us (float32 tables; max abs diff to "
-          f"K5f {gap:.3e}), bound {k['bound_ms'] * 1e3:.2f} us "
-          f"({k['bound_by']}) [{card}]")
+          f"K5f {gap:.3e}), torch.mm of the one-hot by the bf16 tables "
+          f"{k['library_mm_ms'] * 1e3:.2f} us (bf16 out), bound "
+          f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}; float32 adds "
+          f"{k['adds_ms'] * 1e3:.2f} us, bf16 product "
+          f"{k['mma_ms'] * 1e3:.2f} us) [{card}]")
     return k
 
 
 def time_k5b(codes, ws, widths, values, card, seed):
     """K5b at the update's shape beside its bound, its plain version and
-    the backward of embedding_bag(sum) over the same row indices into the
-    float32 tables (forward + backward minus forward), with a bf16 dout."""
+    two one-call yardsticks: the backward of embedding_bag(sum) over the
+    same row indices into the float32 tables (forward + backward minus
+    forward), and ``torch.mm`` of the one-hot matrix (built before the
+    timing, bf16, transposed) by dout (``library_mm_ms``), with a bf16
+    dout."""
     import torch.nn.functional as F
 
     from marlgrid_tpu_torch.ops import embed as E
@@ -1657,6 +1739,12 @@ def time_k5b(codes, ws, widths, values, card, seed):
         F.embedding_bag(bag_idx, bag_w, mode="sum"), bag_w, d_flat),
         iters=10)
     k["library_ms"] = both_ms - fwd_ms
+    del bag_w
+    onehot = _onehot_bf16(bag_idx, cells * cw)
+    d_bf16 = dout.reshape(R * S, H)
+    k["library_mm_ms"], _ = time_ms(lambda: torch.mm(onehot.t(), d_bf16),
+                                    iters=20)
+    del onehot
     kern = E2.onehot_embed2_bwd(codes, dout, widths, values)
     refs = E2.onehot_embed2_bwd_plain(codes, dout, widths, values)
     k["max_abs_err"] = max(float((a - b).abs().max())
@@ -1672,7 +1760,9 @@ def time_k5b(codes, ws, widths, values, card, seed):
           f"call), plain {k['plain_ms'] * 1e3:.2f} us, embedding_bag "
           f"backward {k['library_ms'] * 1e3:.2f} us (forward+backward "
           f"{both_ms * 1e3:.2f} us minus forward {fwd_ms * 1e3:.2f} us), "
-          f"bound {k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}) [{card}]")
+          f"torch.mm of the one-hot (transposed) by dout "
+          f"{k['library_mm_ms'] * 1e3:.2f} us, bound "
+          f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}) [{card}]")
     return k
 
 
@@ -1703,6 +1793,24 @@ def phase_timings_k5(roll, rnn, card, seed):
         onehot_embed2_fwd_update=time_k5f(codes, ws, widths, values,
                                           "recurrent update's shape", card),
         onehot_embed2_bwd=time_k5b(codes, ws, widths, values, card, seed))
+
+
+def phase_timings_5x5(hetero, card):
+    """K2f and K5f at a hetero 5x5 view group's update shape (R = 1024
+    blocks of S = 128, 25 cells, the full vocabulary: hetero runs have no
+    palettes), on the codes and tables of the first update minibatch of
+    the hetero and the hetero recurrent train phases."""
+    from marlgrid_tpu_torch.ops import embed as E
+
+    x, tables, widths, values = hetero["hetero"]["embed_5x5"]
+    out = dict(onehot_embed_fwd_5x5=time_k2f(
+        x, E.pack_weights(*tables).to(torch.bfloat16).contiguous(), widths,
+        values, "hetero 5x5 group's update shape", card))
+    x, tables, widths, values = hetero["hetero-rnn"]["embed_5x5"]
+    out["onehot_embed2_fwd_5x5"] = time_k5f(
+        x, [t.contiguous() for t in tables], widths, values,
+        "hetero 5x5 group's update shape", card)
+    return out
 
 
 def time_k3(ep, ids, layout, where, card, plain_iters=3):
@@ -2169,6 +2277,10 @@ def phase_hetero(seed, card, name, steps=4):
     if all(torch.equal(p, q) for p, q in zip(net.parameters(), w0)):
         raise AssertionError(f"the {name} train steps changed no weight")
     errs = hold_embeds(net, captured, name)
+    # the 5x5 group's update inputs, for the forward's timing phase
+    embed_5x5 = next(((*got["update"][:2], net[g].torso0.widths,
+                       net[g].torso0.values) for g, got in captured.items()
+                      if got["update"][0].shape[1] == 3 * 25), None)
     del captured
     steady = sorted(secs[1:])[len(secs[1:]) // 2]
     print(f"[{name}] launches per train step: {got} (want {want})")
@@ -2178,7 +2290,7 @@ def phase_hetero(seed, card, name, steps=4):
           f"peak device memory {peak_gb:.2f} GB [{card}]")
     return dict(counts=got, seconds=secs, metrics=metrics, peak_gb=peak_gb,
                 env_steps_per_s=B * T / steady, step=step, env=env, h=h,
-                key=key, embed_errs=errs)
+                key=key, embed_errs=errs, embed_5x5=embed_5x5)
 
 
 def _to(tree, dev):
@@ -2325,6 +2437,7 @@ def main(argv=None):
     tim["compose_image_b"] = phase_timings_k3(image, env_img, card,
                                               args.seed)
     tim.update(phase_timings_k5(roll, rnn, card, args.seed))
+    tim.update(phase_timings_5x5(hetero, card))
     tim["embed_variant"] = phase_embed_roofline(roll, tim, pals, card,
                                                 args.seed)
     # K3's error: the sprite phase's and that of the three timed shapes;
@@ -2332,34 +2445,35 @@ def main(argv=None):
     errs["compose_image_b"] = float(max(
         [errs["compose_image_b"]]
         + [k["max_abs_err"] for k in tim["compose_image_b"].values()]))
-    errs["onehot_embed2_fwd"] = max(
-        errs["onehot_embed2_fwd"], tim["onehot_embed2_fwd"]["max_abs_err"],
-        tim["onehot_embed2_fwd_update"]["max_abs_err"])
+    for name in ("onehot_embed_fwd", "onehot_embed2_fwd"):
+        errs[name] = max([errs[name]] + [
+            tim[f"{name}{where}"]["max_abs_err"]
+            for where in ("", "_update", "_5x5")])
     errs["onehot_embed2_bwd"] = max(errs["onehot_embed2_bwd"],
                                     tim["onehot_embed2_bwd"]["max_abs_err"])
 
     # launches: per train step on the train path (K1, K2f, K2b), on the
     # image train path (K3, which runs K1 73 times a step too) and on the
-    # recurrent encode path with the plane-major embed (K5f, K5b); K3's and
-    # K5f's times are those at the update's shape, where most of their time
-    # goes (the other shapes' are in --json). K4 and K6 are probes that no
-    # train path launches ("launches" 0, "probe_launches" their phases'
-    # count); K6 has one entry per mode, at the update's shape, 'gemm' with
-    # its dense product's roofline beside its bound.
+    # recurrent encode path with the plane-major embed (K5f, K5b); K3's,
+    # K2f's and K5f's times are those at the update's shape, where most of
+    # their time goes (the other shapes' are in --json). K4 and K6 are
+    # probes that no train path launches ("launches" 0, "probe_launches"
+    # their phases' count); K6 has one entry per mode, at the update's
+    # shape, 'gemm' with its dense product's roofline beside its bound.
     tim["transpose_traj"] = tim_k4
     kernels = []
     for name, src, line, path in (
             ("transpose_bk", "transpose.cu", "transpose.py:41", train),
-            ("onehot_embed_fwd", "embed.cu", "embed.py:245", train),
+            ("onehot_embed_fwd", "embed_fwd.cu", "embed.py:245", train),
             ("onehot_embed_bwd", "embed_bwd.cu", "embed.py:264", train),
             ("compose_image_b", "sprite.cu", "sprite.py:280", image),
-            ("onehot_embed2_fwd", "embed2.cu", "embed2.py:120", rnn),
+            ("onehot_embed2_fwd", "embed_fwd.cu", "embed2.py:120", rnn),
             ("onehot_embed2_bwd", "embed2.cu", "embed2.py:149", rnn)):
         k = tim[name]
         if name == "compose_image_b":
             k = k["update"]
-        elif name == "onehot_embed2_fwd":
-            k = tim["onehot_embed2_fwd_update"]
+        elif name in ("onehot_embed_fwd", "onehot_embed2_fwd"):
+            k = tim[f"{name}_update"]
         kernels.append(dict(
             name=name, route="cuda", source=f"marlgrid_tpu_torch/csrc/{src}",
             replaces=f"marlgrid_tpu/ops/{line}",

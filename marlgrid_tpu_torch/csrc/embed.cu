@@ -1,38 +1,15 @@
-// onehot_embed forward: the encode-obs torso's first layer, on Hopper
-// (sm_90a).
+// The embed-roofline probe, kernel K6, on Hopper (sm_90a): the PR 1
+// gather-sum design of onehot_embed's forward, kept as the probe of that
+// design. K2f itself moved to the tensor cores in csrc/embed_fwd.cu.
 //
-// Replaces the forward TPU kernel marlgrid_tpu/ops/embed.py::onehot_embed
-// (_fwd / _kernel(bwd=False)). It computes, for every row r and sample s,
-//   out[r, s, :] = sum over features f = p*cells + j of W[j, slot_p(code)]
-// where code = codes[r, f, s], slot_p maps plane p's code to its row in the
-// cell's (cw, H) table or to "no row" (out-of-vocabulary), and the sum is
-// taken in float32 and rounded once to bf16 (round to nearest even).
-//
-// Bound on an H100 SXM, at the rollout's shapes (R = 4 agents, F = 147,
-// S = 4096 samples, H = 128): bytes are codes in (2.4 MB), the table in
-// (at most 49 * 42 * 128 * 2 = 527 KB) and the bf16 output (4.2 MB), about
-// 2 us at 3.35 TB/s; the float32 adds, one per in-vocabulary code per
-// hidden unit (at most 308 M), take about 4.6 us at 67 TFLOP/s. So the
-// function is bound by its adds, then by its bytes.
-//
-// Design: the TPU kernel builds one-hot tiles because its matrix unit wants
-// a matmul; mathematically the one-hot product is a gather-sum, and that is
-// what this kernel does. One block per (row r, tile of TS samples). The
-// block reads the tile's codes once, as bytes, maps each through a
-// per-plane code -> slot table (3 x 256, in shared memory; the full
-// vocabulary clips state codes to 19 and gives type/color codes past their
-// width no row, a compact palette gives out-of-vocabulary codes no row),
-// and keeps the W row index of every (feature, sample) in shared memory.
-// Threads run over pairs of hidden units (bf16x2 loads: a warp reads 128
-// contiguous bytes of one table row) and over SPT samples each, summing in
-// float32 registers. The table is small enough to stay in L2 and, one
-// cell at a time, in L1. No one-hot operand exists anywhere.
-
-//
-// The same source holds the embed-roofline probe's three variants (kernel
-// K6, replacing the TPU probe scripts/embed_roofline.py::_fwd_variant), a
-// `Mode` template parameter on the one kernel, each with a float32 store:
-//   kFull  - K2f's function, out[r, s, :] = sum of the selected W rows;
+// Replaces the TPU probe scripts/embed_roofline.py::_fwd_variant. With codes
+// (R, F, S) uint8, F = 3 * cells, a packed (cells, cw, H) bf16 table and a
+// per-plane code -> slot table (3 x 256; the full vocabulary clips state
+// codes to 19 and gives type/color codes past their width no row, a
+// compact palette gives out-of-vocabulary codes no row), a `Mode` template
+// parameter picks the function, each with a float32 store:
+//   kFull  - K2f's function, out[r, s, :] = sum over features f = p*cells
+//            + j of W[j, slot_p(codes[r, f, s])], summed in float32;
 //   kBuild - the index half alone: the code loads and the slot lookup, no
 //            table read; out[r, s, h] = the number of (cell, plane) pairs
 //            whose code selects a row (the row-sum of the one-hot);
@@ -42,6 +19,21 @@
 //            out[r, s, h] = float(codes[r, 0, s]) * sum_k W[k, h].
 // kGemm walks all cells * cw rows per sample on purpose: a precomputed
 // column sum would compute the same values and measure nothing.
+//
+// Bound on an H100 SXM, at the rollout's shapes (R = 4 agents, F = 147,
+// S = 4096 samples, H = 128): bytes are codes in (2.4 MB), the table in
+// (at most 49 * 42 * 128 * 2 = 527 KB) and the float32 output (8.4 MB);
+// kFull's float32 adds, one per in-vocabulary code per hidden unit (at
+// most 308 M), take about 4.6 us at 67 TFLOP/s.
+//
+// Design (PR 1's gather-sum): one block per (row r, tile of TS samples).
+// The block reads the tile's codes once, as bytes, maps each through the
+// slot table (in shared memory) and keeps the W row index of every
+// (feature, sample) in shared memory. Threads run over pairs of hidden
+// units (bf16x2 loads: a warp reads 128 contiguous bytes of one table row)
+// and over SPT samples each, summing in float32 registers. The table is
+// left to L2 and L1: every sample reads its selected rows anew, which is
+// what the probe measures against the redesigned K2f.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -56,18 +48,12 @@ constexpr int kMaxSmem = 227 * 1024;
 
 enum Mode { kFull = 0, kBuild = 1, kGemm = 2 };
 
-__device__ __forceinline__ void store2(__nv_bfloat162* p, float2 v) {
-  *p = __floats2bfloat162_rn(v.x, v.y);   // one rounding, to nearest even
-}
-
-__device__ __forceinline__ void store2(float2* p, float2 v) { *p = v; }
-
-template <int kMode, typename Out2>
-__global__ void onehot_embed_fwd_kernel(
+template <int kMode>
+__global__ void embed_variant_kernel(
     const uint8_t* __restrict__ codes,        // (R, F, S)
     const __nv_bfloat162* __restrict__ w,     // (cells * cw, H / 2)
     const int16_t* __restrict__ lut,          // (3, 256)
-    Out2* __restrict__ out,                   // (R, S, H / 2)
+    float2* __restrict__ out,                 // (R, S, H / 2)
     int F, int S, int cells, int cw, int H2) {
   // (F, TS) W row or -1; kGemm keeps the TS first codes here as floats
   extern __shared__ int32_t rows[];
@@ -143,11 +129,11 @@ __global__ void onehot_embed_fwd_kernel(
 #pragma unroll
   for (int k = 0; k < kSpt; ++k) {
     const int s = s0 + threadIdx.y + k * blockDim.y;
-    if (s < S) store2(&out[(static_cast<size_t>(r) * S + s) * H2 + h2], acc[k]);
+    if (s < S) out[(static_cast<size_t>(r) * S + s) * H2 + h2] = acc[k];
   }
 }
 
-template <int kMode, typename Out2>
+template <int kMode>
 int launch(const void* codes, const void* w, const void* lut, void* out,
            int R, int F, int S, int cells, int cw, int H, int device,
            void* stream) {
@@ -169,52 +155,43 @@ int launch(const void* codes, const void* w, const void* lut, void* out,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (smem > kStaticSmem) {
-    cudaFuncSetAttribute(onehot_embed_fwd_kernel<kMode, Out2>,
+    cudaFuncSetAttribute(embed_variant_kernel<kMode>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
   }
   const int ts = by * kSpt;
   const dim3 block(h2, by);
   const dim3 grid((S + ts - 1) / ts, R);
-  onehot_embed_fwd_kernel<kMode, Out2><<<grid, block, smem,
-                                         static_cast<cudaStream_t>(stream)>>>(
+  embed_variant_kernel<kMode><<<grid, block, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(codes),
       static_cast<const __nv_bfloat162*>(w),
-      static_cast<const int16_t*>(lut), static_cast<Out2*>(out), F, S, cells,
+      static_cast<const int16_t*>(lut), static_cast<float2*>(out), F, S, cells,
       cw, h2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K2f. codes (R, F, S) uint8, w (cells * cw, H) bf16, lut (3, 256) int16
-// slot or -1, out (R, S, H) bf16; all contiguous on `device`, H even,
-// F == 3 * cells. Launches on `stream`; returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a shape the kernel does not take.
-extern "C" int onehot_embed_fwd(const void* codes, const void* w,
-                                const void* lut, void* out, int R, int F,
-                                int S, int cells, int cw, int H, int device,
-                                void* stream) {
-  return launch<kFull, __nv_bfloat162>(codes, w, lut, out, R, F, S, cells,
-                                       cw, H, device, stream);
-}
-
-// K6, the probe: the same arguments with a float32 out (R, S, H) and `mode`
-// 0 (full), 1 (build) or 2 (gemm); cudaErrorInvalidValue for another mode.
+// K6. codes (R, F, S) uint8, w (cells * cw, H) bf16, lut (3, 256) int16
+// slot or -1, out (R, S, H) float32; all contiguous on `device`, H even,
+// F == 3 * cells; `mode` 0 (full), 1 (build) or 2 (gemm). Launches on
+// `stream`; returns cudaGetLastError(), or cudaErrorInvalidValue for a
+// shape or mode the kernel does not take.
 extern "C" int embed_variant_fwd(const void* codes, const void* w,
                                  const void* lut, void* out, int R, int F,
                                  int S, int cells, int cw, int H, int mode,
                                  int device, void* stream) {
   switch (mode) {
     case kFull:
-      return launch<kFull, float2>(codes, w, lut, out, R, F, S, cells, cw, H,
-                                   device, stream);
+      return launch<kFull>(codes, w, lut, out, R, F, S, cells, cw, H, device,
+                           stream);
     case kBuild:
-      return launch<kBuild, float2>(codes, w, lut, out, R, F, S, cells, cw,
-                                    H, device, stream);
+      return launch<kBuild>(codes, w, lut, out, R, F, S, cells, cw, H,
+                            device, stream);
     case kGemm:
-      return launch<kGemm, float2>(codes, w, lut, out, R, F, S, cells, cw, H,
-                                   device, stream);
+      return launch<kGemm>(codes, w, lut, out, R, F, S, cells, cw, H, device,
+                           stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,11 +5,11 @@ Counterpart of ``marlgrid_tpu/ops/embed.py``: the encode-obs torso's first
 layer, ``out[r, s, :] = sum over view cells of W_type[code] + W_color[code]
 + W_state[min(code, 19)]``, on feature-major codes ``(R, 3*cells, S)``, and
 its gradient with respect to the table. On CUDA tensors the wrappers launch
-the hand-written kernels: the gather-sum of ``csrc/embed.cu`` (float32 sums,
-one rounding to bf16, as the TPU kernel) and the one-hot product of
-``csrc/embed_bwd.cu`` on the tensor cores (bf16 ``dout``, float32 sums). On
-CPU tensors they take the plain dense one-hot formulation. There is no
-fallback between them.
+the hand-written kernels, both the one-hot product on the tensor cores:
+``csrc/embed_fwd.cu`` with the table staged in shared memory (float32 sums,
+one rounding to bf16, as the TPU kernel) and ``csrc/embed_bwd.cu`` (bf16
+``dout``, float32 sums). On CPU tensors they take the plain dense one-hot
+formulation. There is no fallback between them.
 
 :func:`onehot_embed` is differentiable in the table: when the table needs a
 gradient it runs through an autograd Function whose backward is K2b on the
@@ -29,7 +29,8 @@ from . import _build
 
 N_STATE_CODES = 20                      # door states + bonus phases
 WIDTHS = (C.N_TYPES + 1, C.N_COLORS + 1, N_STATE_CODES)
-_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + (ctypes.c_void_p,)
+_FWD_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 9
+                 + (ctypes.c_void_p,))
 _BWD_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 10
                  + (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p))
@@ -40,6 +41,13 @@ _BWD_BLOCKS = 2 * 132
 _BWD_STEP = 128
 _BWD_WARP_ROWS = 32
 _BWD_WARPS = 8
+#: K2f/K5f plan (csrc/embed_fwd.cu): SMs of an H100, a constant so the plan
+#: never depends on the card; samples per tile (kTile); the shared memory a
+#: block may use, and the slot table's static share of it
+_FWD_SMS = 132
+_FWD_TILE = 128
+_FWD_SMEM = 227 * 1024
+_FWD_LUT_BYTES = 3 * 256 * 2
 
 
 def vocab(palettes=None):
@@ -144,6 +152,100 @@ def _check_codes(name, x, F_want=None):
                          f"contiguous={x.is_contiguous()}")
 
 
+def row_bases(cells: int, widths=WIDTHS, plane_major=False) -> np.ndarray:
+    """(3*cells,) int32: the forward kernel's row base of each feature f =
+    p*cells + j, so that its code selects table row ``rbase[f] +
+    lut[p, code]``.
+
+    Packed (K2f: one (cells, cw, H) table, ``lut`` = :func:`slot_table`,
+    which holds the plane offsets): ``j * cw``. Plane-major (K5f: the three
+    (cells, n_p, H) tables back to back, ``lut`` = the slot within plane
+    p): ``cells * (n_0 + .. + n_{p-1}) + j * n_p``."""
+    j = np.arange(cells)
+    if not plane_major:
+        return np.tile(j * sum(widths), 3).astype(np.int32)
+    off = np.cumsum((0,) + tuple(widths[:-1]))
+    return np.concatenate([cells * o + j * n
+                           for o, n in zip(off, widths)]).astype(np.int32)
+
+
+def fwd_walk(cells: int, widths=WIDTHS, plane_major=False) -> np.ndarray:
+    """The forward kernel's walk over the features, int32: first (feature,
+    its :func:`row_bases` entry) for the 3*cells features in the order of
+    the table rows they select (packed: cell by cell, the three planes of a
+    cell in turn; plane-major: the features in order), then, for each
+    32-row mask word of the table, the range [i0, i1) of those features
+    whose rows can fall in it."""
+    rbase = row_bases(cells, widths, plane_major)
+    order = np.lexsort((np.arange(rbase.size), rbase))
+    plane = order // cells
+    off = np.cumsum((0,) + tuple(widths[:-1]))
+    lo = rbase[order] + (0 if plane_major else off[plane])
+    hi = lo + np.asarray(widths)[plane]
+    words = 32 * np.arange(-(-(cells * sum(widths)) // 32))
+    ranges = np.stack([np.searchsorted(hi, words, "right"),
+                       np.searchsorted(lo, words + 32, "left")], 1)
+    return np.concatenate([np.stack([order, rbase[order]], 1).ravel(),
+                           ranges.ravel()]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_walk_on(cells, widths, plane_major, device) -> torch.Tensor:
+    return torch.as_tensor(fwd_walk(cells, widths, plane_major),
+                           device=device)
+
+
+class FwdPlan(NamedTuple):
+    """K2f's and K5f's launch plan (see :func:`fwd_plan`)."""
+    bn: int        # hidden units per block (16, 32, 64 or 128)
+    n_groups: int  # groups of bn units over H
+    k_steps: int   # 16-row steps over the table's rows, an even number
+    tiles: int     # tiles of _FWD_TILE samples over R * S
+    blocks: int    # blocks per group
+    smem: int      # dynamic shared memory per block, bytes
+
+
+def fwd_smem(F: int, k_steps: int, bn: int) -> int:
+    """A forward block's dynamic shared memory: the table's slice (16 *
+    k_steps rows of bn bf16 units), two buffers of row masks (a 32-bit word
+    per pair of k-steps per sample of a tile), the codes of a tile and 16
+    bytes per feature (row base, plane, index)."""
+    return (k_steps * 16 * 2 * bn + 2 * (k_steps // 2) * _FWD_TILE * 4
+            + F * (_FWD_TILE + 16))
+
+
+def fwd_plan(R: int, S: int, F: int, rows: int, H: int) -> FwdPlan:
+    """The forward kernel's launch plan, a function of the shapes only.
+
+    Each block stages all ``rows`` table rows (padded to a multiple of 32)
+    of a group of ``bn`` hidden units in shared memory and walks tiles of
+    ``_FWD_TILE`` samples: block b takes group b % n_groups and tiles
+    b // n_groups, + blocks, + 2 * blocks, ... bn is the least of 16, 32,
+    64 that holds H, else 128, halved until the slice fits an SM. Per group
+    there are as many blocks as tiles, at most ``_FWD_SMS // n_groups`` (and
+    at least one). Every output element is summed by one thread in a fixed
+    order, so the plan does not change the bits either."""
+    k_steps = 2 * -(-rows // 32)
+    bn = next((b for b in (16, 32, 64) if H <= b), 128)
+    while bn > 16 and fwd_smem(F, k_steps, bn) + _FWD_LUT_BYTES > _FWD_SMEM:
+        bn //= 2
+    smem = fwd_smem(F, k_steps, bn)
+    if smem + _FWD_LUT_BYTES > _FWD_SMEM:
+        raise ValueError(f"onehot_embed: a table of {rows} rows does not fit "
+                         f"in shared memory even 16 hidden units at a time")
+    n_groups = -(-H // bn)
+    tiles = -(-(R * S) // _FWD_TILE)
+    blocks = max(1, min(tiles, _FWD_SMS // n_groups))
+    return FwdPlan(bn, n_groups, k_steps, tiles, blocks, smem)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, copied if its data does not start on 16 bytes (the
+    forward kernel's table copies)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _forward(x, w, widths, values, dtype) -> torch.Tensor:
     """The forward on x's device: the plain version on the CPU, K2f on the
     card."""
@@ -155,18 +257,21 @@ def _forward(x, w, widths, values, dtype) -> torch.Tensor:
     cells, cw, H = w.shape
     _check_codes("onehot_embed", x, 3 * cells)
     R, F, S = x.shape
-    if cw != sum(widths) or H % 2 or H > 2048 or R > 65535:
+    if cw != sum(widths) or H % 2 or not 0 < H <= 2048 or R > 65535:
         raise ValueError(
             f"onehot_embed: wants R <= 65535 and a (cells, {sum(widths)}, H) "
             f"table with even H <= 2048; got codes {tuple(x.shape)}, table "
             f"{tuple(w.shape)}")
-    w = w.to(torch.bfloat16).contiguous()
+    plan = fwd_plan(R, S, F, cells * cw, H)
+    w = _aligned(w.to(torch.bfloat16))
     lut = _slot_table_on(tuple(widths), values, x.device)
+    walk = _fwd_walk_on(cells, tuple(widths), False, x.device)
     out = torch.empty((R, S, H), dtype=torch.bfloat16, device=x.device)
-    fn = _build.function("embed", "onehot_embed_fwd", _ARGTYPES)
+    fn = _build.function("embed_fwd", "onehot_embed_fwd", _FWD_ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), w.data_ptr(), lut.data_ptr(), out.data_ptr(),
-            R, F, S, cells, cw, H, x.device.index, stream)
+    rc = fn(x.data_ptr(), w.data_ptr(), lut.data_ptr(), walk.data_ptr(),
+            out.data_ptr(), R, F, S, cells, cw, H, plan.bn, plan.blocks,
+            x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"onehot_embed: kernel launch failed "
                            f"(cudaError {rc})")
@@ -285,10 +390,12 @@ def onehot_embed(x, w, widths=WIDTHS, values=None,
     sum(widths), H) -> (R, S, H).
 
     CPU tensors: the plain version, in ``dtype``. CUDA tensors: the K2f
-    kernel, which takes uint8 codes, reads the table as bf16 and returns
-    bf16 (float32 sums, one rounding), like the TPU kernel. Differentiable
-    in ``w``: with grad enabled and a table that needs a gradient, the call
-    goes through an autograd Function whose backward is K2b on the card.
+    kernel (``csrc/embed_fwd.cu``: the one-hot product on the tensor cores,
+    deterministic), which takes uint8 codes, reads the table as bf16 and
+    returns bf16 (float32 sums, one rounding), like the TPU kernel.
+    Differentiable in ``w``: with grad enabled and a table that needs a
+    gradient, the call goes through an autograd Function whose backward is
+    K2b on the card.
     """
     if torch.is_grad_enabled() and w.requires_grad:
         return _OneHotEmbedFn.apply(x, w, tuple(widths), values, dtype)

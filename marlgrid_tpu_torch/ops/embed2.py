@@ -7,9 +7,11 @@ Counterpart of ``marlgrid_tpu/ops/embed2.py``: the same function as
 H)`` instead of one packed table, with a float32 output that is not rounded
 to bf16. The tables are read as bf16 whatever their dtype, and the backward
 reads ``dout`` as bf16, as the TPU kernels do. On CUDA tensors the wrappers
-launch the hand-written kernels of ``csrc/embed2.cu`` (a gather-sum and a
-deterministic two-pass scatter-add); on CPU tensors they take the plain
-dense one-hot formulation. There is no fallback between them.
+launch the hand-written kernels: the forward is K2f's one-hot product on the
+tensor cores (``csrc/embed_fwd.cu``, the three tables staged back to back
+in shared memory, float32 out), the backward a deterministic two-pass
+scatter-add (``csrc/embed2.cu``); on CPU tensors they take the plain dense
+one-hot formulation. There is no fallback between them.
 
 :func:`onehot_embed2` is differentiable in the three tables through an
 autograd Function whose backward is K5b on the card and the plain backward
@@ -25,10 +27,11 @@ import numpy as np
 import torch
 
 from . import _build
-from .embed import N_STATE_CODES, WIDTHS, _check_codes, slot_table
+from .embed import (N_STATE_CODES, WIDTHS, _aligned, _check_codes,
+                    _fwd_walk_on, fwd_plan, slot_table)
 
-_FWD_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 9 + (
-    ctypes.c_void_p,)
+_FWD_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 11
+                 + (ctypes.c_void_p,))
 _BWD_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 9
                  + (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p))
@@ -133,14 +136,16 @@ def _forward(x, ws, widths, values) -> torch.Tensor:
     if F % 3 or R > 65535:
         raise ValueError(f"onehot_embed2: wants codes (R <= 65535, 3*cells, "
                          f"S); got {tuple(x.shape)}")
-    w0, w1, w2 = (w.to(torch.bfloat16).contiguous() for w in ws)
+    plan = fwd_plan(R, S, F, cells * sum(widths), H)
+    w0, w1, w2 = (_aligned(w.to(torch.bfloat16)) for w in ws)
     lut = _plane_slot_table_on(tuple(widths), values, x.device)
+    walk = _fwd_walk_on(cells, tuple(widths), True, x.device)
     out = torch.empty((R, S, H), dtype=torch.float32, device=x.device)
-    fn = _build.function("embed2", "onehot_embed2_fwd", _FWD_ARGTYPES)
+    fn = _build.function("embed_fwd", "onehot_embed2_fwd", _FWD_ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), w0.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-            lut.data_ptr(), out.data_ptr(), R, F, S, cells, *widths, H,
-            x.device.index, stream)
+            lut.data_ptr(), walk.data_ptr(), out.data_ptr(), R, F, S, cells,
+            *widths, H, plan.bn, plan.blocks, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"onehot_embed2: kernel launch failed "
                            f"(cudaError {rc})")
@@ -214,8 +219,10 @@ def onehot_embed2(x, w0, w1, w2, widths=WIDTHS, values=None) -> torch.Tensor:
     """Plane-major fused one-hot embed: codes (R, 3*cells, S) uint8 x three
     tables (cells, n_p, H) -> (R, S, H) float32.
 
-    CPU tensors: the plain version. CUDA tensors: the K5f kernel, which
-    reads the tables as bf16 and sums in float32. Differentiable in the
+    CPU tensors: the plain version. CUDA tensors: the K5f kernel
+    (``csrc/embed_fwd.cu``, K2f's one-hot product on the tensor cores over
+    the three tables, deterministic), which reads the tables as bf16 and
+    sums in float32. Differentiable in the
     tables: with grad enabled and a table that needs a gradient, the call
     goes through an autograd Function whose backward is K5b on the card.
     """

@@ -14,9 +14,11 @@ table layout: codes (R, 3*cells, S) uint8, table (cells, sum(widths), H)
   cells and slots of ``W[cell, slot, h]`` (a dense product against a
   broadcast of the first code row).
 
-On CUDA tensors :func:`fwd_variant` launches the ``Mode`` variants of the
-K2f kernel in ``csrc/embed.cu``; on CPU tensors it takes
-:func:`fwd_variant_plain`. The port's model never calls either.
+On CUDA tensors :func:`fwd_variant` launches the ``Mode`` variants of
+``csrc/embed.cu``, K2f's first design (a gather-sum: every sample reads its
+selected table rows from L2; K2f itself now runs on the tensor cores in
+``csrc/embed_fwd.cu``); on CPU tensors it takes :func:`fwd_variant_plain`.
+The port's model never calls either.
 """
 from __future__ import annotations
 
