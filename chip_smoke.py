@@ -23,10 +23,11 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    K5f (onehot_embed2, the plane-major embed, float32 out; K2f's
    tensor-core kernel over three tables) against its plain version at the
    same shapes as K2f within 1e-5 of max |out|, two launches bit-equal,
-   and K5b (its three tables' gradients) at the update's shape
-   within 1e-3 of max |dW_p|, deterministic, through its autograd Function;
-   the four embed kernels and K6 also at a hetero 5x5 view group's rollout
-   and update shapes (25 cells, the full vocabulary);
+   and K5b (its three tables' gradients; K2b's tensor-core kernel with a
+   reduce into the three tables) at the update's shape and at K2b's odd
+   shapes within 1e-3 of max |dW_p|, deterministic, through its autograd
+   Function; the four embed kernels and K6 also at a hetero 5x5 view
+   group's rollout and update shapes (25 cells, the full vocabulary);
 4. the env engine and the observations (encode and image) on the card
    against the same code on the CPU (which the tests hold bit-equal to the
    JAX package), the mlp and cnn_s2d policies' logits on the card against
@@ -70,20 +71,23 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    its plain version on the first step's own codes, tables and output
    gradients; then the ``--agent-config`` CLI with a resume;
 9. torch.profiler over a short rollout, one train step, one image train
-   step, one recurrent train step and one hetero train step, by stage;
+   step, one recurrent train step and one step of each all-encode hetero
+   path (feedforward and recurrent), by stage;
 10. the env-only phase at bench.py's config (cluttered 15x15, 3 agents,
    25 clutter, B = 32768, T = 16 random actions, board pool 256), with
    encode and with image observations;
 11. the kernels' times with CUDA events at the rollout's and the update's
-   shapes (K3 also at the image env-only shape; K2f and K5f also at a
-   hetero 5x5 group's update shape with the full vocabulary, on the hetero
-   phases' own inputs), beside their bound (for the one-hot products the
-   least over the routes: bytes, float32 adds, the dense bf16 product),
-   their plain version's and one PyTorch call's time (K2f, K5f, K2b and
-   K5b also beside torch.mm of their one-hot matrix, the tensor-core
-   yardstick); then the K6
-   probe (the embed-roofline split of K2f into 'full', 'build' and 'gemm')
-   against its plain versions and timed beside K2f.
+   shapes (K3 also at the image env-only shape; K2f, K5f and K5b also at
+   a hetero 5x5 group's update shape with the full vocabulary, on the
+   hetero phases' own inputs), beside their bound (for the one-hot
+   products the least over the routes: bytes, float32 adds, the dense
+   bf16 product), their plain version's and one PyTorch call's time (K2f,
+   K5f, K2b and K5b also beside torch.mm of their one-hot matrix, the
+   tensor-core yardstick); then the K6 probe (K2f's tensor-core kernel
+   whole, 'full', or one half alone: the builder warps, 'build', or the
+   mma warps, 'gemm') against its plain versions and timed beside K2f,
+   with the palette and the full vocabulary: the split of K2f's time
+   between its two halves.
 
 The last lines of standard output are the card's name and power limit, a
 ``{"kernels": [...]}`` JSON line and ``{"ok": true, "device": {...}}``.
@@ -447,21 +451,23 @@ def _hold_k5f(out, ref, what):
 
 
 def phase_embed2_bwd(palettes):
-    """K5b at the update's shape (R = 2048, S = 128), with the full
-    vocabularies and the goal_cycle palette, and at a hetero 5x5 group's
-    (``HETERO_UPDATE``), against its plain version on the card
-    (:func:`_hold_k5b`); the embed2 autograd Function returns K5b's
-    gradients."""
+    """K5b at the update's shape (R = 2048, S = 128, H = 128), with the
+    full vocabularies and the goal_cycle palette, and at a hetero 5x5
+    group's (``HETERO_UPDATE``), against its plain version on the card
+    (:func:`_hold_k5b`); then at K2b's two odd shapes (its kernel's other
+    paths, :func:`phase_embed_bwd`). The embed2 autograd Function returns
+    K5b's gradients."""
     from marlgrid_tpu_torch.ops import embed as E
     from marlgrid_tpu_torch.ops import embed2 as E2
 
     gen = torch.Generator().manual_seed(4)
-    H = 128
     worst = 0.0
-    for R, cells, S, name, pal in (
-            (2048, 49, 128, "full", None),
-            (2048, 49, 128, "goal_cycle palette", palettes),
-            (*HETERO_UPDATE, "full", None)):
+    for R, cells, S, H, name, pal in (
+            (2048, 49, 128, 128, "full", None),
+            (2048, 49, 128, 128, "goal_cycle palette", palettes),
+            (*HETERO_UPDATE, 128, "full", None),
+            (48, 49, 100, 20, "full", None),
+            (64, 25, 48, 200, "goal_cycle palette", palettes)):
         widths, values = E.vocab(pal)
         x = _codes(R, cells, S, gen)
         dout = torch.randn(R, S, H, generator=gen).to(torch.bfloat16).cuda()
@@ -1373,7 +1379,9 @@ def phase_profile(roll, train, image, rnn, hetero, card, T=8):
     """torch.profiler over a T-step rollout of the rollout path's config,
     over one train step of the train path, one of the image train path, one
     of the recurrent encode train path (``update.cell`` is its update's
-    cell loop) and one of the all-encode hetero train path."""
+    cell loop) and one each of the all-encode hetero train paths,
+    feedforward and recurrent (``hetero``: :func:`phase_hetero`'s results
+    by path name)."""
     import dataclasses
 
     from marlgrid_tpu_torch.parallel import ppo
@@ -1398,12 +1406,19 @@ def phase_profile(roll, train, image, rnn, hetero, card, T=8):
                         ("rollout.", "update."), card,
                         "one recurrent train step (B=4096, T=64, GRU, "
                         "plane-major embed)")
-    he = profile_stages(lambda: hetero["step"](hetero["env"], hetero["key"]),
+    het, hrn = hetero["hetero"], hetero["hetero-rnn"]
+    he = profile_stages(lambda: het["step"](het["env"], het["key"]),
                         ("rollout.", "update."), card,
                         "one hetero train step (B=4096, T=64, views "
                         "7/5/7/5)")
+    hr = profile_stages(lambda: hrn["step"](hrn["env"], hrn["h"],
+                                            hrn["key"]),
+                        ("rollout.", "update."), card,
+                        "one hetero recurrent train step (B=4096, T=64, "
+                        "views 7/5/7/5, GRU, plane-major embed)")
     return dict(rollout=out, train_step=tr, image_train_step=im,
-                rnn_train_step=rn, hetero_train_step=he)
+                rnn_train_step=rn, hetero_train_step=he,
+                hetero_rnn_train_step=hr)
 
 
 def phase_env_only(seed, card, style="encode"):
@@ -1704,13 +1719,14 @@ def time_k5f(codes, ws, widths, values, where, card):
     return k
 
 
-def time_k5b(codes, ws, widths, values, card, seed):
-    """K5b at the update's shape beside its bound, its plain version and
-    two one-call yardsticks: the backward of embedding_bag(sum) over the
-    same row indices into the float32 tables (forward + backward minus
-    forward), and ``torch.mm`` of the one-hot matrix (built before the
-    timing, bf16, transposed) by dout (``library_mm_ms``), with a bf16
-    dout."""
+def time_k5b(codes, ws, widths, values, where, card, seed):
+    """K5b held against its plain version and timed beside its bound, its
+    plain version and two one-call yardsticks: the backward of
+    embedding_bag(sum) over the same row indices into the float32 tables
+    (forward + backward minus forward), and ``torch.mm`` of the one-hot
+    matrix (built before the timing, bf16, transposed) by dout
+    (``library_mm_ms``), with a bf16 dout. The bound is K2b's: the least
+    time over the routes (bytes, float32 adds, the dense bf16 product)."""
     import torch.nn.functional as F
 
     from marlgrid_tpu_torch.ops import embed as E
@@ -1723,8 +1739,10 @@ def time_k5b(codes, ws, widths, values, card, seed):
     dout = (torch.randn(R, S, H, generator=gen) * 1e-3).to(
         torch.bfloat16).cuda()
     n_valid, bag_idx = _bag_rows(codes, widths, values, cells, cw)
-    k = dict(bytes=codes.numel() + dout.numel() * 2 + cells * cw * H * 4,
-             ops=n_valid * H)
+    k = _least_route(
+        dict(bytes=codes.numel() + dout.numel() * 2 + cells * cw * H * 4),
+        n_valid * H, 2 * R * S * cells * cw * H)
+    what = f"{where} (R={R}, F={Fd}, S={S}, H={H}, {_vocab_name(values)})"
     k["ms"], k["host_ms"] = time_ms(
         lambda: E2.onehot_embed2_bwd(codes, dout, widths, values))
     k["plain_ms"], _ = time_ms(lambda: E2.onehot_embed2_bwd_plain(
@@ -1751,18 +1769,19 @@ def time_k5b(codes, ws, widths, values, card, seed):
                            for a, b in zip(kern, refs))
     if not all(float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
                for a, b in zip(kern, refs)):
-        raise AssertionError(f"K5b at the update's shape: max abs err "
+        raise AssertionError(f"K5b at the {what}: max abs err "
                              f"{k['max_abs_err']}")
     _bound(k)
-    print(f"[time] K5b at the update's shape (R={R}, F={Fd}, S={S}, H={H}, "
-          f"palette, {n_valid} codes in the vocabulary): "
+    print(f"[time] K5b at the {what}, {n_valid} codes in the vocabulary: "
           f"{k['ms'] * 1e3:.2f} us (host {k['host_ms'] * 1e3:.2f} us per "
           f"call), plain {k['plain_ms'] * 1e3:.2f} us, embedding_bag "
           f"backward {k['library_ms'] * 1e3:.2f} us (forward+backward "
           f"{both_ms * 1e3:.2f} us minus forward {fwd_ms * 1e3:.2f} us), "
           f"torch.mm of the one-hot (transposed) by dout "
           f"{k['library_mm_ms'] * 1e3:.2f} us, bound "
-          f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}) [{card}]")
+          f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}; float32 adds "
+          f"{k['adds_ms'] * 1e3:.2f} us, bf16 product "
+          f"{k['mma_ms'] * 1e3:.2f} us) [{card}]")
     return k
 
 
@@ -1792,14 +1811,16 @@ def phase_timings_k5(roll, rnn, card, seed):
                                    "rollout's shape", card),
         onehot_embed2_fwd_update=time_k5f(codes, ws, widths, values,
                                           "recurrent update's shape", card),
-        onehot_embed2_bwd=time_k5b(codes, ws, widths, values, card, seed))
+        onehot_embed2_bwd=time_k5b(codes, ws, widths, values,
+                                   "recurrent update's shape", card, seed))
 
 
-def phase_timings_5x5(hetero, card):
-    """K2f and K5f at a hetero 5x5 view group's update shape (R = 1024
-    blocks of S = 128, 25 cells, the full vocabulary: hetero runs have no
-    palettes), on the codes and tables of the first update minibatch of
-    the hetero and the hetero recurrent train phases."""
+def phase_timings_5x5(hetero, card, seed):
+    """K2f, K5f and K5b at a hetero 5x5 view group's update shape (R =
+    1024 blocks of S = 128, 25 cells, the full vocabulary: hetero runs have
+    no palettes), on the codes and tables of the first update minibatch of
+    the hetero and the hetero recurrent train phases (K5b with a random
+    bf16 dout, as at the recurrent update's shape)."""
     from marlgrid_tpu_torch.ops import embed as E
 
     x, tables, widths, values = hetero["hetero"]["embed_5x5"]
@@ -1807,9 +1828,12 @@ def phase_timings_5x5(hetero, card):
         x, E.pack_weights(*tables).to(torch.bfloat16).contiguous(), widths,
         values, "hetero 5x5 group's update shape", card))
     x, tables, widths, values = hetero["hetero-rnn"]["embed_5x5"]
+    tables = [t.contiguous() for t in tables]
     out["onehot_embed2_fwd_5x5"] = time_k5f(
-        x, [t.contiguous() for t in tables], widths, values,
-        "hetero 5x5 group's update shape", card)
+        x, tables, widths, values, "hetero 5x5 group's update shape", card)
+    out["onehot_embed2_bwd_5x5"] = time_k5b(
+        x, tables, widths, values, "hetero 5x5 group's update shape", card,
+        seed)
     return out
 
 
@@ -1979,32 +2003,47 @@ def phase_transpose_traj(roll, card):
     return k
 
 
-def phase_embed_roofline(roll, tim, palettes, card, seed):
-    """K6 (the embed-roofline probe, ``probes/embed_roofline.py``), each
-    mode against its plain version on the card: at K2f's rollout shape
-    (R = 4, F = 147, S = 4096, H = 128) and update shape (R = 2048,
-    S = 128), with the full vocabularies and the goal_cycle palette, and
-    at a hetero 5x5 group's two shapes (25 cells, full vocabulary), on
-    codes across and beyond both vocabularies ('build' exact; 'full' and
-    'gemm' within 1e-5 of max |out|: float32 sums in another order). Then
-    each mode's device time at both shapes with the train path's codes and
-    table (palette), beside K2f's time of the same run, its bound, its plain
-    version's and, where one PyTorch call computes the same function, that
-    call's: ``embedding_bag(sum)`` for 'full'; for 'gemm' ``torch.mm`` of
-    the broadcast first code row (materialized beforehand) by the (cells *
-    cw, H) table, the TPU probe's dense product; none for 'build'.
+def _print_split(out, where, vocab, ms, card):
+    """Print and keep (``out['split <vocab> <where>']``) K6's split of
+    K2f's kernel: 'full' beside 'build' + 'gemm', device ms by mode."""
+    out[f"split {vocab} {where}"] = ms
+    print(f"[time] K6 split at the {where} ({vocab}): full "
+          f"{ms['full'] * 1e3:.2f} us; build {ms['build'] * 1e3:.2f} + gemm "
+          f"{ms['gemm'] * 1e3:.2f} = "
+          f"{(ms['build'] + ms['gemm']) * 1e3:.2f} us [{card}]")
 
-    Bounds, of the function each mode computes: 'full' as K2f's (one
-    float32 add per in-vocabulary code per hidden unit; codes, the bf16
-    table and the float32 output once); 'build' one add per (feature,
-    sample) and the codes and float32 output once; 'gemm' computes
-    x[r, 0, s] * colsum(W)[h]: the table's column sums and one multiply
-    per output at the float32 rate, and the first code row, the table and
-    the float32 output once. 'gemm' also reports ``gemm_bound_ms``, the
-    roofline of the dense product the kernel (and the TPU probe) does
-    instead: 2 * R * S * cells * cw * H operations at the bf16 tensor-core
-    rate (uint8 codes are exact in bf16, the products exact in float32),
-    or the same bytes if longer."""
+
+def phase_embed_roofline(roll, tim, palettes, card, seed):
+    """K6 (the embed-roofline probe, ``probes/embed_roofline.py``: K2f's
+    tensor-core kernel whole or one half alone), each mode against its
+    plain version on the card: at K2f's rollout shape (R = 4, F = 147, S =
+    4096, H = 128) and update shape (R = 2048, S = 128), with the full
+    vocabularies and the goal_cycle palette, and at a hetero 5x5 group's
+    two shapes (25 cells, full vocabulary), on codes across and beyond
+    both vocabularies ('build' exact; 'full' and 'gemm' within 1e-5 of max
+    |out|: float32 sums in another order). Then each mode's device time at
+    both shapes with the train path's codes and table (palette), beside
+    K2f's time of the same run, its bound, its plain version's and, where
+    one PyTorch call computes the same function, that call's:
+    ``embedding_bag(sum)`` for 'full'; for 'gemm' ``torch.mm`` of the
+    broadcast first code row (materialized beforehand) by the (cells * cw,
+    H) table, the TPU probe's dense product; none for 'build'. The same
+    codes with a full-vocabulary table (random, bf16) give the split of
+    the kernel's time with the full vocabulary ('full', 'build', 'gemm'
+    only).
+
+    Bounds, of the work each mode does: 'full' as K5f's (the least over
+    the routes: its bytes, codes, the bf16 table and the float32 output
+    once, or the lesser of its float32 adds and the dense bf16 product);
+    'build' one add per (feature, sample) and the codes and float32 output
+    once; 'gemm' computes x[r, 0, s] * colsum(W)[h]: the table's column
+    sums and one multiply per output at the float32 rate, or its bytes
+    (the first code row, the table, the float32 output once) if longer.
+    The kernel must not take that column-sum route (it probes the mma
+    side), so 'gemm' also reports ``mma_bound_ms``, the roofline of the
+    dense product it does instead: 2 * R * S * cells * cw * H operations
+    at the bf16 tensor-core rate (uint8 codes are exact in bf16, the
+    products exact in float32), or the same bytes if longer."""
     import torch.nn.functional as F
 
     from marlgrid_tpu_torch.ops import embed as E
@@ -2057,6 +2096,8 @@ def phase_embed_roofline(roll, tim, palettes, card, seed):
                           generator=torch.Generator().manual_seed(seed))
     update_codes = blocks[pick[:blocks.shape[0] // cfg.n_minibatches]
                           .cuda()].contiguous()
+    full_table = (torch.randn(cells, sum(E.WIDTHS), H, generator=gen) *
+                  0.05).to(torch.bfloat16).cuda()
     out = {}
     for where, codes, k2f in (
             ("rollout's shape", roll["obs"], tim["onehot_embed_fwd"]),
@@ -2073,15 +2114,16 @@ def phase_embed_roofline(roll, tim, palettes, card, seed):
         library = dict(full=lambda: F.embedding_bag(bag_idx, bag_w,
                                                     mode="sum"),
                        build=None, gemm=lambda: torch.mm(x0, w2))
+        dense = 2 * R * S * cells * cw * H
         shape = dict(
-            full=dict(bytes=codes.numel() + table.numel() * 2
-                      + R * S * H * 4, ops=n_valid * H),
+            full=_least_route(dict(bytes=codes.numel() + table.numel() * 2
+                                   + R * S * H * 4), n_valid * H, dense),
             build=dict(bytes=codes.numel() + R * S * H * 4, ops=R * Fd * S),
             gemm=dict(bytes=R * S + table.numel() * 2 + R * S * H * 4,
                       ops=R * S * H + cells * cw * H))
-        shape["gemm"]["gemm_bound_ms"] = max(
+        shape["gemm"]["mma_bound_ms"] = max(
             shape["gemm"]["bytes"] / HBM_BYTES_PER_S,
-            2 * R * S * cells * cw * H / BF16_OPS_PER_S) * 1e3
+            dense / BF16_OPS_PER_S) * 1e3
         for mode in P.MODES:
             k = shape[mode]
             with torch.no_grad():
@@ -2099,15 +2141,22 @@ def phase_embed_roofline(roll, tim, palettes, card, seed):
             out[f"{mode} {where}"] = k
             lib = ("none" if k["library_ms"] is None
                    else f"{k['library_ms'] * 1e3:.2f} us")
-            dense = ("" if mode != "gemm" else f"; the dense product's "
-                     f"roofline {k['gemm_bound_ms'] * 1e3:.2f} us")
+            dense_s = ("" if mode != "gemm" else f"; the dense product's "
+                       f"roofline {k['mma_bound_ms'] * 1e3:.2f} us")
             print(f"[time] K6 {mode} at the {where} (R={R}, F={Fd}, S={S}, "
                   f"H={H}, palette): {k['ms'] * 1e3:.2f} us (K2f "
                   f"{k2f['ms'] * 1e3:.2f} us in this run), plain "
                   f"{k['plain_ms'] * 1e3:.2f} us, library {lib}, bound "
-                  f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}){dense} "
+                  f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}){dense_s} "
                   f"[{card}]")
         del x0, bag_idx, bag_w
+        _print_split(out, where, "palette", {
+            m: out[f"{m} {where}"]["ms"] for m in P.MODES}, card)
+        with torch.no_grad():
+            _print_split(out, where, "full vocabulary", {
+                m: time_ms(lambda: P.fwd_variant(codes, full_table, E.WIDTHS,
+                                                 None, m), iters=20)[0]
+                for m in P.MODES}, card)
     out["probe_launches"] = P.fwd_variant.launches - n0
     print(f"[K6] {out['probe_launches']} probe launches")
     return out
@@ -2430,14 +2479,14 @@ def main(argv=None):
             errs[kname] = max(errs[kname], err)
     cli_hetero = phase_cli(card, HETERO_PATHS["hetero"][0], hetero_counts(
         *cli_config(*HETERO_PATHS["hetero"][0]), plane_major=False))
-    prof = phase_profile(roll, train, image, rnn, hetero["hetero"], card)
+    prof = phase_profile(roll, train, image, rnn, hetero, card)
     env = phase_env_only(args.seed, card)
     env_img = phase_env_only(args.seed, card, "image")
     tim = phase_timings(roll, card, args.seed)
     tim["compose_image_b"] = phase_timings_k3(image, env_img, card,
                                               args.seed)
     tim.update(phase_timings_k5(roll, rnn, card, args.seed))
-    tim.update(phase_timings_5x5(hetero, card))
+    tim.update(phase_timings_5x5(hetero, card, args.seed))
     tim["embed_variant"] = phase_embed_roofline(roll, tim, pals, card,
                                                 args.seed)
     # K3's error: the sprite phase's and that of the three timed shapes;
@@ -2449,8 +2498,9 @@ def main(argv=None):
         errs[name] = max([errs[name]] + [
             tim[f"{name}{where}"]["max_abs_err"]
             for where in ("", "_update", "_5x5")])
-    errs["onehot_embed2_bwd"] = max(errs["onehot_embed2_bwd"],
-                                    tim["onehot_embed2_bwd"]["max_abs_err"])
+    errs["onehot_embed2_bwd"] = max([errs["onehot_embed2_bwd"]] + [
+        tim[f"onehot_embed2_bwd{where}"]["max_abs_err"]
+        for where in ("", "_5x5")])
 
     # launches: per train step on the train path (K1, K2f, K2b), on the
     # image train path (K3, which runs K1 73 times a step too) and on the
@@ -2459,7 +2509,7 @@ def main(argv=None):
     # their time goes (the other shapes' are in --json). K4 and K6 are
     # probes that no train path launches ("launches" 0, "probe_launches"
     # their phases' count); K6 has one entry per mode, at the update's
-    # shape, 'gemm' with its dense product's roofline beside its bound.
+    # shape.
     tim["transpose_traj"] = tim_k4
     kernels = []
     for name, src, line, path in (
@@ -2468,7 +2518,7 @@ def main(argv=None):
             ("onehot_embed_bwd", "embed_bwd.cu", "embed.py:264", train),
             ("compose_image_b", "sprite.cu", "sprite.py:280", image),
             ("onehot_embed2_fwd", "embed_fwd.cu", "embed2.py:120", rnn),
-            ("onehot_embed2_bwd", "embed2.cu", "embed2.py:149", rnn)):
+            ("onehot_embed2_bwd", "embed_bwd.cu", "embed2.py:149", rnn)):
         k = tim[name]
         if name == "compose_image_b":
             k = k["update"]
@@ -2486,7 +2536,7 @@ def main(argv=None):
                "marlgrid_tpu/ops/transpose.py:67", tim_k4,
                tim_k4["probe_launches"])]
     for mode in ("full", "build", "gemm"):
-        probes.append((f"embed_variant_{mode}", "embed.cu",
+        probes.append((f"embed_variant_{mode}", "embed_fwd.cu",
                        "scripts/embed_roofline.py:104",
                        tim["embed_variant"][f"{mode} update's shape"],
                        tim["embed_variant"]["probe_launches"]))
@@ -2497,8 +2547,8 @@ def main(argv=None):
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"]))
-        if "gemm_bound_ms" in k:
-            kernels[-1]["gemm_bound_ms"] = k["gemm_bound_ms"]
+        if "mma_bound_ms" in k:
+            kernels[-1]["mma_bound_ms"] = k["mma_bound_ms"]
     total_s = time.perf_counter() - t_start
     if args.json:
         with open(args.json, "w") as f:

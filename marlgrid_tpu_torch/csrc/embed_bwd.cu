@@ -1,13 +1,18 @@
-// onehot_embed backward (the weight gradient): the encode-obs torso's first
-// layer, on Hopper (sm_90a).
+// The one-hot embed backwards (the weight gradients), K2b (onehot_embed)
+// and K5b (onehot_embed2): the encode-obs torso's first layer, on Hopper
+// (sm_90a), as one tensor-core kernel and one reduce pass.
 //
-// Replaces the backward TPU kernel marlgrid_tpu/ops/embed.py::onehot_embed
-// (_bwd_w / _kernel(bwd=True)). It computes, over every row r, sample s,
-// plane p and view cell j,
+// Replaces the backward TPU kernels marlgrid_tpu/ops/embed.py::onehot_embed
+// (_bwd_w / _kernel(bwd=True)) and marlgrid_tpu/ops/embed2.py::
+// onehot_embed2 (_vjp_bwd -> _bwd / _kernel_bwd). Both compute, over every
+// row r, sample s, plane p and view cell j,
 //   dW[j, slot_p(codes[r, p*cells + j, s]), :] += dout[r, s, :]
 // where slot_p maps plane p's code to its row in the cell's (cw, H) table or
 // to "no row" (out-of-vocabulary; the full vocabulary clips state codes at
-// 19), dout is bf16 and the sums are float32. dW is (cells, cw, H) float32.
+// 19), dout is bf16 and the sums are float32. They differ only in where the
+// sums land: K2b writes one packed (cells, cw, H) gradient, K5b three
+// plane-major (cells, n_p, H) gradients, row off_p + k of cell j of the
+// packed layout being row k of cell j of plane p's.
 //
 // Bound on an H100 SXM, at the PPO update's shapes (R = 2048 blocks,
 // F = 147, S = 128 samples, H = 128, goal_cycle palette cw = 14): bytes are
@@ -19,10 +24,11 @@
 // 686 * 128 operations, 46.55 us at 989 TFLOP/s. The least of the routes
 // bounds it: 46.55 us, by the tensor cores.
 //
-// What held the earlier design back: a scatter-add with one float32
-// shared-memory read-modify-write per (sample, plane) and hidden pair, in
-// a serial loop per thread, 3.19 ms at the update's shape (PERF.md's
-// kernel table, the time before the redesign): 69x the tensor-core bound.
+// What held the first ports of K2b and K5b back: a scatter-add with one
+// float32 shared-memory read-modify-write per (sample, plane) and hidden
+// pair, in a serial loop per thread, 3.19 ms (K2b) and 3.20 ms (K5b) at the
+// update's shape (PERF.md's kernel table, the times before the redesigns):
+// 69x the tensor-core bound.
 //
 // Design: the product on the tensor cores, with mma.sync.m16n8k16 (bf16 in,
 // float32 sums in registers). A's entries are 0 or 1, exact in bf16, and
@@ -38,14 +44,18 @@
 //    without bank conflicts) and, for every (plane, cell) its rows touch,
 //    the step's slot bytes (from the codes through the 3 x 256 slot table;
 //    0xff for no row), stored in the order of the mma's A fragment: a
-//    thread's four samples of a k-step in one word. A thread builds its A fragment of one row from that word
-//    with a byte compare against the row's slot and two byte permutes (no
-//    one-hot tile exists in memory), and its B fragments with
-//    ldmatrix.trans. The block writes its sums to its chunk's slice of a
-//    float32 scratch (n_chunks, cells * cw, H). The row tiles of one chunk
-//    are launched next to each other, so the chunk's dout rows come from
-//    device memory about once and from L2 for the other tiles.
-// 2. reduce: dW[i] = sum over chunks of scratch[c, i], in chunk order.
+//    thread's four samples of a k-step in one word. A thread builds its A
+//    fragment of one row from that word with a byte compare against the
+//    row's slot and two byte permutes (no one-hot tile exists in memory),
+//    and its B fragments with ldmatrix.trans. The block writes its sums to
+//    its chunk's slice of a float32 scratch (n_chunks, cells * cw, H). The
+//    row tiles of one chunk are launched next to each other, so the chunk's
+//    dout rows come from device memory about once and from L2 for the
+//    other tiles.
+// 2. reduce: dW[i] = sum over chunks of scratch[c, i], in chunk order,
+//    stored at element i of the packed gradient (K2b) or at its row of
+//    plane p's gradient (K5b): the reduce's output layout is a template
+//    parameter, and everything before it is shared.
 // The plan (ops/embed.py::bwd_plan: tile sizes, chunk length, chunk count)
 // is a function of the shapes only, so the same inputs give the same bits
 // on every run and every card.
@@ -320,15 +330,47 @@ __global__ void __launch_bounds__(kThreads, 2) onehot_embed_bwd_mma_kernel(
   }
 }
 
+// The reduce pass's output layouts. Element i = (j * cw + k) * H + h of the
+// packed sum goes to element i of K2b's (cells, cw, H) gradient ...
+struct PackedOut {
+  float* dw;
+  __device__ __forceinline__ void store(long long i, float v) const {
+    dw[i] = v;
+  }
+};
+
+// ... or, for K5b, to row k - off_p of cell j of plane p's (cells, n_p, H)
+// gradient, p the plane whose rows [off_p, off_p + n_p) hold k.
+struct PlanesOut {
+  float* dw0;
+  float* dw1;
+  float* dw2;
+  int n0, n01, cw, H;   // n01: n0 + n1
+  __device__ __forceinline__ void store(long long i, float v) const {
+    const long long cwh = static_cast<long long>(cw) * H;
+    const long long j = i / cwh;
+    const int rem = static_cast<int>(i - j * cwh);
+    const int k = rem / H, h = rem - k * H;
+    if (k < n0) {
+      dw0[(j * n0 + k) * H + h] = v;
+    } else if (k < n01) {
+      dw1[(j * (n01 - n0) + k - n0) * H + h] = v;
+    } else {
+      dw2[(j * (cw - n01) + k - n01) * H + h] = v;
+    }
+  }
+};
+
+template <typename Out>
 __global__ void onehot_embed_bwd_reduce_kernel(
     const float* __restrict__ partial,          // (n_chunks, n)
-    float* __restrict__ dw, long long n, int n_chunks) {
+    const Out out, long long n, int n_chunks) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
     float acc = 0.f;
     for (int c = 0; c < n_chunks; ++c) acc += partial[c * n + i];
-    dw[i] = acc;
+    out.store(i, acc);
   }
 }
 
@@ -365,24 +407,13 @@ cudaError_t launch_bn(const uint8_t* codes, const __nv_bfloat16* dout,
                                           n_chunks, st);
 }
 
-}  // namespace
-
-// codes (R, F, S) uint8, dout (R, S, H) bf16, lut (3, 256) int16 slot or -1,
-// partial (n_chunks, cells, cw, H) float32 scratch, dw (cells, cw, H)
-// float32; all contiguous on `device`, H even, F == 3 * cells, planes of
-// w0, w1 and cw - w0 - w1 table rows, cw <= 250. The plan
-// (ops/embed.py::bwd_plan): bn hidden units per block (16, 32, 64, 128),
-// rows per block fixed by bn, `span` view cells touched by one block's rows
-// at most, chunks of `chunk` samples (a multiple of 128), n_chunks * chunk
-// >= R * S > (n_chunks - 1) * chunk. Launches both passes on `stream`;
-// returns cudaGetLastError(), or cudaErrorInvalidValue for a shape or plan
-// the kernel does not take.
-extern "C" int onehot_embed_bwd(const void* codes, const void* dout,
-                                const void* lut, void* partial, void* dw,
-                                int R, int F, int S, int cells, int w0,
-                                int w1, int cw, int H, int bn, int span,
-                                long long chunk, int n_chunks, int device,
-                                void* stream) {
+// Both passes on `stream`, after the checks both entry points share (see
+// onehot_embed_bwd); planes of w0, w1 and cw - w0 - w1 table rows.
+template <typename Out>
+int launch(const void* codes, const void* dout, const void* lut,
+           void* partial, const Out& out, int R, int F, int S, int cells,
+           int w0, int w1, int cw, int H, int bn, int span, long long chunk,
+           int n_chunks, int device, void* stream) {
   // this library links its own CUDA runtime: select the tensors' device
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -424,8 +455,50 @@ extern "C" int onehot_embed_bwd(const void* codes, const void* dout,
   const int threads = 256;
   const long long want = (n + threads - 1) / threads;
   const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  onehot_embed_bwd_reduce_kernel<<<blocks, threads, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dw), n,
-      n_chunks);
+  onehot_embed_bwd_reduce_kernel<Out><<<blocks, threads, 0, st>>>(
+      static_cast<const float*>(partial), out, n, n_chunks);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K2b. codes (R, F, S) uint8, dout (R, S, H) bf16, lut (3, 256) int16 row
+// within a cell's table (off_p + slot) or -1, partial (n_chunks, cells, cw,
+// H) float32 scratch, dw (cells, cw, H) float32; all contiguous on
+// `device`, H even, F == 3 * cells, planes of w0, w1 and cw - w0 - w1 table
+// rows, cw <= 250. The plan (ops/embed.py::bwd_plan): bn hidden units per
+// block (16, 32, 64, 128), rows per block fixed by bn, `span` view cells
+// touched by one block's rows at most, chunks of `chunk` samples (a
+// multiple of 128), n_chunks * chunk >= R * S > (n_chunks - 1) * chunk.
+// Launches both passes on `stream`; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape or plan the kernel does not take.
+extern "C" int onehot_embed_bwd(const void* codes, const void* dout,
+                                const void* lut, void* partial, void* dw,
+                                int R, int F, int S, int cells, int w0,
+                                int w1, int cw, int H, int bn, int span,
+                                long long chunk, int n_chunks, int device,
+                                void* stream) {
+  return launch(codes, dout, lut, partial, PackedOut{static_cast<float*>(dw)},
+                R, F, S, cells, w0, w1, cw, H, bn, span, chunk, n_chunks,
+                device, stream);
+}
+
+// K5b. As onehot_embed_bwd, with the same packed lut (rows off_p + slot,
+// off_p = n_0 + .. + n_{p-1}) and scratch, over planes of n0, n1, n2 >= 1
+// rows, n0 + n1 + n2 <= 250; dw_p (cells, n_p, H) float32 receives rows
+// [off_p, off_p + n_p) of each cell of the packed sum.
+extern "C" int onehot_embed2_bwd(const void* codes, const void* dout,
+                                 const void* lut, void* partial, void* dw0,
+                                 void* dw1, void* dw2, int R, int F, int S,
+                                 int cells, int n0, int n1, int n2, int H,
+                                 int bn, int span, long long chunk,
+                                 int n_chunks, int device, void* stream) {
+  if (n0 < 1 || n1 < 1 || n2 < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int cw = n0 + n1 + n2;
+  const PlanesOut out{static_cast<float*>(dw0), static_cast<float*>(dw1),
+                      static_cast<float*>(dw2), n0, n0 + n1, cw, H};
+  return launch(codes, dout, lut, partial, out, R, F, S, cells, n0, n1, cw,
+                H, bn, span, chunk, n_chunks, device, stream);
 }

@@ -1,6 +1,7 @@
 // The one-hot embed forwards, K2f (onehot_embed) and K5f (onehot_embed2): the
 // encode-obs torso's first layer, on Hopper (sm_90a), as one tensor-core
-// kernel with the table resident in shared memory.
+// kernel with the table resident in shared memory; and K6, the probe of that
+// kernel's two halves.
 //
 // Replaces the forward TPU kernels marlgrid_tpu/ops/embed.py::onehot_embed
 // (_fwd / _kernel(bwd=False)) and marlgrid_tpu/ops/embed2.py::onehot_embed2
@@ -80,6 +81,33 @@
 // blocks per SM without the builder warps, a skip of k-steps whose masks
 // are empty for a whole warp, and 16 mma warps at bn = 128 were each
 // slower than this design at the update's shape.
+//
+// K6, the embed-roofline probe (replaces the TPU probe
+// scripts/embed_roofline.py::_fwd_variant, which splits the TPU kernel the
+// same way): the kernel's `Mode` template parameter runs it under K2f's
+// plan, grid and packed table with a float32 store (K5f's epilogue), whole
+// (kModeFull: K2f's sum) or one half alone, so that the three times split
+// it:
+//   kModeBuild - the index half: the builder warps make the row masks
+//     exactly as in kModeFull (with the full vocabulary, every unit group
+//     again); the mma warps stage no table and run no mma, and store, for
+//     every unit, the popcount of their sample's mask words: the number of
+//     (cell, plane) pairs whose code selects a row (the row-sum of the
+//     one-hot), exact;
+//   kModeGemm - the sum half: the table is staged as in kModeFull, no mask
+//     is built (the builder warps leave at once); every A register holds
+//     the sample's first code, in bf16 (exact: codes are at most 255), in
+//     both halves, at every k-step, and the same ldmatrix.trans / mma
+//     sequence runs over all padded rows (zero past P): out[m, h] =
+//     code(m, 0) * sum_k T[k, h], summed over the k-steps in order. A
+//     column sum computed once would give the same values and measure
+//     nothing: the kernel does not take it.
+// Bound on an H100 SXM, at the update's / rollout's shape with the palette:
+// kModeFull its float32 output's bytes, 51.6 / 3.3 us (as K5f); kModeBuild
+// its codes and float32 output, 51.6 / 3.2 us; kModeGemm, the function
+// code(m, 0) * colsum(T)[h], the bytes of its first code row, table and
+// float32 output, 40.20 / 2.56 us. The dense bf16 product that kModeGemm
+// runs in its place would take 46.55 / 2.91 us at 989 TFLOP/s.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -98,6 +126,8 @@ constexpr int kTile = 128;         // samples per tile
 constexpr int kFull = 1, kEmpty = 3, kTable = 5, kCodes = 6;
 constexpr int kLut = 3 * 256;      // code -> slot, per plane
 constexpr int kMaxSmem = 227 * 1024;
+// the kernel's function: K2f's / K5f's sum, or one of K6's halves
+enum Mode { kModeFull = 0, kModeBuild = 1, kModeGemm = 2 };
 // the mask build: 32 lanes of 4 samples cover a tile
 static_assert(kTile == 128, "mask build layout");
 
@@ -223,7 +253,7 @@ __device__ __forceinline__ void store2(float* out, long long i, float2 v) {
   *reinterpret_cast<float2*>(out + i) = v;
 }
 
-template <int kBN, typename Out>
+template <int kBN, int kMode, typename Out>
 __global__ void __launch_bounds__(kThreads, 1) onehot_embed_fwd_mma_kernel(
     const uint8_t* __restrict__ codes,          // (R, F, S)
     const Segs segs,                            // (P, H) bf16 in segments
@@ -255,7 +285,7 @@ __global__ void __launch_bounds__(kThreads, 1) onehot_embed_fwd_mma_kernel(
     const int f = walk[2 * i];
     feat[i] = make_int4(walk[2 * i + 1], (f / sh.cells) * 256, f, 0);
   }
-  if (warp < kMmaWarps) {
+  if (warp < kMmaWarps && kMode != kModeBuild) {
     // the table's slice of units [n0, n0 + bn), once per launch
     constexpr int kChunks = kBN / 8;                      // 16 bytes each
     for (int i = tid; i < sh.k_steps * 16 * kChunks; i += kMmaThreads) {
@@ -296,6 +326,7 @@ __global__ void __launch_bounds__(kThreads, 1) onehot_embed_fwd_mma_kernel(
   __syncthreads();   // slut, feat
 
   if (warp >= kMmaWarps) {
+    if constexpr (kMode == kModeGemm) return;
     // The builders: per tile, they copy its codes into shared memory; then
     // lane q takes samples 4q .. 4q + 3 (one 4-byte word of a feature's
     // codes), builder warp bw the mask words bw, bw + 4, ...; each (sample,
@@ -395,7 +426,8 @@ __global__ void __launch_bounds__(kThreads, 1) onehot_embed_fwd_mma_kernel(
   for (long long tile = first; tile < sh.n_tiles; tile += sh.blocks, ++it) {
     const int buf = it & 1;
     const uint32_t* mb = masks + buf * mask_words;
-    bar_sync(kFull + buf, kThreads);   // the builders are done
+    if constexpr (kMode != kModeGemm)
+      bar_sync(kFull + buf, kThreads);   // the builders are done
     float acc[Tl::kMT][Tl::kNT][4];
 #pragma unroll
     for (int i = 0; i < Tl::kMT; ++i)
@@ -404,57 +436,109 @@ __global__ void __launch_bounds__(kThreads, 1) onehot_embed_fwd_mma_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-    // two k-steps per mask word; the next word's masks are loaded while
-    // this word's products run
-    uint32_t lo[Tl::kMT], hi[Tl::kMT];
-#pragma unroll
-    for (int i = 0; i < Tl::kMT; ++i) {
-      lo[i] = mb[mrow[i][0]];
-      hi[i] = mb[mrow[i][1]];
-    }
-    for (int kw = 0; kw < sh.k_words; ++kw) {
-      const int kn = min(kw + 1, sh.k_words - 1) * kTile;
-      uint32_t nlo[Tl::kMT], nhi[Tl::kMT];
+    if constexpr (kMode == kModeBuild) {
+      // K6 'build': the rows selected, the set bits of the sample's mask
+      // words, as every unit's value
 #pragma unroll
       for (int i = 0; i < Tl::kMT; ++i) {
-        nlo[i] = mb[kn + mrow[i][0]];
-        nhi[i] = mb[kn + mrow[i][1]];
-      }
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        // a0/a1: rows 2t, 2t + 1 (bits t, t + 16 after the shift) of
-        // samples g / g + 8; a2/a3: rows 2t + 8, 2t + 9 (bits t + 4, t + 20)
-        uint32_t a[Tl::kMT][4];
+        for (int h = 0; h < 2; ++h) {
+          int bits = 0;
+          for (int kw = 0; kw < sh.k_words; ++kw)
+            bits += __popc(mb[kw * kTile + mrow[i][h]]);
 #pragma unroll
-        for (int i = 0; i < Tl::kMT; ++i) {
-          const uint32_t x = lo[i] >> (t + 8 * h);
-          const uint32_t y = hi[i] >> (t + 8 * h);
-          a[i][0] = (x & 0x00010001u) * 0x3f80u;
-          a[i][1] = (y & 0x00010001u) * 0x3f80u;
-          a[i][2] = (x & 0x00100010u) * 0x3f8u;
-          a[i][3] = (y & 0x00100010u) * 0x3f8u;
-        }
-        const uint8_t* bp =
-            brow + static_cast<size_t>(2 * kw + h) * 16 * Tl::kRow;
-#pragma unroll
-        for (int np = 0; np < Tl::kNT / 2; ++np) {
-          uint32_t b[4];
-          ldsm_x4_trans(b, bp + bchunk[np]);
-#pragma unroll
-          for (int i = 0; i < Tl::kMT; ++i) {
-            mma_bf16(acc[i][2 * np], a[i], b[0], b[1]);
-            mma_bf16(acc[i][2 * np + 1], a[i], b[2], b[3]);
+          for (int j = 0; j < Tl::kNT; ++j) {
+            acc[i][j][2 * h] = static_cast<float>(bits);
+            acc[i][j][2 * h + 1] = static_cast<float>(bits);
           }
         }
       }
+    } else {
+      // K6 'gemm': the A registers of the sample rows g and g + 8 of each
+      // m16 tile, their first code in bf16 in both halves (0 past M)
+      [[maybe_unused]] uint32_t x0[Tl::kMT][2];
+      if constexpr (kMode == kModeGemm) {
 #pragma unroll
-      for (int i = 0; i < Tl::kMT; ++i) {
-        lo[i] = nlo[i];
-        hi[i] = nhi[i];
+        for (int i = 0; i < Tl::kMT; ++i) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const long long m =
+                tile * kTile + wm * Tl::kWM + 16 * i + 8 * h + g;
+            float code = 0.f;
+            if (m < sh.M) {
+              const long long r = m / sh.S;
+              code = codes[r * sh.F * sh.S + (m - r * sh.S)];
+            }
+            x0[i][h] = static_cast<uint32_t>(__bfloat16_as_ushort(
+                           __float2bfloat16(code))) * 0x00010001u;
+          }
+        }
+      }
+      // two k-steps per mask word; the next word's masks are loaded while
+      // this word's products run
+      [[maybe_unused]] uint32_t lo[Tl::kMT], hi[Tl::kMT];
+      if constexpr (kMode == kModeFull) {
+#pragma unroll
+        for (int i = 0; i < Tl::kMT; ++i) {
+          lo[i] = mb[mrow[i][0]];
+          hi[i] = mb[mrow[i][1]];
+        }
+      }
+      for (int kw = 0; kw < sh.k_words; ++kw) {
+        [[maybe_unused]] uint32_t nlo[Tl::kMT], nhi[Tl::kMT];
+        if constexpr (kMode == kModeFull) {
+          const int kn = min(kw + 1, sh.k_words - 1) * kTile;
+#pragma unroll
+          for (int i = 0; i < Tl::kMT; ++i) {
+            nlo[i] = mb[kn + mrow[i][0]];
+            nhi[i] = mb[kn + mrow[i][1]];
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // a0/a1: rows 2t, 2t + 1 (bits t, t + 16 after the shift) of
+          // samples g / g + 8; a2/a3: rows 2t + 8, 2t + 9 (bits t + 4,
+          // t + 20)
+          uint32_t a[Tl::kMT][4];
+#pragma unroll
+          for (int i = 0; i < Tl::kMT; ++i) {
+            if constexpr (kMode == kModeFull) {
+              const uint32_t x = lo[i] >> (t + 8 * h);
+              const uint32_t y = hi[i] >> (t + 8 * h);
+              a[i][0] = (x & 0x00010001u) * 0x3f80u;
+              a[i][1] = (y & 0x00010001u) * 0x3f80u;
+              a[i][2] = (x & 0x00100010u) * 0x3f8u;
+              a[i][3] = (y & 0x00100010u) * 0x3f8u;
+            } else {
+              a[i][0] = a[i][2] = x0[i][0];
+              a[i][1] = a[i][3] = x0[i][1];
+            }
+          }
+          const uint8_t* bp =
+              brow + static_cast<size_t>(2 * kw + h) * 16 * Tl::kRow;
+#pragma unroll
+          for (int np = 0; np < Tl::kNT / 2; ++np) {
+            uint32_t b[4];
+            ldsm_x4_trans(b, bp + bchunk[np]);
+#pragma unroll
+            for (int i = 0; i < Tl::kMT; ++i) {
+              mma_bf16(acc[i][2 * np], a[i], b[0], b[1]);
+              mma_bf16(acc[i][2 * np + 1], a[i], b[2], b[3]);
+            }
+          }
+        }
+        if constexpr (kMode == kModeFull) {
+#pragma unroll
+          for (int i = 0; i < Tl::kMT; ++i) {
+            lo[i] = nlo[i];
+            hi[i] = nhi[i];
+          }
+        }
       }
     }
     // the builders may refill this buffer with the tile after next
-    if (tile + 2 * sh.blocks < sh.n_tiles) bar_arrive(kEmpty + buf, kThreads);
+    if (kMode != kModeGemm && tile + 2 * sh.blocks < sh.n_tiles)
+      bar_arrive(kEmpty + buf, kThreads);
 
     // sums of (sample g or g + 8, units 2t, 2t + 1) of each n8 tile
 #pragma unroll
@@ -496,7 +580,7 @@ __global__ void __launch_bounds__(kThreads, 1) onehot_embed_fwd_mma_kernel(
   }
 }
 
-template <int kBN, typename Out>
+template <int kBN, int kMode, typename Out>
 cudaError_t launch_bn(const uint8_t* codes, const Segs& segs,
                       const int16_t* lut, const int32_t* walk, Out* out,
                       const Shape& sh, cudaStream_t st) {
@@ -507,7 +591,7 @@ cudaError_t launch_bn(const uint8_t* codes, const Segs& segs,
       static_cast<size_t>(sh.F) * kTile +
       static_cast<size_t>(sh.F) * sizeof(int4);
   if (smem + kLut * sizeof(int16_t) > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = onehot_embed_fwd_mma_kernel<kBN, Out>;
+  auto kernel = onehot_embed_fwd_mma_kernel<kBN, kMode, Out>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -517,7 +601,7 @@ cudaError_t launch_bn(const uint8_t* codes, const Segs& segs,
   return cudaGetLastError();
 }
 
-template <typename Out>
+template <int kMode, typename Out>
 int launch(const void* codes, const Segs& segs, const void* lut,
            const void* walk, void* out, int R, int F, int S, int cells,
            int H, int bn, int blocks, int device, void* stream) {
@@ -563,14 +647,15 @@ int launch(const void* codes, const Segs& segs, const void* lut,
   const auto* l = static_cast<const int16_t*>(lut);
   const auto* rb = static_cast<const int32_t*>(walk);
   Out* o = static_cast<Out*>(out);
+  cudaError_t e;
   switch (bn) {
-    case 16: return static_cast<int>(launch_bn<16>(c, segs, l, rb, o, sh, st));
-    case 32: return static_cast<int>(launch_bn<32>(c, segs, l, rb, o, sh, st));
-    case 64: return static_cast<int>(launch_bn<64>(c, segs, l, rb, o, sh, st));
-    case 128:
-      return static_cast<int>(launch_bn<128>(c, segs, l, rb, o, sh, st));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: e = launch_bn<16, kMode>(c, segs, l, rb, o, sh, st); break;
+    case 32: e = launch_bn<32, kMode>(c, segs, l, rb, o, sh, st); break;
+    case 64: e = launch_bn<64, kMode>(c, segs, l, rb, o, sh, st); break;
+    case 128: e = launch_bn<128, kMode>(c, segs, l, rb, o, sh, st); break;
+    default: e = cudaErrorInvalidValue;
   }
+  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -594,8 +679,9 @@ extern "C" int onehot_embed_fwd(const void* codes, const void* w,
   if (cw < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Segs segs{{static_cast<const __nv_bfloat16*>(w), nullptr, nullptr},
                   {cells * cw, 0, 0}};
-  return launch<__nv_bfloat16>(codes, segs, lut, walk, out, R, F, S, cells,
-                               H, bn, blocks, device, stream);
+  return launch<kModeFull, __nv_bfloat16>(codes, segs, lut, walk, out, R, F,
+                                          S, cells, H, bn, blocks, device,
+                                          stream);
 }
 
 // K5f. codes (R, F, S) uint8, w_p (cells, n_p, H) bf16, lut (3, 256) int16
@@ -614,6 +700,32 @@ extern "C" int onehot_embed2_fwd(const void* codes, const void* w0,
                    static_cast<const __nv_bfloat16*>(w1),
                    static_cast<const __nv_bfloat16*>(w2)},
                   {cells * n0, cells * n1, cells * n2}};
-  return launch<float>(codes, segs, lut, walk, out, R, F, S, cells, H, bn,
-                       blocks, device, stream);
+  return launch<kModeFull, float>(codes, segs, lut, walk, out, R, F, S,
+                                  cells, H, bn, blocks, device, stream);
+}
+
+// K6. As onehot_embed_fwd (the packed table, its lut and walk, its plan),
+// with out (R, S, H) float32 and `mode` 0 (kModeFull), 1 (kModeBuild) or
+// 2 (kModeGemm): see the header.
+extern "C" int embed_variant_fwd(const void* codes, const void* w,
+                                 const void* lut, const void* walk,
+                                 void* out, int R, int F, int S, int cells,
+                                 int cw, int H, int bn, int blocks, int mode,
+                                 int device, void* stream) {
+  if (cw < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Segs segs{{static_cast<const __nv_bfloat16*>(w), nullptr, nullptr},
+                  {cells * cw, 0, 0}};
+  switch (mode) {
+    case kModeFull:
+      return launch<kModeFull, float>(codes, segs, lut, walk, out, R, F, S,
+                                      cells, H, bn, blocks, device, stream);
+    case kModeBuild:
+      return launch<kModeBuild, float>(codes, segs, lut, walk, out, R, F, S,
+                                       cells, H, bn, blocks, device, stream);
+    case kModeGemm:
+      return launch<kModeGemm, float>(codes, segs, lut, walk, out, R, F, S,
+                                      cells, H, bn, blocks, device, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -7,11 +7,12 @@ Counterpart of ``marlgrid_tpu/ops/embed2.py``: the same function as
 H)`` instead of one packed table, with a float32 output that is not rounded
 to bf16. The tables are read as bf16 whatever their dtype, and the backward
 reads ``dout`` as bf16, as the TPU kernels do. On CUDA tensors the wrappers
-launch the hand-written kernels: the forward is K2f's one-hot product on the
-tensor cores (``csrc/embed_fwd.cu``, the three tables staged back to back
-in shared memory, float32 out), the backward a deterministic two-pass
-scatter-add (``csrc/embed2.cu``); on CPU tensors they take the plain dense
-one-hot formulation. There is no fallback between them.
+launch the hand-written kernels, K2f's and K2b's one-hot products on the
+tensor cores: the forward ``csrc/embed_fwd.cu`` (the three tables staged
+back to back in shared memory, float32 out), the backward
+``csrc/embed_bwd.cu`` (K2b's pass over the packed layout, then a reduce
+that writes the three tables' gradients); on CPU tensors they take the
+plain dense one-hot formulation. There is no fallback between them.
 
 :func:`onehot_embed2` is differentiable in the three tables through an
 autograd Function whose backward is K5b on the card and the plain backward
@@ -28,32 +29,14 @@ import torch
 
 from . import _build
 from .embed import (N_STATE_CODES, WIDTHS, _aligned, _check_codes,
-                    _fwd_walk_on, fwd_plan, slot_table)
+                    _fwd_walk_on, _slot_table_on, bwd_plan, fwd_plan,
+                    slot_table)
 
 _FWD_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 11
                  + (ctypes.c_void_p,))
-_BWD_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 9
+_BWD_ARGTYPES = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 10
                  + (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p))
-#: K5b plan: bytes of float32 partial table per block, blocks to aim for
-#: (two per SM of an H100), samples staged per step (csrc/embed2.cu kTile)
-_BWD_TABLE_BYTES = 64 * 1024
-_BWD_BLOCKS = 2 * 132
-_BWD_TILE = 32
-
-
-def _bwd_plan(R: int, S: int, cells: int, cw: int, H: int):
-    """K5b's launch plan, a function of the shapes only (so a run repeats
-    itself bit for bit on any card): ``(cb, chunk, n_chunks)`` = view cells
-    per block, samples per chunk, chunks."""
-    M = R * S
-    cb = max(1, min(cells, 1024 // (H // 2), _BWD_TABLE_BYTES // (cw * H * 4)))
-    groups = -(-cells // cb)
-    cb = -(-cells // groups)                       # balance the groups
-    n_chunks = max(1, min(-(-_BWD_BLOCKS // groups), -(-M // _BWD_TILE)))
-    chunk = -(-max(M, 1) // n_chunks)
-    chunk = -(-chunk // _BWD_TILE) * _BWD_TILE
-    return cb, chunk, -(-max(M, 1) // chunk)
 
 
 def plane_slot_table(widths=WIDTHS, values=None) -> np.ndarray:
@@ -158,8 +141,11 @@ def onehot_embed2_bwd(x, dout, widths=WIDTHS, values=None):
     ``dout`` (R, S, H) bf16 -> three (cells, n_p, H) float32 tensors.
 
     CPU tensors take :func:`onehot_embed2_bwd_plain`. CUDA tensors launch
-    the two-pass scatter-add of ``csrc/embed2.cu`` (deterministic: the same
-    inputs give the same bits)."""
+    the two passes of ``csrc/embed_bwd.cu`` under K2b's plan
+    (``embed.bwd_plan``): the one-hot product on the tensor cores over the
+    packed layout, per (row tile, sample chunk), then the chunks' sum in
+    order, written into the three tables (deterministic: the same inputs
+    give the same bits)."""
     if x.device.type == "cpu":
         return onehot_embed2_bwd_plain(x, dout, widths, values)
     if x.device.type != "cuda" or dout.device != x.device:
@@ -174,17 +160,21 @@ def onehot_embed2_bwd(x, dout, widths=WIDTHS, values=None):
             f"onehot_embed2_bwd: wants codes (R, 3*cells, S) and contiguous "
             f"bf16 dout (R, S, H) with even H <= 2048; got codes "
             f"{tuple(x.shape)}, dout {dout.dtype} {tuple(dout.shape)}")
-    cb, chunk, n_chunks = _bwd_plan(R, S, cells, cw, H)
-    lut = _plane_slot_table_on(tuple(widths), values, x.device)
-    partial = torch.empty((n_chunks, cells, cw, H), dtype=torch.float32,
+    if cw > 250:
+        raise ValueError(f"onehot_embed2_bwd: {cw} table rows per cell; the "
+                         f"kernel takes at most 250")
+    plan = bwd_plan(R, S, cells, cw, H)
+    lut = _slot_table_on(tuple(widths), values, x.device)
+    partial = torch.empty((plan.n_chunks, cells, cw, H), dtype=torch.float32,
                           device=x.device)
     dws = [torch.empty((cells, n, H), dtype=torch.float32, device=x.device)
            for n in widths]
-    fn = _build.function("embed2", "onehot_embed2_bwd", _BWD_ARGTYPES)
+    fn = _build.function("embed_bwd", "onehot_embed2_bwd", _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), dout.data_ptr(), lut.data_ptr(), partial.data_ptr(),
-            *(d.data_ptr() for d in dws), R, F, S, cells, *widths, H, cb,
-            chunk, n_chunks, x.device.index, stream)
+            *(d.data_ptr() for d in dws), R, F, S, cells, *widths, H,
+            plan.bn, plan.span, plan.chunk, plan.n_chunks, x.device.index,
+            stream)
     if rc != 0:
         raise RuntimeError(f"onehot_embed2_bwd: kernel launch failed "
                            f"(cudaError {rc})")

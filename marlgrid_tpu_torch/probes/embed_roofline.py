@@ -14,11 +14,13 @@ table layout: codes (R, 3*cells, S) uint8, table (cells, sum(widths), H)
   cells and slots of ``W[cell, slot, h]`` (a dense product against a
   broadcast of the first code row).
 
-On CUDA tensors :func:`fwd_variant` launches the ``Mode`` variants of
-``csrc/embed.cu``, K2f's first design (a gather-sum: every sample reads its
-selected table rows from L2; K2f itself now runs on the tensor cores in
-``csrc/embed_fwd.cu``); on CPU tensors it takes :func:`fwd_variant_plain`.
-The port's model never calls either.
+On CUDA tensors :func:`fwd_variant` launches the ``Mode`` variants of K2f's
+own tensor-core kernel (``csrc/embed_fwd.cu``, under K2f's plan, grid and
+walk): 'full' is K2f with a float32 store, 'build' its builder warps alone
+(the row masks, counted), 'gemm' its mma warps alone (the staged table
+times the broadcast code row), so the three times split K2f's. On CPU
+tensors it takes :func:`fwd_variant_plain`. The port's model never calls
+either.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from ..ops import _build
 from ..ops import embed as E
 
 MODES = ("full", "build", "gemm")
-_ARGTYPES = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 8
+_ARGTYPES = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 10
              + (ctypes.c_void_p,))
 
 
@@ -67,18 +69,21 @@ def fwd_variant(x, w, widths=E.WIDTHS, values=None,
     cells, cw, H = w.shape
     E._check_codes("fwd_variant", x, 3 * cells)
     R, F, S = x.shape
-    if cw != sum(widths) or H % 2 or H > 2048 or R > 65535:
+    if cw != sum(widths) or H % 2 or not 0 < H <= 2048 or R > 65535:
         raise ValueError(
             f"fwd_variant: wants R <= 65535 and a (cells, {sum(widths)}, H) "
             f"table with even H <= 2048; got codes {tuple(x.shape)}, table "
             f"{tuple(w.shape)}")
-    w = w.to(torch.bfloat16).contiguous()
+    plan = E.fwd_plan(R, S, F, cells * cw, H)
+    w = E._aligned(w.to(torch.bfloat16))
     lut = E._slot_table_on(tuple(widths), values, x.device)
+    walk = E._fwd_walk_on(cells, tuple(widths), False, x.device)
     out = torch.empty((R, S, H), dtype=torch.float32, device=x.device)
-    fn = _build.function("embed", "embed_variant_fwd", _ARGTYPES)
+    fn = _build.function("embed_fwd", "embed_variant_fwd", _ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), w.data_ptr(), lut.data_ptr(), out.data_ptr(), R, F,
-            S, cells, cw, H, MODES.index(mode), x.device.index, stream)
+    rc = fn(x.data_ptr(), w.data_ptr(), lut.data_ptr(), walk.data_ptr(),
+            out.data_ptr(), R, F, S, cells, cw, H, plan.bn, plan.blocks,
+            MODES.index(mode), x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"fwd_variant ({mode}): kernel launch failed "
                            f"(cudaError {rc})")

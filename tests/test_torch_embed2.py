@@ -2,6 +2,11 @@
 versions of K5f and K5b and the slot table the CUDA kernels read) against
 JAX's Pallas ``onehot_embed2`` in interpret mode and ``jax.grad`` through
 it, and ``OneHotEmbed``'s plane-major route against its K2 route.
+
+K5b runs K2b's kernel (``csrc/embed_bwd.cu``) under K2b's plan
+(``ops/embed.py::bwd_plan``) over the packed layout, and its reduce pass
+writes each packed row into its plane's table: that mapping and that plan,
+at K5b's shapes, are held here too.
 """
 import jax
 import jax.numpy as jnp
@@ -183,3 +188,98 @@ def test_route_selected_by_environment(monkeypatch):
     out.sum().backward()
     for name in ("w0", "w1", "w2", "bias"):
         assert float(getattr(emb, name).grad.abs().sum()) > 0, name
+
+
+def _packed_to_planes(packed, widths):
+    """What K5b's reduce pass does with the packed (cells, cw, H) sum, in
+    numpy: element i = (j * cw + k) * H + h goes to element (j * n_p + k -
+    off_p) * H + h of plane p's (cells, n_p, H) gradient, p the plane whose
+    rows [off_p, off_p + n_p) hold k."""
+    cells, cw, H = packed.shape
+    off = np.cumsum((0,) + tuple(widths))
+    i = np.arange(cells * cw * H)
+    j, rem = np.divmod(i, cw * H)
+    k, h = np.divmod(rem, H)
+    p = np.searchsorted(off, k, side="right") - 1
+    flat = packed.reshape(-1)
+    outs = []
+    for q, n in enumerate(widths):
+        dw = np.full(cells * n * H, np.nan, np.float32)
+        at = p == q
+        to = (j[at] * n + k[at] - off[q]) * H + h[at]
+        assert np.unique(to).size == to.size == dw.size   # each once
+        dw[to] = flat[at]
+        outs.append(dw.reshape(cells, n, H))
+    return outs
+
+
+@pytest.mark.parametrize("cells", [49, 25])
+@pytest.mark.parametrize("palettes", [None, PALETTES], ids=["full",
+                                                           "palette"])
+def test_k5b_reduce_maps_packed_rows_to_planes(palettes, cells):
+    """K2b's packed gradient, split by the reduce pass's index formula,
+    is K5b's: within 1e-6 of max |dW_p| of ``onehot_embed2_bwd_plain``
+    (the same float32 sums, batched otherwise) and within 1e-5 of JAX's
+    Pallas ``_bwd`` in interpret mode (the bar of the gradient test above),
+    every element of every plane written once."""
+    widths, values = E.vocab(palettes)
+    R, S, H = 2, 128, 32
+    x = _codes(R, cells, S, seed=cells + 11)
+    dout = torch.as_tensor(np.random.default_rng(12).normal(
+        size=(R, S, H)).astype(np.float32)).to(torch.bfloat16)
+    packed = E.onehot_embed_bwd_plain(torch.as_tensor(x), dout, widths,
+                                      values)
+    got = _packed_to_planes(packed.numpy(), widths)
+    plain = E2.onehot_embed2_bwd_plain(torch.as_tensor(x), dout, widths,
+                                       values)
+    jdws = JE2._bwd(jnp.asarray(x), jnp.asarray(dout.float().numpy(),
+                                                 jnp.bfloat16),
+                    cells, 128, True, widths, values)
+    for p, (g, a, b, n) in enumerate(zip(got, plain, jdws, widths)):
+        assert not np.isnan(g).any(), p
+        a = a.numpy()
+        b = np.asarray(b).reshape(cells, n, H)
+        assert g.shape == a.shape == b.shape, p
+        scale = float(np.abs(a).max())
+        assert scale > 0, p
+        assert float(np.abs(g - a).max()) <= 1e-6 * scale, p
+        assert float(np.abs(g - b).max()) <= 1e-5 * scale, p
+
+
+#: (R, S, cells, palette) of K5b's launches: the recurrent update's
+#: minibatch with the goal_cycle palette, and a hetero recurrent 5x5
+#: group's update with the full vocabulary (hetero runs have no palettes)
+K5B_SHAPES = {"recurrent update, palette": (2048, 128, 49, PALETTES),
+              "hetero 5x5 update, full": (1024, 128, 25, None)}
+
+
+@pytest.mark.parametrize("H", [24, 128, 136])
+@pytest.mark.parametrize("shape", list(K5B_SHAPES))
+def test_bwd_plan_covers_k5b_shapes(shape, H):
+    """K2b's plan at K5b's shapes covers every (table row, sample) pair and
+    every hidden unit exactly once, the cells a row tile touches fit the
+    slot rows the kernel stages, and it depends on the shapes alone."""
+    R, S, cells, pal = K5B_SHAPES[shape]
+    widths, _ = E.vocab(pal)
+    cw = sum(widths)
+    plan = E.bwd_plan(R, S, cells, cw, H)
+    assert plan == E.bwd_plan(R, S, cells, cw, H)   # the shapes alone
+    rows, M = cells * cw, R * S
+    # (row tile, unit group, chunk) blocks: each pair once
+    row_seen = np.zeros(rows, int)
+    for g in range(plan.row_groups):
+        r = np.arange(g * plan.bm, min(rows, (g + 1) * plan.bm))
+        row_seen[r] += 1
+        touched = np.unique(r // cw)
+        assert touched.size <= plan.span
+    unit_seen = np.zeros(plan.n_groups * plan.bn, int)
+    for u in range(plan.n_groups):
+        unit_seen[u * plan.bn:(u + 1) * plan.bn] += 1
+    sample_seen = np.zeros(M, int)
+    for c in range(plan.n_chunks):
+        sample_seen[c * plan.chunk:(c + 1) * plan.chunk] += 1
+    assert (row_seen == 1).all() and (sample_seen == 1).all()
+    assert (unit_seen[:H] == 1).all()
+    assert plan.n_groups * plan.bn - H < plan.bn
+    assert plan.chunk % E._BWD_STEP == 0
+    assert (plan.n_chunks - 1) * plan.chunk < M <= plan.n_chunks * plan.chunk
