@@ -43,7 +43,10 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    board pool 256, stagger, the compact embed palettes) through
    ``make_rollout``, with the launch counts read around it; then the K4
    probe (``transpose_traj``) on its trajectory, bit-exact against the
-   plain version there and on odd uint8 and int32 shapes, and timed;
+   plain version there and, in uint8 and int32, on a hetero 5x5 group's
+   trajectory, odd shapes, a B off the 16-byte vector, a data pointer off
+   16-byte alignment, 75,000 planes and wide F, two launches bit-equal;
+   timed at the encode and 5x5 trajectories and the encode shape in int32;
 6. the train path: ``make_train_step`` at the same width (2 epochs x 4
    minibatches), four train steps, with the launch counts of K1, K2f, K2b
    and K3 read around each (65 / 73 / 8 / 0) and train env-steps/s; then
@@ -1958,48 +1961,95 @@ def phase_timings(roll, card, seed):
                 onehot_embed_fwd_update=k2u, onehot_embed_bwd=k2b)
 
 
-def phase_transpose_traj(roll, card):
-    """K4 (transpose_traj) against its plain version, bit for bit: on the
-    encode rollout's trajectory obs, (T, N, F, B) = (64, 4, 147, 4096) uint8
-    (154.1 MB), and on random odd shapes in uint8 and int32; then its
-    device time at the trajectory's shape beside its bound (each byte read
-    once and written once), the plain version's and the library call's
-    (``x.permute(1, 0, 3, 2).contiguous()``, which the plain version is).
-    No train path launches K4 (its TPU kernel has no caller either): the
-    launches it reports are this probe's."""
+def _k4_time(x, what, card):
+    """K4's device time on ``x`` beside its bound (each element read once
+    and written once), the plain version's, the library call's
+    (``x.permute(1, 0, 3, 2).contiguous()``, which the plain version is)
+    and that of a device-to-device copy of the same bytes (``x.clone()``),
+    the rate a well-formed copy reaches on this card."""
     from marlgrid_tpu_torch.ops import transpose as T
 
-    gen = torch.Generator().manual_seed(5)
-    n0 = T.transpose_traj.launches
-    cases = [("encode trajectory", roll["traj_obs"])]
-    for shape in ((5, 3, 75, 300), (3, 2, 33, 31)):
-        cases.append(("random", torch.randint(
-            0, 256, shape, generator=gen, dtype=torch.int32).to(
-                torch.uint8).cuda()))
-        cases.append(("random", torch.randint(
-            -2 ** 31, 2 ** 31 - 1, shape, generator=gen,
-            dtype=torch.int32).cuda()))
-    for what, x in cases:
-        y = T.transpose_traj(x)
-        sync()
-        if not torch.equal(y, T.transpose_traj_plain(x)):
-            raise AssertionError(f"K4 differs from its plain version: {what}")
-        print(f"[K4] {what} {tuple(x.shape)} {x.dtype}: bit-exact")
-    x = roll["traj_obs"]
-    k = dict(bytes=2 * x.numel() * x.element_size(), ops=0, max_abs_err=0.0)
+    k = dict(shape=list(x.shape), dtype=str(x.dtype),
+             bytes=2 * x.numel() * x.element_size(), ops=0, max_abs_err=0.0)
     k["ms"], k["host_ms"] = time_ms(lambda: T.transpose_traj(x), iters=20)
     k["plain_ms"], _ = time_ms(lambda: T.transpose_traj_plain(x), iters=20)
     k["library_ms"], _ = time_ms(
         lambda: x.permute(1, 0, 3, 2).contiguous(), iters=20)
+    k["copy_ms"], _ = time_ms(lambda: x.clone(), iters=20)
     _bound(k)
-    k["probe_launches"] = T.transpose_traj.launches - n0
-    print(f"[time] K4 at the encode trajectory's shape {tuple(x.shape)} "
-          f"uint8: {k['ms'] * 1e3:.2f} us (host {k['host_ms'] * 1e3:.2f} us "
-          f"per call), plain {k['plain_ms'] * 1e3:.2f} us, "
+    print(f"[time] K4 at {what} {tuple(x.shape)} {x.dtype}: "
+          f"{k['ms'] * 1e3:.2f} us (host {k['host_ms'] * 1e3:.2f} us per "
+          f"call), plain {k['plain_ms'] * 1e3:.2f} us, "
           f"x.permute(1, 0, 3, 2).contiguous() {k['library_ms'] * 1e3:.2f} "
-          f"us, bound {k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}: "
-          f"{k['bytes'] / 1e6:.1f} MB); {k['probe_launches']} probe "
-          f"launches [{card}]")
+          f"us, x.clone() {k['copy_ms'] * 1e3:.2f} us, bound "
+          f"{k['bound_ms'] * 1e3:.2f} us ({k['bound_by']}: "
+          f"{k['bytes'] / 1e6:.1f} MB), {k['bound_ms'] / k['ms']:.2f} of "
+          f"the bound [{card}]")
+    return k
+
+
+def phase_transpose_traj(traj_obs, card):
+    """K4 (transpose_traj) against its plain version, bit for bit, and two
+    launches bit-equal: on the encode rollout's trajectory obs ``traj_obs``,
+    (T, N, F, B) = (64, 4, 147, 4096) uint8 (154.1 MB), and in uint8 and
+    int32 on a hetero 5x5 group's trajectory (64, 2, 75, 4096), on random
+    odd shapes, on a B off the 16-byte vector with full tiles elsewhere,
+    on a view whose data pointer is off 16-byte alignment (storage offset
+    1), on T * N = 75,000 planes (past the old grid's 65,535), and on wide
+    F (4- and 1-vector tile rows, the latter past 48 KB of shared memory);
+    then its device time at the encode trajectory's shape, the 5x5
+    group's, and the encode shape in int32, each beside its bound. No train
+    path launches K4 (its TPU kernel has no caller either): the launches
+    it reports are this probe's."""
+    from marlgrid_tpu_torch.ops import transpose as T
+
+    gen = torch.Generator().manual_seed(5)
+
+    def rand(shape, dtype, offset=0):
+        n = math.prod(shape) + offset
+        if dtype == torch.uint8:
+            v = torch.randint(0, 256, (n,), generator=gen,
+                              dtype=torch.int32).to(torch.uint8)
+        else:
+            v = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                              dtype=torch.int32)
+        return v.cuda()[offset:].view(shape)
+
+    n0 = T.transpose_traj.launches
+    cases = [("encode trajectory", traj_obs)]
+    for dtype in (torch.uint8, torch.int32):
+        for what, shape, offset in (
+                ("hetero 5x5 trajectory", (64, 2, 75, 4096), 0),
+                ("random odd", (5, 3, 75, 300), 0),
+                ("random odd", (3, 2, 33, 31), 0),
+                ("B off the vector", (4, 3, 147, 4100), 0),
+                ("data pointer off 16 bytes", (4, 3, 147, 4096), 1),
+                ("T*N = 75000 planes", (300, 250, 3, 20), 0),
+                ("T*N = 75000 planes", (300, 250, 3, 128), 0),
+                ("wide F, 4-vector rows", (2, 3, 400, 1008), 0),
+                ("wide F, 1-vector rows, 49.6 KB chunk",
+                 (2, 2, 3100, 80), 0)):
+            cases.append((what, rand(shape, dtype, offset)))
+    for what, x in cases:
+        y = T.transpose_traj(x)
+        y2 = T.transpose_traj(x)
+        sync()
+        if not torch.equal(y, T.transpose_traj_plain(x)):
+            raise AssertionError(f"K4 differs from its plain version: {what} "
+                                 f"{tuple(x.shape)} {x.dtype}")
+        if not torch.equal(y, y2):
+            raise AssertionError(f"K4's two launches differ: {what}")
+        plan = T.traj_plan(x.shape[2], x.shape[3], x.element_size())
+        print(f"[K4] {what} {tuple(x.shape)} {x.dtype} (data_ptr % 16 = "
+              f"{x.data_ptr() % 16}, {plan['cols']} columns a tile, "
+              f"{plan['smem']} B chunk): bit-exact, two launches bit-equal")
+    k = _k4_time(traj_obs, "the encode trajectory's shape", card)
+    k["hetero_5x5"] = _k4_time(rand((64, 2, 75, 4096), torch.uint8),
+                               "a hetero 5x5 group's trajectory", card)
+    k["int32"] = _k4_time(rand(tuple(traj_obs.shape), torch.int32),
+                          "the encode trajectory's shape in int32", card)
+    k["probe_launches"] = T.transpose_traj.launches - n0
+    print(f"[K4] {k['probe_launches']} probe launches [{card}]")
     return k
 
 
@@ -2460,7 +2510,7 @@ def main(argv=None):
     for name in HETERO_PATHS:
         reference_hetero(args.seed, name)
     roll = phase_rollout(args.seed, card)
-    tim_k4 = phase_transpose_traj(roll, card)
+    tim_k4 = phase_transpose_traj(roll["traj_obs"], card)
     train = phase_train(args.seed, card)
     cli = phase_cli(card, (), want_counts(
         transpose_bk=65, onehot_embed_fwd=73, onehot_embed_bwd=8))
@@ -2547,8 +2597,9 @@ def main(argv=None):
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"]))
-        if "mma_bound_ms" in k:
-            kernels[-1]["mma_bound_ms"] = k["mma_bound_ms"]
+        for extra in ("mma_bound_ms", "copy_ms"):
+            if extra in k:
+                kernels[-1][extra] = k[extra]
     total_s = time.perf_counter() - t_start
     if args.json:
         with open(args.json, "w") as f:

@@ -52,10 +52,34 @@ def transpose_bk(x: torch.Tensor) -> torch.Tensor:
 #: launches of the K1 kernel in this process (CUDA calls only)
 transpose_bk.launches = 0
 
-_TRAJ_ARGTYPES = ((ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 5
+_TRAJ_ARGTYPES = ((ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 6
                   + (ctypes.c_void_p,))
 _TRAJ_SYMBOLS = {torch.uint8: "transpose_traj_b8",
                  torch.int32: "transpose_traj_b32"}
+_VEC_BYTES = 16
+_SMEM_DEFAULT = 48 * 1024       # a block's shared memory without opt-in
+_SMEM_MAX = 232448              # 227 KB, an H100 block's opt-in limit
+
+
+def traj_plan(F: int, B: int, itemsize: int) -> dict:
+    """The K4 kernel's tiling of one (F, B) plane: ``log_vecs`` (a tile row
+    is ``2 ** log_vecs`` 16-byte vectors: 8, halved while the chunk would
+    pass 48 KB), ``cols`` (columns per tile), ``smem`` (the chunk's bytes,
+    ``cols * F * itemsize``) and ``tiles`` (column tiles per plane).
+    Raises for an F whose narrowest chunk (16 bytes of columns) passes 227
+    KB of shared memory."""
+    log_vecs = 3
+    while log_vecs > 0 and (_VEC_BYTES << log_vecs) * F > _SMEM_DEFAULT:
+        log_vecs -= 1
+    smem = (_VEC_BYTES << log_vecs) * F
+    if smem > _SMEM_MAX:
+        raise ValueError(f"transpose_traj: F = {F} too wide (a 16-byte "
+                         f"column tile of {smem} bytes passes the "
+                         f"{_SMEM_MAX}-byte shared memory; F <= "
+                         f"{_SMEM_MAX // _VEC_BYTES})")
+    cols = (_VEC_BYTES << log_vecs) // itemsize
+    return dict(log_vecs=log_vecs, cols=cols, smem=smem,
+                tiles=-(-B // cols))
 
 
 def transpose_traj_plain(x: torch.Tensor) -> torch.Tensor:
@@ -77,13 +101,15 @@ def transpose_traj(x: torch.Tensor) -> torch.Tensor:
                          f"int32 tensor (T, N, F, B), got {x.dtype} "
                          f"{tuple(x.shape)} contiguous={x.is_contiguous()}")
     T, N, F, B = x.shape
-    if T * N > 65535 or F > 65535 * 32 or B >= 2 ** 31:
-        raise ValueError(f"transpose_traj: shape {tuple(x.shape)} beyond the "
-                         f"grid (T*N <= 65535 planes, F <= 2097120)")
+    if max(T, N, B) >= 2 ** 31:
+        raise ValueError(f"transpose_traj: shape {tuple(x.shape)} has a "
+                         f"dimension past 2**31 - 1")
+    plan = traj_plan(F, B, x.element_size())
     y = torch.empty((N, T, B, F), dtype=x.dtype, device=x.device)
     fn = _build.function("transpose", _TRAJ_SYMBOLS[x.dtype], _TRAJ_ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), y.data_ptr(), T, N, F, B, x.device.index, stream)
+    rc = fn(x.data_ptr(), y.data_ptr(), T, N, F, B, plan["log_vecs"],
+            x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"transpose_traj: kernel launch failed "
                            f"(cudaError {rc})")
