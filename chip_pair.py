@@ -24,7 +24,8 @@ so pairs only trees whose ``chip_smoke.py`` has them with these signatures
 and results: ``card_line()``, ``phase_build()``, ``_codes(R, cells, S,
 gen)``, ``time_ms(fn, iters=)`` -> (device ms, host ms), ``phase_rnn(seed,
 card, steps=)`` and ``phase_hetero(seed, card, "hetero-rnn", steps=)`` ->
-dicts with ``step``, ``env``, ``h`` and ``key``, and ``profile_stages(run,
+dicts with ``step`` (the eager step: ``jit=False`` in trees that graph the
+train step), ``env``, ``h`` and ``key``, and ``profile_stages(run,
 prefixes, card, title)`` -> a dict with ``wall_s``, ``device_busy_s``,
 ``device_ops`` and ``stages[name]["device_ms"]``; and ROOT's
 ``ops.embed.WIDTHS`` and ``ops.embed2.onehot_embed2_bwd(x, dout, widths,

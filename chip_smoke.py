@@ -47,35 +47,49 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    trajectory, odd shapes, a B off the 16-byte vector, a data pointer off
    16-byte alignment, 75,000 planes and wide F, two launches bit-equal;
    timed at the encode and 5x5 trajectories and the encode shape in int32;
-6. the train path: ``make_train_step`` at the same width (2 epochs x 4
-   minibatches), four train steps, with the launch counts of K1, K2f, K2b
-   and K3 read around each (65 / 73 / 8 / 0) and train env-steps/s; then
-   the training CLI at its defaults, two iterations with a checkpoint and
-   one resumed from it;
+6. the train path: the eager ``make_train_step(..., jit=False)`` at the
+   same width (2 epochs x 4 minibatches), four train steps, with the
+   launch counts of K1, K2f, K2b and K3 read around each (65 / 73 / 8 / 0)
+   and train env-steps/s; then the training CLI at its defaults with
+   ``--steps-per-call 2`` (graphed: ``ppo.multi_step``), two calls with a
+   checkpoint and one resumed from it (its 2 steps: 130 / 146 / 16), and a
+   checkpoint the CLI wrote on the CPU (tiny) resumed on the card;
 7. the image train path at the same width (``--obs image``: 7x7 views of
    8-pixel tiles, the cnn_s2d torso, re-rendered minibatches): one rollout
-   (65 launches each of K1 and K3) and four train steps (73 each, K2f and
-   K2b none), with train env-steps/s, each step's mean episode return and
-   the peak device memory; then the CLI with ``--obs image``, two
-   iterations with a checkpoint and one resumed from it;
+   (65 launches each of K1 and K3) and four eager train steps (73 each,
+   K2f and K2b none), with train env-steps/s, each step's mean episode
+   return and the peak device memory; then the CLI with ``--obs image``
+   (graphed), two iterations with a checkpoint and one resumed from it;
 8. the recurrent train paths at the same width: ``--rnn gru`` with the
-   plane-major embed (``MARLGRID_TPU_EMBED_V2=1``), four train steps with
-   65 / 73 / 8 launches of K1 / K5f / K5b and none of K2f, K2b, K3 per
+   plane-major embed (``MARLGRID_TPU_EMBED_V2=1``), four eager train steps
+   with 65 / 73 / 8 launches of K1 / K5f / K5b and none of K2f, K2b, K3 per
    step, and ``--rnn gru --obs image``, four steps with 73 each of K1 and
    K3; each with train env-steps/s, its losses and its peak device memory;
-   then the ``--rnn gru`` CLI, two iterations with a checkpoint (the carry
-   included) and one resumed from it;
+   then the ``--rnn gru`` CLI (graphed), two iterations with a checkpoint
+   (the carry included) and one resumed from it;
 8b. the heterogeneous populations at the same width (``--agent-config``,
    the JAX perf gate's specs, no palettes): views 7/5/7/5 (K1 130, K2f
    146, K2b 16 per step: two groups), the same with ``--rnn gru`` on the
    plane-major embed (K1 130, K5f 146, K5b 16) and encode + image agents
-   at T = 32 (K1 74, K2f 41, K2b 8, K3 41), four train steps each with
-   train env-steps/s and peak memory, and each embed kernel held against
-   its plain version on the first step's own codes, tables and output
-   gradients; then the ``--agent-config`` CLI with a resume;
-9. torch.profiler over a short rollout, one train step, one image train
-   step, one recurrent train step and one step of each all-encode hetero
-   path (feedforward and recurrent), by stage;
+   at T = 32 (K1 74, K2f 41, K2b 8, K3 41), four eager train steps each
+   with train env-steps/s and peak memory, and each embed kernel held
+   against its plain version on the first step's own codes, tables and
+   output gradients; then the ``--agent-config`` CLI (graphed) with a
+   resume;
+9. torch.profiler over a short rollout, one eager train step, one image
+   train step, one recurrent train step and one step of each all-encode
+   hetero path (feedforward and recurrent), by stage;
+9b. graphs: each train step as one CUDA graph (``parallel/graph.py``)
+   against its eager step from one start, at full width for encode,
+   recurrent encode and hetero recurrent, at B = 1024 for image, the mixed
+   population and ``--overlap``: two eager runs of four steps (a step of
+   the first under ``torch.cuda.set_sync_debug_mode('error')``), ``jit=True``
+   four calls and ``multi_step`` with k = 2 twice; env state and key
+   bit-equal, weights, Adam's state, carry and metrics bit-equal or within
+   the eager runs' spread, launches per replayed step equal to the eager
+   step's; eager and graphed train env-steps/s, the capture's seconds,
+   peak memory, and the busy and idle time of one profiled replay beside
+   phase 9's eager step;
 10. the env-only phase at bench.py's config (cluttered 15x15, 3 agents,
    25 clutter, B = 32768, T = 16 random actions, board pool 256), with
    encode and with image observations;
@@ -178,17 +192,9 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 def kernel_wrappers():
     """Name -> wrapper of every kernel of the port; each wrapper counts its
     launches in ``.launches``."""
-    from marlgrid_tpu_torch.ops import embed, embed2, sprite, transpose
-    from marlgrid_tpu_torch.probes import embed_roofline
+    from marlgrid_tpu_torch.ops import kernel_wrappers as wrappers
 
-    return {"transpose_bk": transpose.transpose_bk,
-            "onehot_embed_fwd": embed.onehot_embed,
-            "onehot_embed_bwd": embed.onehot_embed_bwd,
-            "compose_image_b": sprite.compose_image_b,
-            "onehot_embed2_fwd": embed2.onehot_embed2,
-            "onehot_embed2_bwd": embed2.onehot_embed2_bwd,
-            "transpose_traj": transpose.transpose_traj,
-            "embed_variant": embed_roofline.fwd_variant}
+    return wrappers()
 
 
 def want_counts(**launches):
@@ -983,7 +989,8 @@ def phase_train(seed, card, steps=4):
     env = ppo.init_env_batch(ep, B, rng.fold_in(key, 1), stagger=True,
                              device="cuda")
     key = rng.fold_in(key, 2)
-    step = ppo.make_train_step(ep, cfg, net, opt, device="cuda")
+    # the eager step (jit=False): the profile phase reads its stages
+    step = ppo.make_train_step(ep, cfg, net, opt, device="cuda", jit=False)
     w0 = [p.detach().clone() for p in net.parameters()]
     want = want_counts(
         transpose_bk=T + 1,
@@ -1045,7 +1052,10 @@ def phase_rnn(seed, card, steps=4):
     env = ppo.init_env_batch(ep, B, rng.fold_in(key, 1), stagger=True,
                              device="cuda")
     key = rng.fold_in(key, 2)
-    step = ppo_rnn.make_train_step_rnn(ep, cfg, net, opt, device="cuda")
+    # the eager step (jit=False): the profile phase and chip_pair.py read
+    # its stages
+    step = ppo_rnn.make_train_step_rnn(ep, cfg, net, opt, device="cuda",
+                                       jit=False)
     n_up = cfg.n_epochs * cfg.n_minibatches
     want = want_counts(transpose_bk=T + 1, onehot_embed2_fwd=T + 1 + n_up,
                        onehot_embed2_bwd=n_up)
@@ -1105,7 +1115,8 @@ def phase_rnn_image(seed, card, steps=4):
     env = ppo.init_env_batch(ep, B, rng.fold_in(key, 1), stagger=True,
                              device="cuda")
     key = rng.fold_in(key, 2)
-    step = ppo_rnn.make_train_step_rnn(ep, cfg, net, opt, device="cuda")
+    step = ppo_rnn.make_train_step_rnn(ep, cfg, net, opt, device="cuda",
+                                       jit=False)
     n_up = cfg.n_epochs * cfg.n_minibatches
     want = want_counts(transpose_bk=T + 1 + n_up,
                        compose_image_b=T + 1 + n_up)
@@ -1208,7 +1219,7 @@ def phase_image(seed, card, steps=4):
           f"({B * T / dt:,.0f} env-steps/s), launches {counts}, {n_done} "
           f"episodes ended [{card}]")
 
-    step = ppo.make_train_step(ep, cfg, net, opt, device="cuda")
+    step = ppo.make_train_step(ep, cfg, net, opt, device="cuda", jit=False)
     w0 = [p.detach().clone() for p in net.parameters()]
     n_up = cfg.n_epochs * cfg.n_minibatches
     want = want_counts(transpose_bk=T + 1 + n_up,
@@ -1250,25 +1261,29 @@ def phase_image(seed, card, steps=4):
                 traj=traj, ep=ep, cfg=cfg)
 
 
-def phase_cli(card, flags=(), want=None, plane_major=False):
+def phase_cli(card, flags=(), want=None, plane_major=False, spc=1):
     """The training CLI at its defaults plus ``flags`` (the train path's
     config, the image train path's with ``--obs image``, the recurrent
-    one's with ``--rnn gru``) on the card: two iterations with a
-    checkpoint, then one more resumed from it, the launch counts read around
-    the resumed run (``want``). ``plane_major``: run with
-    ``MARLGRID_TPU_EMBED_V2=1``. A ``--rnn`` checkpoint must hold the
-    carry of the whole batch, which the resumed run restores."""
+    one's with ``--rnn gru``) on the card, graphed (``make_train_step*(...,
+    jit=True)``, or with ``spc`` > 1 ``--steps-per-call spc``: one captured
+    step replayed ``spc`` times a call): two calls with a checkpoint after
+    the second, then one call resumed from it, the launch counts read
+    around it (``want`` per iteration; with ``spc`` > 1 its first step runs
+    eagerly and the others replay the graph captured on the restored
+    tensors). ``plane_major``: run with ``MARLGRID_TPU_EMBED_V2=1``. A
+    ``--rnn`` checkpoint must hold the carry of the whole batch, which the
+    resumed run restores."""
     import tempfile
 
     from marlgrid_tpu_torch.parallel import train
     from marlgrid_tpu_torch.utils import checkpoint
 
-    flags = list(flags)
+    flags = list(flags) + (["--steps-per-call", str(spc)] if spc > 1 else [])
     with tempfile.TemporaryDirectory() as tmp:
         ck, log = f"{tmp}/ck", f"{tmp}/m.jsonl"
         t0 = time.perf_counter()
         with embed_v2(plane_major):
-            train.main(flags + ["--iters", "2", "--metrics", log,
+            train.main(flags + ["--iters", str(2 * spc), "--metrics", log,
                                 "--checkpoint-dir", ck, "--checkpoint-every",
                                 "2"])
         first = time.perf_counter() - t0
@@ -1283,25 +1298,54 @@ def phase_cli(card, flags=(), want=None, plane_major=False):
                                      f"{tuple(h.shape)}")
         zero_counts()
         with embed_v2(plane_major):
-            train.main(flags + ["--iters", "1", "--metrics", log, "--resume",
-                                ck])
+            train.main(flags + ["--iters", str(spc), "--metrics", log,
+                                "--resume", ck])
         counts = read_counts()
         recs += [json.loads(line) for line in open(log)]
+    want = {k: spc * v for k, v in want.items()}
     if counts != want:
-        raise AssertionError(f"resumed CLI iteration {flags}: launches "
+        raise AssertionError(f"resumed CLI iterations {flags}: launches "
                              f"{counts}, want {want}")
     for r in recs:
         if not (math.isfinite(r["loss"]) and r["n_episodes"] > 0):
             raise AssertionError(f"CLI metrics {r}")
     print(f"[cli] python -m marlgrid_tpu_torch.parallel.train "
           f"{' '.join(flags) or '(defaults)'} (torso "
-          f"{config['ppo']['torso']}): 2 iterations + checkpoint in "
-          f"{first:.2f} s, then 1 resumed; launches {counts}; "
+          f"{config['ppo']['torso']}), graphed: {2 * spc} iterations + "
+          f"checkpoint in {first:.2f} s, then {spc} resumed; launches "
+          f"{counts}; "
           f"env_steps_per_s "
           f"{', '.join(format(r['env_steps_per_s'], ',.0f') for r in recs)} "
           f"[{card}]")
     return dict(env_steps_per_s=[r["env_steps_per_s"] for r in recs],
                 returns=[r["episode_return"] for r in recs], counts=counts)
+
+
+def phase_cli_cpu_resume(card):
+    """A checkpoint written by the CLI on the CPU (Adam's step counts on
+    the CPU, in its plain form) resumed on the card, where Adam is
+    capturable and the step graphed: tiny config, one iteration on the
+    CPU, two on the card (eager, then captured on the restored state)."""
+    import tempfile
+
+    from marlgrid_tpu_torch.parallel import train
+
+    tiny = ["--scenario", "empty", "--grid-size", "9", "--agents", "2",
+            "--envs", "64", "--rollout", "8", "--hidden", "32"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, log = f"{tmp}/ck", f"{tmp}/m.jsonl"
+        train.main(tiny + ["--device", "cpu", "--iters", "1",
+                           "--checkpoint-dir", ck, "--checkpoint-every", "1"])
+        net = train.main(tiny + ["--iters", "2", "--resume", ck,
+                                 "--metrics", log])
+        recs = [json.loads(line) for line in open(log)]
+    if len(recs) != 2 or not all(math.isfinite(r["loss"]) for r in recs) \
+            or not all(bool(torch.isfinite(p).all())
+                       for p in net.parameters()):
+        raise AssertionError(f"CPU checkpoint resumed on the card: {recs}")
+    print(f"[cli] a CPU-written checkpoint (empty 9x9, B=64) resumed on the "
+          f"card, graphed: 2 iterations, losses "
+          f"{', '.join(format(r['loss'], '.5f') for r in recs)} [{card}]")
 
 
 def profile_stages(run, prefixes, card, title):
@@ -1311,7 +1355,10 @@ def profile_stages(run, prefixes, card, title):
     holds its start; a kernel outside every such span (the autograd engine
     launches the backward from its own thread, outside the main thread's
     labels) counts for the label whose span on the host's timeline holds
-    its start. Host time is the stage label's span on the host."""
+    its start. Host time is the stage label's span on the host. It reads
+    the profiler's raw events: ``prof.events()`` first builds a tree of
+    every event, which takes a minute or more for an eager train step's
+    events."""
     import bisect
 
     from torch.autograd import DeviceType
@@ -1323,10 +1370,11 @@ def profile_stages(run, prefixes, card, title):
         run()
         sync()
         wall = time.perf_counter() - t0
-    events = prof.events()
-    on_card = [e for e in events if e.device_type == DeviceType.CUDA]
-    kernels = [e for e in on_card if not e.is_user_annotation]
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e6
+    events = [e for e in prof.profiler.kineto_results.events()
+              if not getattr(e, "is_hidden_event", lambda: False)()]
+    on_card = [e for e in events if e.device_type() == DeviceType.CUDA]
+    kernels = [e for e in on_card if not e.is_user_annotation()]
+    busy = sum(e.duration_ns() for e in kernels) / 1e9
     out = dict(wall_s=wall, device_busy_s=busy, device_ops=len(kernels),
                stages={}, top={})
     if busy <= 0:
@@ -1335,14 +1383,14 @@ def profile_stages(run, prefixes, card, title):
         return out
 
     def spans_of(evs):
-        sp = sorted((e.time_range.start, e.time_range.end, e.name)
-                    for e in evs if e.name.startswith(prefixes))
+        sp = sorted((e.start_ns(), e.end_ns(), e.name()) for e in evs
+                    if e.name().startswith(prefixes))
         return [x[0] for x in sp], sp
 
     dev_starts, dev_spans = spans_of(e for e in on_card
-                                     if e.is_user_annotation)
-    host_events = [e for e in events if e.device_type == DeviceType.CPU]
-    host_starts, host_spans = spans_of(host_events)
+                                     if e.is_user_annotation())
+    host_starts, host_spans = spans_of(
+        e for e in events if e.device_type() == DeviceType.CPU)
 
     def stage_of(t):
         for starts, spans in ((dev_starts, dev_spans),
@@ -1354,15 +1402,16 @@ def profile_stages(run, prefixes, card, title):
 
     stage = {}
     for e in kernels:
-        d = stage.setdefault(stage_of(e.time_range.start), [0.0, 0])
-        d[0] += e.time_range.elapsed_us() / 1e3
+        ms = e.duration_ns() / 1e6
+        d = stage.setdefault(stage_of(e.start_ns()), [0.0, 0])
+        d[0] += ms
         d[1] += 1
-        top = out["top"].setdefault(e.name[:90], [0.0, 0])
-        top[0] += e.time_range.elapsed_us() / 1e3
+        top = out["top"].setdefault(e.name()[:90], [0.0, 0])
+        top[0] += ms
         top[1] += 1
     host = {}
     for st, en, name in host_spans:
-        host[name] = host.get(name, 0.0) + (en - st) / 1e3
+        host[name] = host.get(name, 0.0) + (en - st) / 1e6
     print(f"[profile] {title}: wall {wall * 1e3:.1f} ms, kernels busy "
           f"{busy * 1e3:.1f} ms (device idle share {1 - busy / wall:.3f}), "
           f"{len(kernels)} device ops [{card}]")
@@ -2337,7 +2386,9 @@ def phase_hetero(seed, card, name, steps=4):
     env = ppo.init_env_batch(ep, B, rng.fold_in(key, 1), stagger=True,
                              device="cuda")
     key = rng.fold_in(key, 2)
-    step = train_mod.make_step(ep, cfg, net, opt, dev)
+    # the eager step (jit=False): the profile phase and chip_pair.py read
+    # its stages
+    step = train_mod.make_step(ep, cfg, net, opt, dev, jit=False)
     want = hetero_counts(ep, cfg, plane_major)
     w0 = [p.detach().clone() for p in net.parameters()]
     secs, metrics = [], []
@@ -2390,6 +2441,215 @@ def phase_hetero(seed, card, name, steps=4):
     return dict(counts=got, seconds=secs, metrics=metrics, peak_gb=peak_gb,
                 env_steps_per_s=B * T / steady, step=step, env=env, h=h,
                 key=key, embed_errs=errs, embed_5x5=embed_5x5)
+
+
+#: the graphs phase's paths: (train CLI flags, plane-major embed, B). The
+#: three largest host shares at full width; image, the mixed population and
+#: --overlap at B = 1024 (an eager step's host time does not depend on B)
+GRAPH_PATHS = {
+    "encode": ((), False, 4096),
+    "rnn": (("--rnn", "gru"), True, 4096),
+    "hetero-rnn": (HETERO_PATHS["hetero-rnn"][0], True, 4096),
+    "image": (("--obs", "image"), False, 1024),
+    "hetero-mixed": (HETERO_PATHS["hetero-mixed"][0], False, 1024),
+    "overlap": (("--overlap",), False, 1024),
+}
+
+
+def _clone_tree(tree):
+    from marlgrid_tpu_torch.parallel import graph
+
+    leaves, spec = graph.flatten(tree)
+    return graph.unflatten(spec, [x.clone() for x in leaves])
+
+
+def _max_diff(xs, ys):
+    """max |x - y| over paired tensors (inf if a shape differs; NaN if a
+    value is NaN, which fails every bar)."""
+    d = 0.0
+    for x, y in zip(xs, ys, strict=True):
+        if x.shape != y.shape:
+            return math.inf
+        if x.numel():
+            d = max(d, float((x.double() - y.double()).abs().max()))
+    return d
+
+
+def phase_graphs(seed, card, name, n=4, envs=None, profile=True):
+    """One path's train step graphed against its eager step, from one start
+    (``GRAPH_PATHS[name]``'s CLI config at B = ``envs`` or the path's own):
+    the weights, Adam's state and the carry (env state, key; ``h``, or the
+    overlap step's priming rollout) copied before, and restored for every
+    run. Runs: eager ``n`` steps (``jit=False``) twice, the second step of
+    the first run under ``torch.cuda.set_sync_debug_mode('error')`` (a host
+    sync in the step raises); ``jit=True`` ``n`` calls; ``ppo.multi_step``
+    (``multi_step_rnn``, ``multi_step_overlap``) of the raw step with k = 2,
+    ``n // 2`` calls. Every call's launch counts equal :func:`hetero_counts`
+    times its steps. Bars: after the ``n`` steps each graphed run's env
+    state and key are bit-equal to the first eager run's; its weights,
+    Adam's moments and step counts, the rest of its carry and the last
+    step's metrics are bit-equal too, or (where the two eager runs differ)
+    no farther from either eager run than the two are from each other.
+    Prints train env-steps/s of each run (median of its steps after the
+    first; a multi-step call's time over its 2 steps), the capture's
+    seconds, peak device memory and, with ``profile``, the device busy and
+    idle time of one profiled replay."""
+    import copy
+
+    from marlgrid_tpu_torch.core import rng
+    from marlgrid_tpu_torch.parallel import graph, ppo, ppo_rnn
+    from marlgrid_tpu_torch.parallel import train as train_mod
+
+    flags, plane_major, B = GRAPH_PATHS[name]
+    B = envs or B
+    ep, cfg = cli_config(*flags, "--envs", str(B))
+    T = cfg.rollout_len
+    dev = torch.device("cuda")
+    overlap = "--overlap" in flags
+    with embed_v2(plane_major):
+        net, opt, h = train_mod.init(ep, cfg,
+                                     torch.Generator().manual_seed(seed), dev)
+    key = rng.PRNGKey(seed, device=dev)
+    env = ppo.init_env_batch(ep, B, rng.fold_in(key, 1), stagger=True,
+                             device=dev)
+    key = rng.fold_in(key, 2)
+    if overlap:
+        _, prime = ppo.make_train_step(ep, cfg, net, opt, device=dev,
+                                       overlap=True, jit=False)
+        carry0 = prime(env, key)
+    else:
+        carry0 = (env, key) if h is None else (env, h, key)
+    carry0 = _clone_tree(carry0)
+    w0 = {k: v.clone() for k, v in net.state_dict().items()}
+    o0 = copy.deepcopy(opt.state_dict())
+    per_step = hetero_counts(ep, cfg, plane_major)   # one group if homogeneous
+
+    def make(jit):
+        if overlap:
+            return ppo.make_train_step(ep, cfg, net, opt, device=dev,
+                                       overlap=True, jit=jit)[0]
+        return train_mod.make_step(ep, cfg, net, opt, dev, jit=jit)
+
+    def run(mode, sync_check=False):
+        net.load_state_dict(w0)
+        opt.load_state_dict(copy.deepcopy(o0))
+        carry = _clone_tree(carry0)
+        k = 1
+        if mode == "eager":
+            step = make(False)
+        elif mode == "graphed":
+            step = make(True)
+        else:
+            k = 2
+            multi = ppo_rnn.multi_step_rnn if h is not None else (
+                ppo.multi_step_overlap if overlap else ppo.multi_step)
+            step = multi(make(False), k)
+        want = {kn: k * v for kn, v in per_step.items()}
+        secs = []
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(n // k):
+            sync()
+            zero_counts()
+            debug = sync_check and i == 1
+            if debug:
+                torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            try:
+                *carry, m = step(*carry)
+            finally:
+                if debug:
+                    torch.cuda.set_sync_debug_mode("default")
+            sync()
+            secs.append((time.perf_counter() - t0) / k)
+            got = read_counts()
+            if got != want:
+                raise AssertionError(f"graphs {name} {mode} call {i}: "
+                                     f"launches {got}, want {want}")
+        peak = (torch.cuda.max_memory_allocated() / 1e9,
+                torch.cuda.max_memory_reserved() / 1e9)
+        # the returned carry is donated: clone what is compared
+        leaves = [x.clone() for x in graph.flatten(tuple(carry))[0]]
+        n_env = len(graph.flatten(carry[0])[0])
+        gs = step.step if mode == "multi" else step
+        out = dict(
+            env_key=leaves[:n_env] + leaves[-1:], carry=leaves[n_env:-1],
+            weights=[v.clone() for v in net.state_dict().values()],
+            moments=[t.clone() for st in opt.state.values()
+                     for t in (st["exp_avg"], st["exp_avg_sq"], st["step"])],
+            metrics={kn: float(v) for kn, v in m.items()},
+            secs=secs, peak_gb=peak, profile=None,
+            capture_s=getattr(gs, "capture_s", None))
+        if profile and mode == "graphed":
+            out["profile"] = profile_stages(
+                lambda: step(*carry), ("rollout.", "update."), card,
+                f"graphs {name}: one graphed step (a replay; B={B}, T={T})")
+        del step, gs, carry, m
+        torch.cuda.empty_cache()
+        return out
+
+    runs = {"eager": run("eager", sync_check=True), "eager2": run("eager"),
+            "graphed": run("graphed"), "multi": run("multi")}
+
+    def dist(a, b):
+        return dict(
+            weights=_max_diff(a["weights"], b["weights"]),
+            moments=_max_diff(a["moments"], b["moments"]),
+            carry=_max_diff(a["carry"], b["carry"]),
+            metrics=max(abs(a["metrics"][kn] - b["metrics"][kn])
+                        for kn in a["metrics"]))
+
+    e1, e2 = runs["eager"], runs["eager2"]
+    spread = dist(e1, e2)
+    report = dict(B=B, T=T, spread=spread)
+    for mode in ("graphed", "multi"):
+        g = runs[mode]
+        for e in (e1, e2):
+            if not all(torch.equal(x, y) for x, y in zip(
+                    g["env_key"], e["env_key"], strict=True)):
+                raise AssertionError(f"graphs {name} {mode}: the env state "
+                                     f"or key differs from an eager run's")
+        d1, d2 = dist(g, e1), dist(g, e2)
+        for what, bar in spread.items():
+            if not (d1[what] <= bar and d2[what] <= bar):
+                raise AssertionError(
+                    f"graphs {name} {mode}: {what} {d1[what]:.3e} / "
+                    f"{d2[what]:.3e} from the eager runs, which are "
+                    f"{bar:.3e} apart")
+        report[mode] = dict(vs_eager=d1, vs_eager2=d2)
+    rates = {}
+    for mode, r in runs.items():
+        steady = sorted(r["secs"][1:])[len(r["secs"][1:]) // 2]
+        rates[mode] = B * T / steady
+        report[mode] = dict(report.get(mode, {}), seconds=r["secs"],
+                            env_steps_per_s=rates[mode], peak_gb=r["peak_gb"],
+                            capture_s=r["capture_s"], profile=r["profile"])
+    exact = all(v == 0 for v in spread.values())
+    print(f"[graphs] {name} ({' '.join(flags) or 'defaults'}, B={B}, T={T}): "
+          f"launches per step {per_step}, equal on every eager, captured "
+          f"and replayed step; no host sync in an eager step; after {n} "
+          f"steps the env state and key of jit=True and multi_step(k=2) "
+          f"bit-equal to both eager runs; "
+          + ("weights, Adam's state, carry and metrics bit-equal too "
+             "(the eager runs are bit-equal)" if exact else
+             f"eager vs eager spread {spread}, graphed vs eager "
+             f"{report['graphed']['vs_eager']}, multi_step vs eager "
+             f"{report['multi']['vs_eager']}"))
+    print(f"[graphs] {name}: train env-steps/s eager {rates['eager']:,.0f} "
+          f"(second eager run {rates['eager2']:,.0f}), graphed "
+          f"{rates['graphed']:,.0f}, multi_step(k=2) {rates['multi']:,.0f} "
+          f"({rates['graphed'] / rates['eager']:.2f}x eager); step seconds "
+          f"eager {', '.join(f'{t:.3f}' for t in e1['secs'])}, graphed "
+          f"{', '.join(f'{t:.3f}' for t in runs['graphed']['secs'])}; "
+          f"capture {runs['graphed']['capture_s']} s (multi_step "
+          f"{runs['multi']['capture_s']} s); peak device memory "
+          f"allocated / reserved eager {e1['peak_gb'][0]:.2f} / "
+          f"{e1['peak_gb'][1]:.2f} GB, graphed "
+          f"{runs['graphed']['peak_gb'][0]:.2f} / "
+          f"{runs['graphed']['peak_gb'][1]:.2f} GB [{card}]")
+    del net, opt, h, carry0, w0, o0, runs
+    torch.cuda.empty_cache()
+    return report
 
 
 def _to(tree, dev):
@@ -2495,7 +2755,15 @@ def main(argv=None):
     from marlgrid_tpu_torch.core.state import EnvParams, default_agent_colors
 
     t_start = time.perf_counter()
+    clock = {}
+
+    def stamp(label):
+        """Print and keep the run's elapsed seconds after a phase."""
+        clock[label] = time.perf_counter() - t_start
+        print(f"[clock] {label}: done at {clock[label]:.1f} s", flush=True)
+
     phase_build()
+    stamp("build")
     k1_err = phase_transpose()
     gc = EnvParams(width=13, height=13, n_agents=4, scenario="goal_cycle",
                    observation_style="encode",
@@ -2506,14 +2774,18 @@ def main(argv=None):
                 onehot_embed2_fwd=phase_embed2(pals),
                 onehot_embed2_bwd=phase_embed2_bwd(pals),
                 compose_image_b=phase_sprite(args.seed))
+    stamp("kernel phases")
     phase_reference(args.seed)
     for name in HETERO_PATHS:
         reference_hetero(args.seed, name)
+    stamp("reference")
     roll = phase_rollout(args.seed, card)
     tim_k4 = phase_transpose_traj(roll["traj_obs"], card)
     train = phase_train(args.seed, card)
     cli = phase_cli(card, (), want_counts(
-        transpose_bk=65, onehot_embed_fwd=73, onehot_embed_bwd=8))
+        transpose_bk=65, onehot_embed_fwd=73, onehot_embed_bwd=8), spc=2)
+    phase_cli_cpu_resume(card)
+    stamp("rollout, K4, train")
     image = phase_image(args.seed, card)
     cli_image = phase_cli(card, ("--obs", "image"), want_counts(
         transpose_bk=73, compose_image_b=73))
@@ -2522,6 +2794,7 @@ def main(argv=None):
     cli_rnn = phase_cli(card, ("--rnn", "gru"), want_counts(
         transpose_bk=65, onehot_embed2_fwd=73, onehot_embed2_bwd=8),
         plane_major=True)
+    stamp("image, recurrent")
     hetero = {name: phase_hetero(args.seed, card, name)
               for name in HETERO_PATHS}
     for v in hetero.values():
@@ -2529,9 +2802,30 @@ def main(argv=None):
             errs[kname] = max(errs[kname], err)
     cli_hetero = phase_cli(card, HETERO_PATHS["hetero"][0], hetero_counts(
         *cli_config(*HETERO_PATHS["hetero"][0]), plane_major=False))
+    stamp("hetero")
     prof = phase_profile(roll, train, image, rnn, hetero, card)
+    stamp("profile")
+    graphs = {name: phase_graphs(args.seed, card, name,
+                                 profile=GRAPH_PATHS[name][2] == 4096)
+              for name in GRAPH_PATHS}
+    for name, eager in (("encode", "train_step"), ("rnn", "rnn_train_step"),
+                        ("hetero-rnn", "hetero_rnn_train_step")):
+        g, e = graphs[name]["graphed"]["profile"], prof[eager]
+        if g["device_busy_s"] <= 0:
+            continue                  # profile_stages said: not measured
+        print(f"[graphs] {name} step (B=4096, T=64), profiled: eager wall "
+              f"{e['wall_s'] * 1e3:.1f} ms, busy "
+              f"{e['device_busy_s'] * 1e3:.1f} ms, idle share "
+              f"{1 - e['device_busy_s'] / e['wall_s']:.3f}, {e['device_ops']} "
+              f"device ops; graphed wall {g['wall_s'] * 1e3:.1f} ms, busy "
+              f"{g['device_busy_s'] * 1e3:.1f} ms, idle "
+              f"{(g['wall_s'] - g['device_busy_s']) * 1e3:.1f} ms, idle share "
+              f"{1 - g['device_busy_s'] / g['wall_s']:.3f}, "
+              f"{g['device_ops']} device ops [{card}]")
+    stamp("graphs")
     env = phase_env_only(args.seed, card)
     env_img = phase_env_only(args.seed, card, "image")
+    stamp("env-only")
     tim = phase_timings(roll, card, args.seed)
     tim["compose_image_b"] = phase_timings_k3(image, env_img, card,
                                               args.seed)
@@ -2600,6 +2894,7 @@ def main(argv=None):
         for extra in ("mma_bound_ms", "copy_ms"):
             if extra in k:
                 kernels[-1][extra] = k[extra]
+    stamp("timings and probes")
     total_s = time.perf_counter() - t_start
     if args.json:
         with open(args.json, "w") as f:
@@ -2632,7 +2927,8 @@ def main(argv=None):
                                "env_steps_per_s", "seconds", "counts")},
                            env_only_image={k: env_img[k] for k in (
                                "env_steps_per_s", "seconds", "counts")},
-                           profile=prof, timings=tim, total_s=total_s), f,
+                           profile=prof, graphs=graphs, timings=tim,
+                           clock_s=clock, total_s=total_s), f,
                       indent=1)
     print(f"[done] all phases passed in {total_s:.1f} s; rollout "
           f"{roll['env_steps_per_s']:,.0f} env-steps/s, train "
@@ -2642,6 +2938,11 @@ def main(argv=None):
           f"{rnn_image['env_steps_per_s']:,.0f}, "
           + "".join(f"{n} train {v['env_steps_per_s']:,.0f}, "
                     for n, v in hetero.items())
+          + "graphed train "
+          + "".join(f"{n} {v['graphed']['env_steps_per_s']:,.0f} "
+                    f"(eager {v['eager']['env_steps_per_s']:,.0f}, "
+                    f"B={v['B']}), "
+                    for n, v in graphs.items())
           + f"env-only "
           f"{env['env_steps_per_s']:,.0f}, image env-only "
           f"{env_img['env_steps_per_s']:,.0f} env-steps/s on {card}")

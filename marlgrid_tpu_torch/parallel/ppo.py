@@ -19,11 +19,14 @@ feedforward paths:
 ``init_state`` (the network and Adam behind an optax-style global-norm
 clip), ``episode_metrics``, ``_gae``, ``make_rollout`` (the JAX ``rollout``
 inside ``make_train_step``, a Python loop in place of ``lax.scan``),
-``make_update`` (the block-granular minibatch update) and
-``make_train_step`` (the two, with the JAX step's key plumbing). The
-network and the optimizer are stateful torch objects: the step functions
-update them in place and take and return the env state and the key, where
-the JAX step functions take and return params and opt_state.
+``make_update`` (the block-granular minibatch update),
+``make_train_step`` (the two, with the JAX step's key plumbing; with
+``jit=True``, JAX's default, one CUDA graph of the whole step on the card,
+``parallel/graph.py``), and ``multi_step`` / ``multi_step_overlap`` (k
+steps per call, the graph replayed k times). The network and the optimizer
+are stateful torch objects: the step functions update them in place and
+take and return the env state and the key, where the JAX step functions
+take and return params and opt_state.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from ..core import grid_gen, obs as obs_mod, rng, step as step_mod
 from ..core.state import FIELDS, EnvParams, EnvState
 from ..device import const, resolve
 from ..models import ActorCritic
+from .graph import GraphedStep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,9 +196,15 @@ def init_state(env_params: EnvParams, cfg: PPOConfig, generator=None,
 
 def make_optimizer(net, cfg: PPOConfig):
     """Adam at optax's defaults (b1 0.9, b2 0.999, eps 1e-8 outside the
-    square root, single-tensor form) over ``net``'s parameters."""
-    return torch.optim.Adam(net.parameters(), lr=cfg.lr, betas=(0.9, 0.999),
-                            eps=1e-8, foreach=False)
+    square root, single-tensor form) over ``net``'s parameters. On the card
+    it is ``capturable`` (its step counts and bias corrections live on the
+    device), so that a train step can be captured into a CUDA graph; the
+    eager step uses the same form, so both run the same arithmetic. torch
+    refuses ``capturable`` on the CPU, which keeps the plain form."""
+    params = list(net.parameters())
+    return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+                            foreach=False,
+                            capturable=params[0].device.type == "cuda")
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -468,6 +478,9 @@ def run_epochs(minibatches, loss_fn, params, optimizer, key, cfg: PPOConfig,
                 optimizer.step()
             losses.append(total.detach())
             auxs.append({k: v.detach() for k, v in aux.items()})
+    for p in params:
+        # a captured step's last gradients would pin the graph's memory
+        p.grad = None
     metrics = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
     metrics["loss"] = torch.stack(losses).mean()
     return metrics
@@ -581,11 +594,19 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
 
 
 def make_train_step(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
-                    device="cuda", overlap=False):
+                    device="cuda", overlap=False, jit=True):
     """Build the rollout + update step, the JAX ``make_train_step`` on one
     device (encode/mlp, or image/rich with a pixels torso):
     :func:`make_rollout` then :func:`make_update`, with the JAX step's key
     plumbing.
+
+    ``jit=True`` (JAX's default): on the card the step is a
+    ``graph.GraphedStep``, one CUDA graph of the whole step replayed per
+    call (its first call runs eagerly, its second captures), whose
+    returned tensors are donated: the next call overwrites them. On the
+    CPU it runs the raw step. ``jit=False``: the raw eager step, for
+    :func:`multi_step` and for profiling by stage (the ``record_function``
+    labels exist only in an eager step).
 
     ``overlap=False``: ``train_step(env_state, key) -> (env_state, key,
     metrics)``; the update takes the key the rollout returns, and the key
@@ -598,7 +619,8 @@ def make_train_step(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     call's rollout collects the next (one iteration stale). ``net`` and
     ``optimizer`` (from :func:`init_state`) are updated in place.
     ``metrics`` are the update's and :func:`episode_metrics` of the
-    rollout, as 0-d device tensors.
+    rollout, as 0-d device tensors. With ``jit=True`` the overlap step is
+    graphed and ``rollout_only``, called once, stays eager.
     """
     dev = resolve(device)
     rollout = make_rollout(env_params, cfg, net, device=dev)
@@ -627,5 +649,38 @@ def make_train_step(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
         return env_state, (traj, last_value), rng.fold_in(key, 1), metrics
 
     if overlap:
+        if jit:
+            train_step_overlap = GraphedStep(
+                train_step_overlap, "ppo.make_train_step(overlap=True)")
         return train_step_overlap, rollout_only
+    if jit:
+        return GraphedStep(train_step, "ppo.make_train_step")
     return train_step
+
+
+def multi_step(step_fn, k: int):
+    """``k`` train steps per call, the JAX ``multi_step`` contract:
+    ``fn(*carry) -> (*carry, metrics of the last of the k steps)``, for any
+    step of the port (``(env_state, key)``, the overlap step's
+    ``(env_state, prev, key)``, the recurrent ``(env_state, h, key)``).
+    ``step_fn`` is the raw step (``jit=False``). On the card it is captured
+    once as a ``graph.GraphedStep`` and replayed k times per call: k graph
+    launches, where a k-step graph would multiply the capture's size and
+    instantiation time and save nothing. Returned tensors are donated, as
+    the graphed step's."""
+    step = GraphedStep(step_fn, f"multi_step(k={k})")
+
+    def fn(*carry):
+        for _ in range(k):
+            *carry, metrics = step(*carry)
+        return (*carry, metrics)
+
+    fn.step = step
+    return fn
+
+
+def multi_step_overlap(step_fn, k: int):
+    """:func:`multi_step` for the overlap step from ``make_train_step(...,
+    overlap=True, jit=False)``: the double-buffered ``prev`` rides the
+    carry."""
+    return multi_step(step_fn, k)

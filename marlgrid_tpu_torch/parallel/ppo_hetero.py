@@ -41,6 +41,7 @@ from ..core.state import EnvParams
 from ..device import const, resolve
 from ..models import ActorCritic
 from ..vector import obs_groups
+from .graph import GraphedStep
 from .ppo import (PPOConfig, _stack_states, block_size, episode_metrics,
                   make_optimizer, obs_blocks, ppo_terms, rich_aux,
                   run_epochs, step_labels)
@@ -316,13 +317,16 @@ def make_update_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
 
 
 def make_train_step_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
-                           optimizer, device="cuda"):
+                           optimizer, device="cuda", jit=True):
     """Build ``train_step(env_state, key) -> (env_state, key, metrics)``, the
     JAX ``make_train_step_hetero`` on one device: :func:`make_rollout_hetero`
     then :func:`make_update_hetero`, with the JAX step's key plumbing (the
     update takes the key the rollout returns; the key after the step is
     ``fold_in(that key, 1)``). ``nets`` and ``optimizer`` come from
-    :func:`init_state_hetero` and are updated in place."""
+    :func:`init_state_hetero` and are updated in place. ``jit`` as in
+    ``ppo.make_train_step``: True (the default) gives one CUDA graph of the
+    whole step on the card, its returned tensors donated; False the raw
+    eager step (for ``ppo.multi_step``)."""
     dev = resolve(device)
     rollout = make_rollout_hetero(env_params, cfg, nets, device=dev)
     update = make_update_hetero(env_params, cfg, nets, optimizer, device=dev)
@@ -332,4 +336,6 @@ def make_train_step_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
         metrics = episode_metrics(update(traj, last_value, key), traj)
         return env_state, rng.fold_in(key, 1), metrics
 
+    if jit:
+        return GraphedStep(train_step, "ppo_hetero.make_train_step_hetero")
     return train_step

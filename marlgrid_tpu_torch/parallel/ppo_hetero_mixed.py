@@ -36,6 +36,7 @@ from ..core.state import EnvParams
 from ..device import resolve
 from ..models import ActorCritic
 from ..vector import obs_groups
+from .graph import GraphedStep
 from .ppo import (PPOConfig, aux_dim, episode_metrics, make_optimizer,
                   run_epochs, shuffled_blocks, state_block_size, step_labels)
 from .ppo_hetero import (_LABELS, group_loss, group_obs, label_rows,
@@ -192,12 +193,15 @@ def make_update_hetero_mixed(env_params: EnvParams, cfg: PPOConfig, nets,
 
 
 def make_train_step_hetero_mixed(env_params: EnvParams, cfg: PPOConfig,
-                                 nets, optimizer, device="cuda"):
+                                 nets, optimizer, device="cuda", jit=True):
     """Build ``train_step(env_state, key) -> (env_state, key, metrics)``, the
     JAX ``make_train_step_hetero_mixed`` on one device:
     :func:`make_rollout_hetero_mixed` then :func:`make_update_hetero_mixed`,
     with the JAX step's key plumbing. ``nets`` and ``optimizer`` come from
-    :func:`init_state_hetero_mixed` and are updated in place."""
+    :func:`init_state_hetero_mixed` and are updated in place. ``jit`` as in
+    ``ppo.make_train_step``: True (the default) gives one CUDA graph of the
+    whole step on the card, its returned tensors donated; False the raw
+    eager step (for ``ppo.multi_step``)."""
     dev = resolve(device)
     rollout = make_rollout_hetero_mixed(env_params, cfg, nets, device=dev)
     update = make_update_hetero_mixed(env_params, cfg, nets, optimizer,
@@ -208,4 +212,7 @@ def make_train_step_hetero_mixed(env_params: EnvParams, cfg: PPOConfig,
         metrics = episode_metrics(update(traj, last_value, key), traj)
         return env_state, rng.fold_in(key, 1), metrics
 
+    if jit:
+        return GraphedStep(train_step,
+                           "ppo_hetero_mixed.make_train_step_hetero_mixed")
     return train_step

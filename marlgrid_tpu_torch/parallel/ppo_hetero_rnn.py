@@ -29,6 +29,7 @@ from ..core import rng
 from ..core.state import EnvParams
 from ..device import resolve
 from ..models import RecurrentActorCritic
+from .graph import GraphedStep
 from .ppo import (PPOConfig, episode_metrics, make_optimizer, run_epochs,
                   shuffled_blocks, step_labels)
 from .ppo_hetero import (_LABELS, group_loss, hetero_groups, label_rows,
@@ -140,13 +141,16 @@ def make_update_hetero_rnn(env_params: EnvParams, cfg: PPOConfig, nets,
 
 
 def make_train_step_hetero_rnn(env_params: EnvParams, cfg: PPOConfig, nets,
-                               optimizer, device="cuda"):
+                               optimizer, device="cuda", jit=True):
     """Build ``train_step(env_state, h, key) -> (env_state, h, key,
     metrics)``, the JAX ``make_train_step_hetero_rnn`` on one device: the
     rollout of ``ppo_hetero.make_rollout_hetero`` with the carries, then
     :func:`make_update_hetero_rnn` from the carry that entered it, with the
     JAX step's key plumbing. ``nets`` and ``optimizer`` come from
-    :func:`init_state_hetero_rnn` and are updated in place."""
+    :func:`init_state_hetero_rnn` and are updated in place. ``jit`` as in
+    ``ppo.make_train_step``: True (the default) gives one CUDA graph of the
+    whole step on the card, its returned tensors donated; False the raw
+    eager step (for ``ppo_rnn.multi_step_rnn``)."""
     dev = resolve(device)
     _check(env_params, cfg)
     rollout = make_rollout_hetero(env_params, cfg, nets, device=dev)
@@ -159,4 +163,7 @@ def make_train_step_hetero_rnn(env_params: EnvParams, cfg: PPOConfig, nets,
         metrics = episode_metrics(update(traj, h0, last_value, key), traj)
         return env_state, h, rng.fold_in(key, 1), metrics
 
+    if jit:
+        return GraphedStep(train_step,
+                           "ppo_hetero_rnn.make_train_step_hetero_rnn")
     return train_step

@@ -25,6 +25,8 @@ step, in the rollout and in the update alike.
 The network and the optimizer are stateful torch objects: the step
 functions update them in place and take and return ``(env_state, h, key)``,
 where the JAX step functions take and return params and opt_state too.
+``make_train_step_rnn(..., jit=True)`` and ``multi_step_rnn`` run the step
+as one CUDA graph on the card (``parallel/graph.py``).
 ``PPOConfig.cell_unroll`` (the JAX scan's unroll factor) is accepted and
 changes nothing: the cell loop is a Python loop. The shard_map variant waits
 for ROADMAP Slice G.
@@ -41,8 +43,9 @@ from ..core import obs as obs_mod, rng, step as step_mod
 from ..core.state import EnvParams
 from ..device import resolve
 from ..models import RecurrentActorCritic
+from .graph import GraphedStep
 from .ppo import (PPOConfig, _stack_states, aux_dim, episode_metrics,
-                  make_optimizer, ppo_loss, rich_aux, run_epochs,
+                  make_optimizer, multi_step, ppo_loss, rich_aux, run_epochs,
                   shuffled_blocks, step_labels)
 
 _LABELS = ("act", "logp", "val", "adv", "ret")
@@ -355,7 +358,7 @@ def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
 
 
 def make_train_step_rnn(env_params: EnvParams, cfg: PPOConfig, net,
-                        optimizer, device="cuda"):
+                        optimizer, device="cuda", jit=True):
     """Build ``train_step(env_state, h, key) -> (env_state, h, key,
     metrics)``, the JAX ``make_train_step_rnn`` on one device (encode/mlp,
     or image/rich with a pixels torso): :func:`make_rollout_rnn` then
@@ -363,7 +366,10 @@ def make_train_step_rnn(env_params: EnvParams, cfg: PPOConfig, net,
     takes the key the rollout returns; the key after the step is
     ``fold_in(that key, 1)``). ``net`` and ``optimizer`` (from
     :func:`init_state_rnn`) are updated in place; ``metrics`` are the
-    update's and ``ppo.episode_metrics`` of the rollout."""
+    update's and ``ppo.episode_metrics`` of the rollout. ``jit`` as in
+    ``ppo.make_train_step``: True (the default) gives one CUDA graph of the
+    whole step on the card, its returned tensors donated; False the raw
+    eager step."""
     dev = resolve(device)
     rollout = make_rollout_rnn(env_params, cfg, net, device=dev)
     update = make_update_rnn(env_params, cfg, net, optimizer, device=dev)
@@ -373,6 +379,8 @@ def make_train_step_rnn(env_params: EnvParams, cfg: PPOConfig, net,
         metrics = episode_metrics(update(traj, h0s, last_value, key), traj)
         return env_state, h, rng.fold_in(key, 1), metrics
 
+    if jit:
+        return GraphedStep(train_step, "ppo_rnn.make_train_step_rnn")
     return train_step
 
 
@@ -384,12 +392,8 @@ def make_train_step_rnn_shard_map(*args, **kwargs):
 
 
 def multi_step_rnn(step_fn, k: int):
-    """``k`` train steps per call, a Python loop (the JAX ``multi_step_rnn``
-    scans them in one program): ``fn(env_state, h, key) -> (env_state, h,
-    key, metrics of the last step)``."""
-    def fn(env_state, h, key):
-        for _ in range(k):
-            env_state, h, key, metrics = step_fn(env_state, h, key)
-        return env_state, h, key, metrics
-
-    return fn
+    """``ppo.multi_step`` for the recurrent signature (``h`` rides the
+    carry): ``fn(env_state, h, key) -> (env_state, h, key, metrics of the
+    last step)``, the raw step ``step_fn`` (``jit=False``) captured once on
+    the card and replayed k times per call."""
+    return multi_step(step_fn, k)

@@ -18,6 +18,13 @@ Usage:
 ``MARLGRID_TPU_EMBED_V2=1`` in the environment routes the mlp torso's embed
 through the plane-major kernels (K5f, K5b), as it does for the JAX CLI.
 
+On the card a train call replays one CUDA graph of the whole step, wired as
+the JAX CLI wires its jitted steps (:func:`make_call`): the trainer's
+``make_train_step*(..., jit=True)`` for one step per call, ``ppo.multi_step``
+(``ppo_rnn.multi_step_rnn``, ``ppo.multi_step_overlap``) of the raw step for
+``--steps-per-call k``, the captured step replayed k times. The first call
+runs eagerly and the second captures.
+
 The flags and defaults are those of ``python -m marlgrid_tpu.parallel.train``
 plus ``--device`` (default ``cuda``). A flag whose path the port does not
 have yet exits with the name of the ROADMAP slice that brings it. The
@@ -118,9 +125,9 @@ def parse_args(argv=None):
                         "update consumes iteration t-1's trajectory "
                         "(optimized one iteration stale)")
     p.add_argument("--steps-per-call", type=int, default=1,
-                   help="train iterations run between logs and checkpoints "
-                        "(a Python loop here; metrics then have "
-                        "steps-per-call granularity)")
+                   help="train iterations per call (ppo.multi_step: on the "
+                        "card one captured step replayed k times); metrics "
+                        "then have steps-per-call granularity")
     p.add_argument("--no-embed-palette", action="store_true",
                    help="disable the compact per-scenario one-hot "
                         "vocabularies for the encode embed")
@@ -293,19 +300,38 @@ def init(ep: EnvParams, cfg, generator, dev):
     return ppo.init_state(ep, cfg, generator, device=dev) + (None,)
 
 
-def make_step(ep: EnvParams, cfg, net, opt, dev):
+def make_step(ep: EnvParams, cfg, net, opt, dev, jit=True):
     """The train step of the trainer that ``ep`` and ``cfg`` select
-    (without ``--overlap``)."""
+    (without ``--overlap``): graphed on the card with ``jit=True``, the raw
+    eager step with ``jit=False``."""
     if ep.has_hetero_obs and cfg.rnn:
         return ppo_hetero_rnn.make_train_step_hetero_rnn(ep, cfg, net, opt,
-                                                         device=dev)
+                                                         device=dev, jit=jit)
     if ep.has_hetero_obs:
         make = (ppo_hetero_mixed.make_train_step_hetero_mixed if is_mixed(ep)
                 else ppo_hetero.make_train_step_hetero)
-        return make(ep, cfg, net, opt, device=dev)
+        return make(ep, cfg, net, opt, device=dev, jit=jit)
     if cfg.rnn:
-        return ppo_rnn.make_train_step_rnn(ep, cfg, net, opt, device=dev)
-    return ppo.make_train_step(ep, cfg, net, opt, device=dev)
+        return ppo_rnn.make_train_step_rnn(ep, cfg, net, opt, device=dev,
+                                           jit=jit)
+    return ppo.make_train_step(ep, cfg, net, opt, device=dev, jit=jit)
+
+
+def make_call(ep: EnvParams, cfg, net, opt, dev, spc: int, overlap=False):
+    """``(step, prime)``: what one train call runs, wired as the JAX CLI
+    wires it. ``spc`` steps per call: the graphed step (``jit=True``) for
+    one, ``ppo.multi_step`` (``ppo_rnn.multi_step_rnn`` for the recurrent
+    trainers, ``ppo.multi_step_overlap`` with ``overlap``) of the raw step
+    for more. ``prime`` is the overlap step's priming rollout, else
+    None."""
+    if overlap:
+        raw, prime = ppo.make_train_step(ep, cfg, net, opt, device=dev,
+                                         overlap=True, jit=spc == 1)
+        return (ppo.multi_step_overlap(raw, spc) if spc > 1 else raw), prime
+    if spc == 1:
+        return make_step(ep, cfg, net, opt, dev), None
+    multi = ppo_rnn.multi_step_rnn if cfg.rnn else ppo.multi_step
+    return multi(make_step(ep, cfg, net, opt, dev, jit=False), spc), None
 
 
 def _state_dict(net):
@@ -324,12 +350,25 @@ def _load_state_dict(net, sd):
         net.load_state_dict(sd)
 
 
-def _carry_to(h, dev):
-    """A carry (a tensor, an LSTM's pair, or a hetero dict of either) on
-    ``dev``."""
+def load_optimizer(opt, sd):
+    """Load an Adam ``state_dict`` into ``opt`` and keep ``opt``'s own form
+    (capturable on the card, plain on the CPU) whatever device wrote it:
+    ``load_state_dict`` takes the saved groups' flags, so a checkpoint
+    written on the CPU would leave the card's Adam uncapturable (a graphed
+    step then fails to capture), and one written on the card would make
+    the CPU's refuse to step. With the flag set, Adam's step counts land
+    on the parameters' device."""
+    for group in sd["param_groups"]:
+        group["capturable"] = opt.defaults["capturable"]
+    opt.load_state_dict(sd)
+
+
+def _carry_map(fn, h):
+    """``fn`` on each tensor of a carry (a tensor, an LSTM's pair, or a
+    hetero dict of either)."""
     if isinstance(h, dict):
-        return {g: _carry_to(x, dev) for g, x in h.items()}
-    return ppo_rnn.map_carry(lambda t: t.to(dev), h)
+        return {g: _carry_map(fn, x) for g, x in h.items()}
+    return ppo_rnn.map_carry(fn, h)
 
 
 def main(argv=None):
@@ -344,16 +383,18 @@ def main(argv=None):
     key = rng.fold_in(key, 2)
     if args.resume:
         # load on the CPU: load_state_dict moves each tensor where it
-        # belongs (Adam keeps its step counts on the CPU)
+        # belongs (Adam's step counts onto the card, where it is
+        # capturable). Everything is restored before the first call, so a
+        # graphed step captures the restored tensors.
         tree = ckpt_mod.restore(args.resume, map_location="cpu")
         _load_state_dict(net, tree["net"])
-        opt.load_state_dict(tree["opt"])
+        load_optimizer(opt, tree["opt"])
         if "env_state" in tree and "key" in tree:
             env_state = EnvState(**tree["env_state"]).map(
                 lambda t: t.to(dev))
             key = tree["key"].to(dev)
             if h is not None and "h" in tree:
-                h = _carry_to(tree["h"], dev)
+                h = _carry_map(lambda t: t.to(dev), tree["h"])
         else:
             print("warning: the checkpoint holds no env state and key"
                   + (" or carry" if h is not None else "")
@@ -361,14 +402,9 @@ def main(argv=None):
 
     spc = max(1, args.steps_per_call)
     prev = None
-    if args.overlap:
-        step, prime = ppo.make_train_step(ep, cfg, net, opt, device=dev,
-                                          overlap=True)
+    step, prime = make_call(ep, cfg, net, opt, dev, spc, args.overlap)
+    if prime is not None:
         env_state, prev, key = prime(env_state, key)
-    else:
-        step = make_step(ep, cfg, net, opt, dev)
-        if cfg.rnn and spc > 1:
-            step = ppo_rnn.multi_step_rnn(step, spc)
     log = MetricsLogger(args.metrics)
     run_config = dict(format=1, env_params=ep.to_dict(),
                       ppo=ppo.ppo_config_to_dict(cfg))
@@ -384,13 +420,10 @@ def main(argv=None):
     for it in range(n_calls):
         if cfg.rnn:
             env_state, h, key, metrics = step(env_state, h, key)
+        elif args.overlap:
+            env_state, prev, key, metrics = step(env_state, prev, key)
         else:
-            for _ in range(spc):
-                if args.overlap:
-                    env_state, prev, key, metrics = step(env_state, prev,
-                                                         key)
-                else:
-                    env_state, key, metrics = step(env_state, key)
+            env_state, key, metrics = step(env_state, key)
         if (it + 1) % args.log_every == 0 or it == n_calls - 1:
             metrics = {k: float(v) for k, v in metrics.items()}
             n_it = it - last_logged
@@ -404,12 +437,14 @@ def main(argv=None):
                     **metrics)
         if (args.checkpoint_dir and args.checkpoint_every
                 and (it + 1) % args.checkpoint_every == 0):
+            # a graphed step's carry is its static buffers, which the next
+            # call overwrites: the checkpoint clones it
             payload = dict(net=_state_dict(net), opt=opt.state_dict(),
-                           env_state={f: getattr(env_state, f)
+                           env_state={f: getattr(env_state, f).clone()
                                       for f in FIELDS},
-                           key=key)
+                           key=key.clone())
             if h is not None:
-                payload["h"] = h
+                payload["h"] = _carry_map(torch.clone, h)
             ckpt_mod.save(args.checkpoint_dir, payload, step=it + 1,
                           config=run_config)
     log.close()
