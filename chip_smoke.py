@@ -28,6 +28,9 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    shapes within 1e-3 of max |dW_p|, deterministic, through its autograd
    Function; the four embed kernels and K6 also at a hetero 5x5 view
    group's rollout and update shapes (25 cells, the full vocabulary);
+3b. the host path's shapes: K1 at B = 1, K2f and K5f at S in {1, 2, 4}
+   samples of R in {1, 2, 4} rows, K3 at B = 1 with 16- and 8-pixel tiles,
+   each against its plain version, and timed there;
 4. the env engine and the observations (encode and image) on the card
    against the same code on the CPU (which the tests hold bit-equal to the
    JAX package), the mlp and cnn_s2d policies' logits on the card against
@@ -37,7 +40,9 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    update of the same trajectory from the same weights; then the same for
    one step of each heterogeneous population (all-encode views 7/5/7/5,
    with a GRU on the plane-major embed, and encode + image groups, the
-   image group held to the float32 image step's bounds);
+   image group held to the float32 image step's bounds); and the device
+   ops and time that the single-rounding reward decay and prestige update
+   (``core/step.py::fma_f32``) cost beside the per-op formulas;
 5. the rollout path: a PPO rollout at the train default's full width
    (goal_cycle 13x13, 4 agents, 7x7 encode, B = 4096, T = 64, hidden 128,
    board pool 256, stagger, the compact embed palettes) through
@@ -48,7 +53,7 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    16-byte alignment, 75,000 planes and wide F, two launches bit-equal;
    timed at the encode and 5x5 trajectories and the encode shape in int32;
 6. the train path: the eager ``make_train_step(..., jit=False)`` at the
-   same width (2 epochs x 4 minibatches), four train steps, with the
+   same width (2 epochs x 4 minibatches), two train steps, with the
    launch counts of K1, K2f, K2b and K3 read around each (65 / 73 / 8 / 0)
    and train env-steps/s; then the training CLI at its defaults with
    ``--steps-per-call 2`` (graphed: ``ppo.multi_step``), two calls with a
@@ -56,14 +61,14 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    checkpoint the CLI wrote on the CPU (tiny) resumed on the card;
 7. the image train path at the same width (``--obs image``: 7x7 views of
    8-pixel tiles, the cnn_s2d torso, re-rendered minibatches): one rollout
-   (65 launches each of K1 and K3) and four eager train steps (73 each,
+   (65 launches each of K1 and K3) and two eager train steps (73 each,
    K2f and K2b none), with train env-steps/s, each step's mean episode
    return and the peak device memory; then the CLI with ``--obs image``
    (graphed), two iterations with a checkpoint and one resumed from it;
 8. the recurrent train paths at the same width: ``--rnn gru`` with the
-   plane-major embed (``MARLGRID_TPU_EMBED_V2=1``), four eager train steps
+   plane-major embed (``MARLGRID_TPU_EMBED_V2=1``), two eager train steps
    with 65 / 73 / 8 launches of K1 / K5f / K5b and none of K2f, K2b, K3 per
-   step, and ``--rnn gru --obs image``, four steps with 73 each of K1 and
+   step, and ``--rnn gru --obs image``, two steps with 73 each of K1 and
    K3; each with train env-steps/s, its losses and its peak device memory;
    then the ``--rnn gru`` CLI (graphed), two iterations with a checkpoint
    (the carry included) and one resumed from it;
@@ -71,20 +76,30 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    the JAX perf gate's specs, no palettes): views 7/5/7/5 (K1 130, K2f
    146, K2b 16 per step: two groups), the same with ``--rnn gru`` on the
    plane-major embed (K1 130, K5f 146, K5b 16) and encode + image agents
-   at T = 32 (K1 74, K2f 41, K2b 8, K3 41), four eager train steps each
+   at T = 32 (K1 74, K2f 41, K2b 8, K3 41), two eager train steps each
    with train env-steps/s and peak memory, and each embed kernel held
    against its plain version on the first step's own codes, tables and
    output gradients; then the ``--agent-config`` CLI (graphed) with a
    resume;
+8c. the host API (``wrapper.MultiGridEnv`` through ``envs.make`` and
+   ``envs.env_from_config``): a cluttered 15x15 image env, a goal-cycle
+   encode env and a doorkey image env, one episode each to done bit-equal
+   card vs CPU (obs, rewards, done, ``encode()``, ``render()`` and the
+   agent views at 16-pixel tiles), and the card's wall per step;
+8d. evaluation: ``parallel/evaluate.py --episodes 2`` on the checkpoints
+   of the encode, ``--rnn gru`` (plane-major) and ``--agent-config`` CLI
+   phases, with the launches of K1 and K2f (K5f) per step, the stats line,
+   the wall per step and the card's logits against the plain CPU forward;
 9. torch.profiler over a short rollout, one eager train step, one image
    train step, one recurrent train step and one step of each all-encode
    hetero path (feedforward and recurrent), by stage;
 9b. graphs: each train step as one CUDA graph (``parallel/graph.py``)
    against its eager step from one start, at full width for encode,
    recurrent encode and hetero recurrent, at B = 1024 for image, the mixed
-   population and ``--overlap``: two eager runs of four steps (a step of
+   population and ``--overlap``: two eager runs of two steps (a step of
    the first under ``torch.cuda.set_sync_debug_mode('error')``), ``jit=True``
-   four calls and ``multi_step`` with k = 2 twice; env state and key
+   two calls and ``multi_step`` with k = 2 once (then replays for the
+   rates); env state and key
    bit-equal, weights, Adam's state, carry and metrics bit-equal or within
    the eager runs' spread, launches per replayed step equal to the eager
    step's; eager and graphed train env-steps/s, the capture's seconds,
@@ -93,6 +108,10 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
 10. the env-only phase at bench.py's config (cluttered 15x15, 3 agents,
    25 clutter, B = 32768, T = 16 random actions, board pool 256), with
    encode and with image observations;
+10b. ``VectorEnv.rollout_fn`` at the same config (B = 32768, T = 16, a
+   random policy), shared-board and independent resets: the graphed
+   rollout (one CUDA graph) bit-equal to the eager one from the same
+   start, and its env-steps/s beside the eager rate;
 11. the kernels' times with CUDA events at the rollout's and the update's
    shapes (K3 also at the image env-only shape; K2f, K5f and K5b also at
    a hetero 5x5 group's update shape with the full vocabulary, on the
@@ -117,10 +136,13 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -973,7 +995,7 @@ def phase_rollout(seed, card):
                 net=net, ep=ep, cfg=cfg, env=env, key=key2)
 
 
-def phase_train(seed, card, steps=4):
+def phase_train(seed, card, steps=2):
     """The train path at the train CLI's defaults (:func:`cli_config`):
     ``make_train_step`` (rollout + 2 epochs x 4 minibatches of 2048 blocks
     of 128 samples), ``steps`` calls, the launch counts read around each
@@ -1031,7 +1053,7 @@ def phase_train(seed, card, steps=4):
                 ep=ep, cfg=cfg)
 
 
-def phase_rnn(seed, card, steps=4):
+def phase_rnn(seed, card, steps=2):
     """The recurrent encode train path at full width (``--rnn gru``'s
     :func:`cli_config`: goal_cycle 13x13, 4 agents, B = 4096, T = 64, hidden
     128, palettes, board pool 256) with the plane-major embed selected:
@@ -1098,7 +1120,7 @@ def phase_rnn(seed, card, steps=4):
                 key=key, ep=ep, cfg=cfg, net=net)
 
 
-def phase_rnn_image(seed, card, steps=4):
+def phase_rnn_image(seed, card, steps=2):
     """The recurrent image train path at full width (``--rnn gru --obs
     image``: cnn_s2d, minibatches of 64 sequence blocks of 16 envs x 64
     steps re-rendered from stored states): ``steps`` train steps with K1
@@ -1169,7 +1191,7 @@ def cli_config(*flags):
     return train.build(train.parse_args(list(flags)))
 
 
-def phase_image(seed, card, steps=4):
+def phase_image(seed, card, steps=2):
     """The image train path at full width (``--obs image``'s
     :func:`cli_config`): one
     rollout through ``make_rollout`` (65 launches each of K1 and K3), then
@@ -1261,7 +1283,8 @@ def phase_image(seed, card, steps=4):
                 traj=traj, ep=ep, cfg=cfg)
 
 
-def phase_cli(card, flags=(), want=None, plane_major=False, spc=1):
+def phase_cli(card, flags=(), want=None, plane_major=False, spc=1,
+              keep=None):
     """The training CLI at its defaults plus ``flags`` (the train path's
     config, the image train path's with ``--obs image``, the recurrent
     one's with ``--rnn gru``) on the card, graphed (``make_train_step*(...,
@@ -1272,7 +1295,9 @@ def phase_cli(card, flags=(), want=None, plane_major=False, spc=1):
     eagerly and the others replay the graph captured on the restored
     tensors). ``plane_major``: run with ``MARLGRID_TPU_EMBED_V2=1``. A
     ``--rnn`` checkpoint must hold the carry of the whole batch, which the
-    resumed run restores."""
+    resumed run restores. ``keep``: a directory to copy the checkpoint to
+    (for the evaluate phase)."""
+    import shutil
     import tempfile
 
     from marlgrid_tpu_torch.parallel import train
@@ -1287,6 +1312,8 @@ def phase_cli(card, flags=(), want=None, plane_major=False, spc=1):
                                 "--checkpoint-dir", ck, "--checkpoint-every",
                                 "2"])
         first = time.perf_counter() - t0
+        if keep:
+            shutil.copytree(ck, keep)
         recs = [json.loads(line) for line in open(log)]
         config = checkpoint.load_config(ck)
         if checkpoint.steps(ck) != [2] or config["ppo"]["n_envs"] != 4096:
@@ -1532,6 +1559,439 @@ def phase_env_only(seed, card, style="encode"):
           f"[{card}]")
     return dict(env_steps_per_s=B * T / dt, seconds=reps, counts=counts,
                 ep=ep, state=state)
+
+
+def phase_host_shapes(palettes, card):
+    """The kernels at the host path's shapes, each against its plain
+    version: K1 at B = 1 (a single-column output; K = N * vs * vs of the
+    host env's views), K2f and K5f at S in {1, 2, 4} samples of R in {1, 2,
+    4} rows (evaluate's policies: one sample per agent row) with both
+    vocabularies, two launches bit-equal, and K3 at B = 1 with 16-pixel
+    tiles (``MultiGridEnv.render``'s agent povs) and 8-pixel ones (the
+    host env's image obs) on the ids of real views, in the standard
+    layout, bit-exact. Then each is timed at the host path's shape beside
+    its bound, plain version and library call. Returns ({kernel: max
+    |err|}, {timing name: record})."""
+    from marlgrid_tpu_torch.core import grid_gen, obs, rng, step
+    from marlgrid_tpu_torch.core.state import EnvParams, default_agent_colors
+    from marlgrid_tpu_torch.ops import embed as E
+    from marlgrid_tpu_torch.ops import embed2 as E2
+    from marlgrid_tpu_torch.ops import sprite
+    from marlgrid_tpu_torch.ops import transpose as T
+
+    errs = dict.fromkeys(("transpose_bk", "onehot_embed_fwd",
+                          "onehot_embed2_fwd", "compose_image_b"), 0.0)
+    for K in (147, 196, 100, 75, 25):
+        x = torch.randint(-2 ** 31, 2 ** 31 - 1, (1, K), dtype=torch.int32,
+                          device="cuda")
+        n0 = T.transpose_bk.launches
+        y = T.transpose_bk(x)
+        sync()
+        if T.transpose_bk.launches != n0 + 1 or y.shape != (K, 1) or \
+                not torch.equal(y, T.transpose_bk_plain(x)):
+            raise AssertionError(f"K1 at (1, {K}): not launched, or it "
+                                 f"differs from x.t()")
+    print("[host shapes] K1 at B=1, K in 147/196/100/75/25: bit-exact")
+    gen = torch.Generator().manual_seed(5)
+    for name, pal in (("full", None), ("goal_cycle palette", palettes)):
+        widths, values = E.vocab(pal)
+        for R in (1, 2, 4):
+            for S in (1, 2, 4):
+                what = f"{name} (R={R}, F=147, S={S}, H=128)"
+                x = _codes(R, 49, S, gen)
+                w = (torch.randn(49, sum(widths), 128, generator=gen)
+                     * 0.05).to(torch.bfloat16).cuda()
+                ws = _tables2(49, widths, 128, gen)
+                with torch.no_grad():
+                    out, again = (E.onehot_embed(x, w, widths, values)
+                                  for _ in range(2))
+                    out2, again2 = (E2.onehot_embed2(x, *ws, widths, values)
+                                    for _ in range(2))
+                sync()
+                errs["onehot_embed_fwd"] = max(
+                    errs["onehot_embed_fwd"], _hold_k2f(
+                        out, E.onehot_embed_plain(
+                            x, w.float(), widths, values,
+                            torch.float32).to(torch.bfloat16), what))
+                errs["onehot_embed2_fwd"] = max(
+                    errs["onehot_embed2_fwd"], _hold_k5f(
+                        out2, E2.onehot_embed2_plain(x, *ws, widths, values),
+                        what))
+                if not (torch.equal(out, again) and torch.equal(out2,
+                                                                again2)):
+                    raise AssertionError(f"K2f or K5f {what}: two launches "
+                                         f"differ")
+    print("[host shapes] K2f and K5f at R, S in {1, 2, 4}: within their "
+          "tolerances, two launches bit-equal")
+
+    tim = {}
+    for T_px, (N, W, scen) in ((16, (4, 13, "goal_cycle")),
+                               (8, (3, 15, "cluttered"))):
+        ep = EnvParams(width=W, height=W, n_agents=N, scenario=scen,
+                       observation_style="image", view_tile_size=T_px,
+                       agent_colors=default_agent_colors(N))
+        key = rng.PRNGKey(T_px, device="cuda")
+        st = grid_gen.reset(ep, rng.split(key, 1))
+        for t in range(6):
+            st = step.step(ep, st, rng.randint(rng.fold_in(key, t), (1, N),
+                                               0, 7))[0]
+        ids = obs.image_ids(ep, _spread_prestige(ep, st))
+        n0 = sprite.compose_image_b.launches
+        out = sprite.compose_image_b(ep, *ids)
+        sync()
+        err = max_byte_err(out, sprite.compose_image_b_plain(ep, *ids))
+        if sprite.compose_image_b.launches != n0 + 1 or err != 0:
+            raise AssertionError(f"K3 at B=1, T={T_px}: not launched, or "
+                                 f"max abs err {err}")
+        print(f"[host shapes] K3 at B=1, N={N}, T={T_px} "
+              f"({tuple(out.shape)}): bit-exact")
+        if T_px == 16:
+            tim["compose_image_b_host"] = time_k3(
+                ep, ids, {}, "host render's agent povs (B=1, T=16)", card,
+                plain_iters=20)
+
+    x = torch.randint(0, 2 ** 20, (1, 196), dtype=torch.int32,
+                      device="cuda")
+    k1 = dict(bytes=2 * x.numel() * 4, ops=0)
+    k1["ms"], k1["host_ms"] = time_ms(lambda: T.transpose_bk(x))
+    k1["plain_ms"], _ = time_ms(lambda: T.transpose_bk_plain(x))
+    k1["library_ms"], _ = time_ms(lambda: x.t().contiguous())
+    k1["max_abs_err"] = 0.0
+    _bound(k1)
+    print(f"[time] K1 (1, 196) int32 (the host env's encode views): "
+          f"{k1['ms'] * 1e3:.2f} us (host {k1['host_ms'] * 1e3:.2f} us per "
+          f"call), plain {k1['plain_ms'] * 1e3:.2f} us, x.t().contiguous() "
+          f"{k1['library_ms'] * 1e3:.2f} us, bound "
+          f"{k1['bound_ms'] * 1e3:.5f} us ({k1['bound_by']}) [{card}]")
+    tim["transpose_bk_host"] = k1
+    widths, values = E.vocab(palettes)
+    codes = _codes(4, 49, 1, gen)
+    table = (torch.randn(49, sum(widths), 128, generator=gen) * 0.05).to(
+        torch.bfloat16).cuda()
+    tim["onehot_embed_fwd_host"] = time_k2f(
+        codes, table, widths, values, "evaluate policy's shape", card)
+    tim["onehot_embed2_fwd_host"] = time_k5f(
+        codes, _tables2(49, widths, 128, gen), widths, values,
+        "evaluate policy's shape", card)
+    for name in errs:
+        errs[name] = max([errs[name]] + [
+            v["max_abs_err"] for k, v in tim.items() if k.startswith(name)])
+    return errs, tim
+
+
+def phase_rounding_ops(card):
+    """What the reward-rounding repair costs on the card: the device ops
+    (kernels in a profiler trace) and device time of the single-rounding
+    decay and prestige update of ``core/step.py`` (``reward_decay``,
+    ``fma_f32``), beside the formulas they replaced (one rounding per op),
+    at a rollout step's shapes (B = 4096, N = 4); both run once per env
+    step. The repair's slowest kernels are printed by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from marlgrid_tpu_torch.core.state import EnvParams
+    from marlgrid_tpu_torch.core.step import fma_f32, reward_decay
+
+    B, N = 4096, 4
+    ep = EnvParams(max_steps=250)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    pres = torch.rand((B, N), generator=g, device="cuda") * 10
+    rew = torch.rand((B, N), generator=g, device="cuda") - 0.25
+    count = torch.randint(1, 250, (B,), generator=g, device="cuda",
+                          dtype=torch.int32)
+    betas = torch.full((N,), 0.95, device="cuda")
+    betas64 = betas.double()
+
+    def old():
+        decay = 1.0 - 0.9 * count.to(torch.float32) / 250
+        r = rew * decay[:, None]
+        return r, pres * betas + torch.clamp(r, min=0.0)
+
+    def new():
+        r = rew * reward_decay(ep, count)[:, None]
+        return r, fma_f32(pres, betas64, torch.clamp(r, min=0.0))
+
+    out = {}
+    for name, fn in (("per-op rounding", old), ("single rounding", new)):
+        fn()
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        kern = [(e.name(), e.duration_ns() / 1e3)
+                for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA]
+        ms, _ = time_ms(fn)
+        out[name] = dict(device_ops=len(kern), ms=ms,
+                         slowest=sorted(kern, key=lambda k: -k[1])[:4])
+    a, b = out["per-op rounding"], out["single rounding"]
+    out["added_ops"] = b["device_ops"] - a["device_ops"]
+    print(f"[rounding] the decay and prestige update per env step (B={B}, "
+          f"N={N}): per-op rounding {a['device_ops']} device ops, "
+          f"{a['ms'] * 1e3:.2f} us; single rounding {b['device_ops']} ops, "
+          f"{b['ms'] * 1e3:.2f} us: {out['added_ops']} ops added per env "
+          f"step; its slowest kernels (traced us): "
+          + "; ".join(f"{n[:60]} {t:.2f}" for n, t in b["slowest"])
+          + f" [{card}]")
+    return out
+
+
+def phase_vector(seed, card, env_only_rate):
+    """``VectorEnv.rollout_fn`` at bench.py's config #3 (cluttered 15x15,
+    3 agents, 25 clutter, 7x7 encode views, B = 32768, T = 16) with a
+    random policy (``rng.randint`` on each step's key), from a staggered
+    start (env i at step i * 250 // B, so envs finish inside the run), in
+    both reset modes (the shared fresh board, and ``independent_resets``):
+    the raw eager rollout, then the graphed ``rollout_fn`` three times
+    from the same start (its first call eager, the second captured, the
+    third a replay), each bit-equal to the eager one in the final state
+    and the whole trajectory; then replays chained from state to state,
+    timed (env-steps/s) with the launch counts read around them (K1 once
+    a step)."""
+    from marlgrid_tpu_torch.core import rng, step
+    from marlgrid_tpu_torch.core.state import (FIELDS, EnvParams,
+                                               default_agent_colors)
+    from marlgrid_tpu_torch.vector import VectorEnv
+
+    ep = EnvParams(width=15, height=15, n_agents=3, scenario="cluttered",
+                   n_clutter=25, max_steps=250, view_size=7,
+                   observation_style="encode",
+                   agent_colors=default_agent_colors(3))
+    B, T = 32768, 16
+
+    def policy(obs, key):
+        return rng.randint(key, (B, 3), 0, 7)
+
+    def same(a, b):
+        return all(torch.equal(getattr(a[0], f), getattr(b[0], f))
+                   for f in FIELDS) and all(torch.equal(a[1][k], b[1][k])
+                                            for k in a[1])
+
+    out = {}
+    for independent, reps in ((False, 3), (True, 1)):
+        mode = "independent resets" if independent else "shared board"
+        env = VectorEnv(ep, B, independent_resets=independent)
+        fn = env.rollout_fn(policy, T)
+        key = rng.PRNGKey(seed, device="cuda")
+        s0 = step.stagger_step_counts(env.reset(rng.fold_in(key, 1))[0],
+                                      ep.max_steps)
+        k0 = rng.fold_in(key, 2)
+        sync()
+        t0 = time.perf_counter()
+        ref_state, _, ref_traj = fn.graph.fn(s0, k0)
+        sync()
+        eager_s = time.perf_counter() - t0
+        ref = (ref_state.clone(), {k: v.clone() for k, v in ref_traj.items()})
+        del ref_state, ref_traj
+        n_done = int(ref[1]["done"].sum())
+        if not n_done:
+            raise AssertionError(f"vector ({mode}): no env finished")
+        calls = []
+        for what in ("first call (eager)", "capture", "replay"):
+            sync()
+            t0 = time.perf_counter()
+            got = fn(s0, k0)
+            sync()
+            calls.append(time.perf_counter() - t0)
+            if not same(got, ref):
+                raise AssertionError(f"vector ({mode}): the {what} differs "
+                                     f"from the eager rollout")
+            del got
+        zero_counts()
+        st = s0
+        sync()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            st, traj = fn(st, rng.fold_in(k0, i))
+        sync()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        if counts != want_counts(transpose_bk=reps * T) or not bool(
+                torch.isfinite(traj["rew"]).all()):
+            raise AssertionError(f"vector ({mode}): launches {counts}, want "
+                                 f"K1 {reps * T}")
+        rate = B * T * reps / dt
+        out["independent" if independent else "shared"] = dict(
+            env_steps_per_s=rate, eager_env_steps_per_s=B * T / eager_s,
+            calls_s=calls, capture_s=fn.graph.capture_s, counts=counts,
+            done=n_done)
+        print(f"[vector] rollout_fn ({mode}), cluttered 15x15, 3 agents, "
+              f"B={B}, T={T}: graphed calls bit-equal to the eager rollout "
+              f"({n_done} env resets in it); eager {B * T / eager_s:,.0f} "
+              f"env-steps/s, graphed {rate:,.0f} env-steps/s ({reps} chained "
+              f"replays, capture {fn.graph.capture_s:.2f} s), env-only eager "
+              f"phase {env_only_rate:,.0f}; launches {counts} [{card}]")
+        del fn, env, st, traj, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _compare_host(g, c, what):
+    """Two host envs' current observations (given), encode() and render()
+    bit-equal."""
+    if not np.array_equal(g.encode(), c.encode()):
+        raise AssertionError(f"{what}: encode() differs card vs CPU")
+    if not np.array_equal(g.render(), c.render()):
+        raise AssertionError(f"{what}: render() differs card vs CPU")
+
+
+def _same_obs(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_obs(a[k], b[k]) for k in a)
+    return np.array_equal(np.asarray(a), np.asarray(b)) and \
+        np.asarray(a).dtype == np.asarray(b).dtype
+
+
+def phase_host_api(seed, card):
+    """The host API on the card against the same env on the CPU: ``make(
+    'MarlGrid-3AgentCluttered15x15-v0')`` (image obs, 7x7 views of 8-pixel
+    tiles), a goal-cycle env from ``env_from_config`` (13x13, 4 agents,
+    encode obs) and ``make('MarlGrid-2AgentDoorKey11x11-v0')`` (image): one
+    episode each to done on a seeded action stream, obs, rewards, done,
+    ``encode()`` and ``render()`` bit-equal at every step, and
+    ``render(show_agent_views=True)`` (the agent povs at 16-pixel tiles,
+    K3 at B = 1) at the first and last; then one more episode on the card
+    alone for the per-step wall. The launch counts are read around the
+    card's episodes."""
+    from marlgrid_tpu_torch import envs
+
+    cases = (
+        ("make('MarlGrid-3AgentCluttered15x15-v0')",
+         lambda dev: envs.make("MarlGrid-3AgentCluttered15x15-v0",
+                               seed=seed, device=dev)),
+        ("env_from_config(goal_cycle 13x13, 4 agents, encode)",
+         lambda dev: envs.env_from_config(dict(
+             env_class="goal_cycle", n_agents=4, grid_size=13,
+             view_size=7, observation_style="encode", seed=seed),
+             device=dev)),
+        ("make('MarlGrid-2AgentDoorKey11x11-v0')",
+         lambda dev: envs.make("MarlGrid-2AgentDoorKey11x11-v0", seed=seed,
+                               device=dev)))
+    out = {}
+    for name, mk in cases:
+        g, c = mk("cuda"), mk("cpu")
+        acts = np.random.default_rng(seed).integers(
+            0, 7, (g.params.max_steps + 1, g.num_agents), dtype=np.int32)
+        zero_counts()
+        og, oc = g.reset(), c.reset()
+        if not all(map(_same_obs, og, oc)):
+            raise AssertionError(f"host API {name}: reset obs differ")
+        _compare_host(g, c, name)
+        for t, a in enumerate(acts):
+            og, rg, dg, _ = g.step(a)
+            oc, rc, dc, _ = c.step(a)
+            if not (all(map(_same_obs, og, oc)) and np.array_equal(rg, rc)
+                    and rg.dtype == rc.dtype and dg is dc):
+                raise AssertionError(f"host API {name}: step {t} differs "
+                                     f"card vs CPU")
+            _compare_host(g, c, f"{name} step {t}")
+            if t == 0 or dg:
+                views = [e.render(tile_size=16, show_agent_views=True)
+                         for e in (g, c)]
+                if not np.array_equal(*views):
+                    raise AssertionError(f"{name}: render with the agent "
+                                         f"views differs at step {t}")
+            if dg:
+                break
+        counts = read_counts()
+        if not dg or counts["compose_image_b"] == 0 or (
+                g.params.observation_style == "encode"
+                and counts["transpose_bk"] == 0):
+            raise AssertionError(f"host API {name}: done {dg}, launches "
+                                 f"{counts}")
+        g.reset()
+        n = 0
+        sync()
+        t0 = time.perf_counter()
+        done = False
+        while not done:
+            _, _, done, _ = g.step(acts[n % len(acts)])
+            n += 1
+        wall = (time.perf_counter() - t0) / n
+        out[name] = dict(steps=t + 1, counts=counts, step_ms=wall * 1e3)
+        print(f"[host API] {name}: an episode of {t + 1} steps bit-equal "
+              f"card vs CPU (obs, rewards, done, encode, render, agent "
+              f"views); launches {counts}; {wall * 1e3:.2f} ms per step on "
+              f"the card over {n} steps [{card}]")
+    return out
+
+
+def phase_evaluate(ckpts, card):
+    """``python -m marlgrid_tpu_torch.parallel.evaluate --checkpoint <dir>
+    --episodes 2`` on the checkpoints the CLI phases wrote at full width
+    (goal_cycle 13x13, 4 agents, hidden 128: mlp, ``--rnn gru`` on the
+    plane-major embed, the hetero population 7/5/7/5), with the launch
+    counts read around each: K1 once per host observation per group, K2f
+    (K5f for the plane-major checkpoint) once per step per group. Then the
+    card's policy against the plain CPU forward of the same checkpoint on
+    the first 8 steps' observations, logits within 5e-2 (bf16 layers after
+    the embed, as the reference phase's bound), carries held alike."""
+    from marlgrid_tpu_torch.parallel import evaluate
+    from marlgrid_tpu_torch.vector import obs_groups
+    from marlgrid_tpu_torch.wrapper import MultiGridEnv
+
+    out = {}
+    for name, (ck, plane_major) in ckpts.items():
+        embed = "onehot_embed2_fwd" if plane_major else "onehot_embed_fwd"
+        with embed_v2(plane_major):
+            zero_counts()
+            stats = evaluate.main(["--checkpoint", ck, "--episodes", "2"])
+            counts = read_counts()
+            args = evaluate.parse_args(["--checkpoint", ck])
+            ep, cfg = evaluate.resolve_config(args)
+            ng = len(obs_groups(ep)) if ep.has_hetero_obs else 1
+            want = want_counts(
+                transpose_bk=ng * (stats["steps"] + stats["episodes"]),
+                **{embed: ng * stats["steps"]})
+            if counts != want or not math.isfinite(stats["mean_return"]):
+                raise AssertionError(f"evaluate {name}: launches {counts}, "
+                                     f"want {want}; stats {stats}")
+            nets = {}
+            for dev in ("cuda", "cpu"):
+                a = evaluate.parse_args(["--checkpoint", ck, "--device",
+                                         dev])
+                evaluate.resolve_config(a)
+                nets[dev] = evaluate.restore_policy(a, ep, cfg)
+        groups = ([(list(idxs), gp.observation_style, "mlp")
+                   for idxs, gp in obs_groups(ep)] if ep.has_hetero_obs
+                  else [(list(range(ep.n_agents)), args.obs, cfg.torso)])
+        env = MultiGridEnv(params=ep, seed=1, device="cpu")
+        obs_list = env.reset()
+        hs = {dev: nets[dev][1]() for dev in nets}
+        worst = 0.0
+        for t in range(8):
+            acts = np.zeros(ep.n_agents, np.int64)
+            for g, (idxs, style, torso) in enumerate(groups):
+                logits = {}
+                for dev, (net, _) in nets.items():
+                    n = net[g] if ep.has_hetero_obs else net
+                    h = hs[dev]
+                    hg = h[g] if isinstance(h, dict) else h
+                    x, aux = evaluate.style_obs_batch(
+                        [obs_list[i] for i in idxs], ep, style, torso, dev)
+                    with torch.no_grad():
+                        logits[dev], hg = evaluate.policy_logits(n, x, aux,
+                                                                 hg)
+                    if isinstance(h, dict):
+                        h[g] = hg
+                    else:
+                        hs[dev] = hg
+                err = float((logits["cuda"].cpu() - logits["cpu"]).abs()
+                            .max())
+                worst = max(worst, err)
+                acts[idxs] = logits["cpu"].argmax(-1).numpy()
+            obs_list, _, _, _ = env.step(acts)
+        if not worst < 5e-2:
+            raise AssertionError(f"evaluate {name}: card logits differ from "
+                                 f"the CPU's by {worst}")
+        step_ms = stats["seconds"] / stats["steps"] * 1e3
+        out[name] = dict(stats=stats, counts=counts, step_ms=step_ms,
+                         logit_err=worst)
+        print(f"[evaluate] {name}: {json.dumps({k: stats[k] for k in ('episodes', 'mean_return', 'returns', 'mean_length', 'video')})}; "
+              f"{stats['steps']} steps, {step_ms:.2f} ms per step (host env "
+              f"+ policy + sync); launches {counts}; logits card vs CPU max "
+              f"abs err {worst:.3e} over 8 steps (tolerance 5e-2) [{card}]")
+    return out
 
 
 def _bag_rows(codes, widths, values, cells, cw):
@@ -2359,7 +2819,7 @@ def hold_embeds(nets, captured, name):
     return worst
 
 
-def phase_hetero(seed, card, name, steps=4):
+def phase_hetero(seed, card, name, steps=2):
     """A hetero train path at full width (``HETERO_PATHS[name]``'s CLI
     config: goal_cycle 13x13, B = 4096, hidden 128, 2 epochs x 4
     minibatches, no palettes; T = 64, or 32 for the mixed population):
@@ -2475,17 +2935,19 @@ def _max_diff(xs, ys):
     return d
 
 
-def phase_graphs(seed, card, name, n=4, envs=None, profile=True):
+def phase_graphs(seed, card, name, n=2, envs=None, profile=True):
     """One path's train step graphed against its eager step, from one start
     (``GRAPH_PATHS[name]``'s CLI config at B = ``envs`` or the path's own):
     the weights, Adam's state and the carry (env state, key; ``h``, or the
     overlap step's priming rollout) copied before, and restored for every
     run. Runs: eager ``n`` steps (``jit=False``) twice, the second step of
     the first run under ``torch.cuda.set_sync_debug_mode('error')`` (a host
-    sync in the step raises); ``jit=True`` ``n`` calls; ``ppo.multi_step``
+    sync in the step raises); ``jit=True`` ``n`` calls (eager, then the
+    capture) and two more replays for its rate; ``ppo.multi_step``
     (``multi_step_rnn``, ``multi_step_overlap``) of the raw step with k = 2,
-    ``n // 2`` calls. Every call's launch counts equal :func:`hetero_counts`
-    times its steps. Bars: after the ``n`` steps each graphed run's env
+    ``n // 2`` calls and one more for its rate. Every call's launch counts
+    equal :func:`hetero_counts` times its steps. Bars: after the ``n``
+    steps each graphed run's env
     state and key are bit-equal to the first eager run's; its weights,
     Adam's moments and step counts, the rest of its carry and the last
     step's metrics are bit-equal too, or (where the two eager runs differ)
@@ -2580,6 +3042,17 @@ def phase_graphs(seed, card, name, n=4, envs=None, profile=True):
             metrics={kn: float(v) for kn, v in m.items()},
             secs=secs, peak_gb=peak, profile=None,
             capture_s=getattr(gs, "capture_s", None))
+        # a graphed run's rate: replays after the compared calls
+        for _ in range({"graphed": 2, "multi": 1}.get(mode, 0)):
+            sync()
+            zero_counts()
+            t0 = time.perf_counter()
+            *carry, m = step(*carry)
+            sync()
+            secs.append((time.perf_counter() - t0) / k)
+            if read_counts() != want:
+                raise AssertionError(f"graphs {name} {mode} replay: "
+                                     f"launches {read_counts()}")
         if profile and mode == "graphed":
             out["profile"] = profile_stages(
                 lambda: step(*carry), ("rollout.", "update."), card,
@@ -2751,9 +3224,6 @@ def main(argv=None):
     print(f"[card] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    from marlgrid_tpu_torch.core import obs
-    from marlgrid_tpu_torch.core.state import EnvParams, default_agent_colors
-
     t_start = time.perf_counter()
     clock = {}
 
@@ -2764,6 +3234,20 @@ def main(argv=None):
 
     phase_build()
     stamp("build")
+    ck_root = tempfile.mkdtemp(prefix="chip_smoke_ck_")
+    try:
+        return run_phases(args, card, stamp, clock, t_start, ck_root)
+    finally:
+        shutil.rmtree(ck_root, ignore_errors=True)
+
+
+def run_phases(args, card, stamp, clock, t_start, ck_root):
+    """Every phase after the build (see the module docstring); the CLI
+    phases keep their checkpoints under ``ck_root`` for the evaluate
+    phase."""
+    from marlgrid_tpu_torch.core import obs
+    from marlgrid_tpu_torch.core.state import EnvParams, default_agent_colors
+
     k1_err = phase_transpose()
     gc = EnvParams(width=13, height=13, n_agents=4, scenario="goal_cycle",
                    observation_style="encode",
@@ -2774,16 +3258,24 @@ def main(argv=None):
                 onehot_embed2_fwd=phase_embed2(pals),
                 onehot_embed2_bwd=phase_embed2_bwd(pals),
                 compose_image_b=phase_sprite(args.seed))
+    host_errs, tim_host = phase_host_shapes(pals, card)
+    for name, err in host_errs.items():
+        errs[name] = max(errs[name], err)
     stamp("kernel phases")
     phase_reference(args.seed)
     for name in HETERO_PATHS:
         reference_hetero(args.seed, name)
+    rounding = phase_rounding_ops(card)
     stamp("reference")
     roll = phase_rollout(args.seed, card)
     tim_k4 = phase_transpose_traj(roll["traj_obs"], card)
     train = phase_train(args.seed, card)
+    ckpts = {"mlp": (f"{ck_root}/mlp", False),
+             "--rnn gru (plane-major)": (f"{ck_root}/gru", True),
+             "hetero 7/5/7/5": (f"{ck_root}/hetero", False)}
     cli = phase_cli(card, (), want_counts(
-        transpose_bk=65, onehot_embed_fwd=73, onehot_embed_bwd=8), spc=2)
+        transpose_bk=65, onehot_embed_fwd=73, onehot_embed_bwd=8), spc=2,
+        keep=ckpts["mlp"][0])
     phase_cli_cpu_resume(card)
     stamp("rollout, K4, train")
     image = phase_image(args.seed, card)
@@ -2793,7 +3285,7 @@ def main(argv=None):
     rnn_image = phase_rnn_image(args.seed, card)
     cli_rnn = phase_cli(card, ("--rnn", "gru"), want_counts(
         transpose_bk=65, onehot_embed2_fwd=73, onehot_embed2_bwd=8),
-        plane_major=True)
+        plane_major=True, keep=ckpts["--rnn gru (plane-major)"][0])
     stamp("image, recurrent")
     hetero = {name: phase_hetero(args.seed, card, name)
               for name in HETERO_PATHS}
@@ -2801,8 +3293,13 @@ def main(argv=None):
         for kname, err in v["embed_errs"].items():
             errs[kname] = max(errs[kname], err)
     cli_hetero = phase_cli(card, HETERO_PATHS["hetero"][0], hetero_counts(
-        *cli_config(*HETERO_PATHS["hetero"][0]), plane_major=False))
+        *cli_config(*HETERO_PATHS["hetero"][0]), plane_major=False),
+        keep=ckpts["hetero 7/5/7/5"][0])
     stamp("hetero")
+    host_api = phase_host_api(args.seed, card)
+    stamp("host API")
+    evaluation = phase_evaluate(ckpts, card)
+    stamp("evaluate")
     prof = phase_profile(roll, train, image, rnn, hetero, card)
     stamp("profile")
     graphs = {name: phase_graphs(args.seed, card, name,
@@ -2826,6 +3323,8 @@ def main(argv=None):
     env = phase_env_only(args.seed, card)
     env_img = phase_env_only(args.seed, card, "image")
     stamp("env-only")
+    vector = phase_vector(args.seed, card, env["env_steps_per_s"])
+    stamp("vector")
     tim = phase_timings(roll, card, args.seed)
     tim["compose_image_b"] = phase_timings_k3(image, env_img, card,
                                               args.seed)
@@ -2928,7 +3427,10 @@ def main(argv=None):
                            env_only_image={k: env_img[k] for k in (
                                "env_steps_per_s", "seconds", "counts")},
                            profile=prof, graphs=graphs, timings=tim,
-                           clock_s=clock, total_s=total_s), f,
+                           host_shape_timings=tim_host, rounding=rounding,
+                           vector=vector, host_api=host_api,
+                           evaluate=evaluation, clock_s=clock,
+                           total_s=total_s), f,
                       indent=1)
     print(f"[done] all phases passed in {total_s:.1f} s; rollout "
           f"{roll['env_steps_per_s']:,.0f} env-steps/s, train "
@@ -2945,7 +3447,14 @@ def main(argv=None):
                     for n, v in graphs.items())
           + f"env-only "
           f"{env['env_steps_per_s']:,.0f}, image env-only "
-          f"{env_img['env_steps_per_s']:,.0f} env-steps/s on {card}")
+          f"{env_img['env_steps_per_s']:,.0f}, graphed rollout_fn "
+          + ", ".join(f"{k} {v['env_steps_per_s']:,.0f}"
+                      for k, v in vector.items())
+          + f" env-steps/s; host step "
+          + ", ".join(f"{v['step_ms']:.2f}" for v in host_api.values())
+          + " ms; evaluate step "
+          + ", ".join(f"{v['step_ms']:.2f}" for v in evaluation.values())
+          + f" ms on {card}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

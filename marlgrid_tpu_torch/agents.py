@@ -1,16 +1,26 @@
 """Agent interface objects: the per-agent config surface (PyTorch port).
 
-Counterpart of ``marlgrid_tpu/agents.py`` for what the training CLI's
-``--agent-config`` needs: ``GridAgentInterface`` (one agent's observation
-and behaviour kwargs) and :func:`agents_to_params_fields`, which folds an
-agent list into ``EnvParams`` fields. ``IndependentLearners`` and the gym
-spaces come with ROADMAP Slice F (host API and tools).
+Counterpart of ``marlgrid_tpu/agents.py``: ``GridAgentInterface`` (one
+agent's observation and behaviour kwargs, its action enum and gym spaces,
+and the host env's mirror of its position, direction and prestige),
+``IndependentLearners`` (N learners zipped into one for the env loop) and
+:func:`agents_to_params_fields`, which folds an agent list into
+``EnvParams`` fields. gymnasium is optional: without it the spaces are
+unavailable and everything else works.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List
 
+import numpy as np
+
 from .core import constants as C
+
+try:
+    from gymnasium import spaces
+except ImportError:
+    spaces = None
 
 
 class GridAgentInterface:
@@ -38,6 +48,96 @@ class GridAgentInterface:
         self.prestige_beta = prestige_beta
         self.prestige_scale = prestige_scale
         self.spawn_delay = spawn_delay
+        self.prestige = 0.0
+        # the host env's mirror of the episode (wrapper.MultiGridEnv)
+        self.pos = None
+        self.dir = None
+        self.carrying = None
+        self.active = False
+
+    #: the action enum (``marlgrid/agents.py — §actions``)
+    actions = {n: i for i, n in enumerate(C.ACTION_NAMES)}
+
+    @property
+    def front_pos(self):
+        """The cell directly ahead (``GridAgentInterface.front_pos``)."""
+        if self.pos is None or self.dir is None:
+            return None
+        dx, dy = C.DIR_VEC[self.dir]
+        return (self.pos[0] + int(dx), self.pos[1] + int(dy))
+
+    def activate(self):
+        self.active = True
+
+    def deactivate(self):
+        self.active = False
+
+    @property
+    def action_space(self):
+        return _spaces().Discrete(C.N_ACTIONS)
+
+    @property
+    def observation_space(self):
+        sp = _spaces()
+        side = self.view_size * self.view_tile_size
+        pov = sp.Box(0, 255, (side, side, 3), np.uint8)
+        if self.observation_style == "image":
+            return pov
+        if self.observation_style == "encode":
+            return sp.Box(0, 255, (self.view_size, self.view_size, 3),
+                          np.int32)
+        d = {"pov": pov}
+        if self.observe_rewards:
+            d["reward"] = sp.Box(-np.inf, np.inf, (), np.float32)
+        if self.observe_position:
+            d["position"] = sp.Box(0, 255, (2,), np.int32)
+        if self.observe_orientation:
+            d["orientation"] = sp.Discrete(4)
+        return sp.Dict(d)
+
+
+def _spaces():
+    if spaces is None:
+        raise ImportError("the agents' gym spaces need gymnasium, which is "
+                          "not installed")
+    return spaces
+
+
+class IndependentLearners(list):
+    """N independent learners zipped into one object for the env loop
+    (``marlgrid/agents.py — §IndependentLearners``)."""
+
+    def __init__(self, *learners):
+        super().__init__(learners)
+
+    @property
+    def observation_space(self):
+        """The Tuple of the learners' own observation spaces."""
+        return _spaces().Tuple([lrn.observation_space for lrn in self])
+
+    @property
+    def action_space(self):
+        return _spaces().Tuple([lrn.action_space for lrn in self])
+
+    def action_step(self, obs_list):
+        return [lrn.action_step(obs) for lrn, obs in zip(self, obs_list)]
+
+    def save_step(self, obs, actions, rewards, done):
+        for lrn, o, a, r in zip(self, obs, actions, rewards):
+            if hasattr(lrn, "save_step"):
+                lrn.save_step(o, a, r, done)
+
+    @contextlib.contextmanager
+    def episode(self):
+        for lrn in self:
+            if hasattr(lrn, "start_episode"):
+                lrn.start_episode()
+        try:
+            yield self
+        finally:
+            for lrn in self:
+                if hasattr(lrn, "end_episode"):
+                    lrn.end_episode()
 
 
 def agents_to_params_fields(agents: List[GridAgentInterface]) -> dict:

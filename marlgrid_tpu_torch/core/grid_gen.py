@@ -179,9 +179,11 @@ def register_scenario(name: str, builder: Callable, n_events,
     ``builder(params, layers, split_x, door_y) -> (layers, events,
     agent_mask)`` follows the builtin builders above (batched layers and
     draws); ``events`` entries are ``(type, color, state, mask_or_None)``
-    tuples or None. ``n_events`` is an int or ``f(params) -> int``.
-    ``palette`` lists every (type, color, s_vis) appearance the scenario
-    can show (see SCENARIO_PALETTES).
+    tuples, ``WorldObj`` instances of ``marlgrid_tpu_torch.objects``
+    (placed anywhere), ``(WorldObj, mask)`` pairs, or None (the event's
+    draws are consumed, nothing is placed). ``n_events`` is an int or
+    ``f(params) -> int``. ``palette`` lists every (type, color, s_vis)
+    appearance the scenario can show (see SCENARIO_PALETTES).
     """
     SCENARIOS[name] = builder
     _N_EVENTS[name] = n_events if callable(n_events) else (
@@ -189,6 +191,83 @@ def register_scenario(name: str, builder: Callable, n_events,
     if palette is not None:
         SCENARIO_PALETTES[name] = tuple(palette)
     return name
+
+
+def encode_obj_cell(obj, params: EnvParams = None):
+    """(type, color, state) cell triple of a WorldObj under ``params``,
+    honoring per-object rewards (``Goal(reward)``, ``BonusTile(reward,
+    penalty)``).
+
+    A ``Goal(reward=r)`` maps r to an index into ``params.goal_rewards``
+    (stored in the cell's state field, which the step engine pays out);
+    a ``BonusTile``'s reward/penalty are checked against the per-tile
+    tables (indexed by its bonus_id). Raises ValueError with a fix-it
+    message when the object's reward is not representable under params.
+    """
+    t, c, s = obj.encode()
+    if params is None:
+        return (t, c, s)
+    # objects built without an explicit reward defer to the env's uniform
+    # goal_reward/bonus_reward; only Goal(reward=r) binds to the table
+    if not getattr(obj, "explicit_reward", True):
+        if t == C.GOAL and params.goal_rewards:
+            # the engine pays goal_rewards[state], so a bare Goal() encodes
+            # the uniform goal_reward's table index (state 0 would pay
+            # goal_rewards[0] instead)
+            try:
+                s = params.goal_rewards.index(float(params.goal_reward))
+            except ValueError:
+                raise ValueError(
+                    f"Goal() defers to the uniform goal_reward="
+                    f"{params.goal_reward}, which is not in "
+                    f"EnvParams.goal_rewards={params.goal_rewards}; add it "
+                    f"to the table or construct Goal(reward=...) "
+                    f"explicitly") from None
+        return (t, c, s)
+    r = getattr(obj, "reward", None)
+    if t == C.GOAL and r is not None:
+        r = float(r)
+        if params.goal_rewards:
+            try:
+                s = params.goal_rewards.index(r)
+            except ValueError:
+                raise ValueError(
+                    f"Goal(reward={r}) placed but {r} is not in "
+                    f"EnvParams.goal_rewards={params.goal_rewards}; add it "
+                    f"to the table") from None
+        elif r != params.goal_reward:
+            raise ValueError(
+                f"Goal(reward={r}) placed but EnvParams pays the uniform "
+                f"goal_reward={params.goal_reward}; set "
+                f"goal_rewards=({params.goal_reward}, {r}, …) on EnvParams "
+                f"and this goal will be encoded as an index into it")
+    if t == C.BONUS:
+        rew = float(getattr(obj, "reward", params.bonus_reward))
+        pen = float(getattr(obj, "penalty", params.bonus_penalty))
+        table_rew = (params.bonus_rewards[s] if params.bonus_rewards
+                     else params.bonus_reward)
+        table_pen = (params.bonus_penalties[s] if params.bonus_penalties
+                     else params.bonus_penalty)
+        if rew != table_rew or pen != table_pen:
+            raise ValueError(
+                f"BonusTile(bonus_id={s}, reward={rew}, penalty={pen}) does "
+                f"not match what EnvParams pays for tile {s} "
+                f"(reward={table_rew}, penalty={table_pen}); set "
+                f"bonus_rewards/bonus_penalties tuples (indexed by "
+                f"bonus_id) on EnvParams")
+    return (t, c, s)
+
+
+def normalize_event(ev, params: EnvParams = None):
+    """Event entry -> (type, color, state, mask_or_None) or None."""
+    if ev is None:
+        return None
+    if isinstance(ev, tuple) and len(ev) == 4:
+        return ev
+    if isinstance(ev, tuple) and len(ev) == 2:   # (WorldObj, mask)
+        obj, mask = ev
+        return encode_obj_cell(obj, params) + (mask,)
+    return encode_obj_cell(ev, params) + (None,)  # bare WorldObj
 
 
 def n_scenario_events(params: EnvParams) -> int:
@@ -244,6 +323,7 @@ def reset(params: EnvParams, keys: torch.Tensor) -> EnvState:
     free = gt == C.EMPTY
     placed = []  # (flat index, ok, type, color, obj_state) of painted objects
     for e, ev in enumerate(events):
+        ev = normalize_event(ev, params)
         if ev is None:
             continue
         otype, ocolor, ostate, mask = ev

@@ -391,3 +391,72 @@ def validate_encode_palette(params: EnvParams, key=None, n_envs: int = 4,
         acts = rng.randint(ak, (n_envs, params.n_agents), 0, C.N_ACTIONS)
         state = step_mod.step_autoreset_batch(params, state, acts)[0]
         check(state, t + 1)
+
+
+# ---------------------------------------------------------------------------
+# One env's observations, for the host env (``wrapper.py``): the JAX
+# package's unbatched functions, each the batched function above run on the
+# host env's batch-1 state with the batch axis squeezed, so the host path
+# runs the same engine and, on the card, the same kernels (K1 for encode
+# views, K3 for pixels). ``state`` is a batch-1 EnvState.
+# ---------------------------------------------------------------------------
+
+def all_view_world_coords(params: EnvParams, state: EnvState):
+    """(N, vs, vs, 2) world coords + (N, vs, vs) in-bounds, all agents."""
+    wx, wy, inb = view_coords_bminor(params, state)
+    return torch.stack([wx[..., 0], wy[..., 0]], -1), inb[..., 0]
+
+
+def all_view_cells(params: EnvParams, state: EnvState, with_dim=False):
+    """Every agent's view cells, (N, vs, vs) each: type, color, state
+    (out-of-bounds cells read as grey wall), agent-present, agent color and
+    relative agent dir; ``with_dim`` appends the observed agent's prestige
+    dim factor (float32, 1.0 where no agent)."""
+    cells = [a[..., 0] for a in all_view_cells_b(params, state,
+                                                 with_dim=with_dim)]
+    if with_dim:
+        dim = const(C.PRESTIGE_DIM, torch.float32, state.agent_pos.device)
+        cells[-1] = torch.where(cells[3], dim[cells[-1].long()], 1.0)
+    return tuple(cells)
+
+
+def transparency(vt, vst):
+    """see_behind per view cell, any shape (:func:`transparency_b`)."""
+    return transparency_b(vt, vst)
+
+
+def process_vis(t, view_size: int, view_offset: int) -> torch.Tensor:
+    """The occlusion mask of a (..., vs, vs) transparency grid indexed
+    [..., vi, vj] (any leading dims), through :func:`process_vis_b`."""
+    vs = view_size
+    lead = t.shape[:-2]
+    bm = t.reshape(-1, vs, vs).permute(1, 2, 0)[None]     # (1, vs, vs, L)
+    vis = process_vis_b(bm, view_size, view_offset)[0]
+    return vis.permute(2, 0, 1).reshape(lead + (vs, vs))
+
+
+def all_obs_encode(params: EnvParams, state: EnvState) -> torch.Tensor:
+    """'encode' observations of every agent: (N, vs, vs, 3) int32."""
+    return all_obs_encode_b(params, state)[0]
+
+
+def all_obs_image(params: EnvParams, state: EnvState) -> torch.Tensor:
+    """'image' observations of every agent: (N, vs*T, vs*T, 3) uint8, T =
+    ``params.view_tile_size`` (the JAX function takes the sprite tables of
+    that tile size as arguments; the port's composite builds its own)."""
+    return all_obs_image_b(params, state)[0]
+
+
+def all_agent_obs(params: EnvParams, state: EnvState) -> torch.Tensor:
+    """Stacked observations of every agent: (N, ...)."""
+    if params.observation_style == "encode":
+        return all_obs_encode(params, state)
+    return all_obs_image(params, state)
+
+
+def agent_obs_encode(params: EnvParams, state: EnvState, i):
+    return all_obs_encode(params, state)[i]
+
+
+def view_cells(params: EnvParams, state: EnvState, i):
+    return tuple(a[i] for a in all_view_cells(params, state))

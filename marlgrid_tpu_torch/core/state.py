@@ -357,3 +357,21 @@ def state_from_numpy(arrays: Dict[str, np.ndarray], device) -> EnvState:
         return torch.as_tensor(a, device=device)
 
     return EnvState(**{f: conv(f) for f in FIELDS})
+
+
+def grid2d(state: EnvState, params: EnvParams):
+    """The three board layers reshaped to (B, W, H)."""
+    W, H = params.width, params.height
+    return tuple(t.reshape(-1, W, H) for t in
+                 (state.grid_type, state.grid_color, state.grid_state))
+
+
+def np_grid(state: EnvState, params: EnvParams = None,
+            b: int = 0) -> np.ndarray:
+    """Env ``b``'s symbolic board as numpy, ``MultiGrid.encode()``: (W, H,
+    3) with ``params``, else the flat (W*H, 3)."""
+    layers = [t[b].cpu().numpy() for t in
+              (state.grid_type, state.grid_color, state.grid_state)]
+    if params is not None:
+        layers = [a.reshape(params.width, params.height) for a in layers]
+    return np.stack(layers, axis=-1)

@@ -10,6 +10,9 @@ gathers) becomes plain indexing here.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from ..device import const
@@ -17,6 +20,45 @@ from . import constants as C
 from . import rng
 from .grid_gen import free_mask, interior_region, reset, select_from_mask
 from .state import FIELDS, EnvParams, EnvState
+
+
+def fma_f32(a, b, c):
+    """``a * b + c`` of float32 values (tensors, or ``b`` as float64
+    holding float32 values, or floats) rounded once to float32, as a fused
+    multiply-add rounds it: XLA contracts the prestige update into an FMA.
+
+    Plain ops, the same on every device, so the card and the CPU agree bit
+    for bit (no fused op of the framework, whose rounding may differ
+    between builds). The product of two float32 values is exact in
+    float64, and the float64 sum rounds once. Rounding that sum again to
+    float32 differs from one rounding only where the float64 sum lands
+    exactly on a half-way point between two float32 values while the exact
+    sum does not: there the sum steps one float64 ulp toward the exact
+    sum, whose side TwoSum's error gives (results in float32's normal
+    range)."""
+    a, b, c = (x.double() if torch.is_tensor(x) else float(x)
+               for x in (a, b, c))
+    p = a * b
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    # a float32 half-way point has the low 29 of float64's 52 mantissa
+    # bits at 1 followed by 28 zeros
+    tie = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) & (err != 0)
+    s = torch.where(tie, torch.nextafter(s, torch.copysign(
+        torch.full_like(s, math.inf), err)), s)
+    return s.float()
+
+
+def reward_decay(params: EnvParams, step_count):
+    """The reward's decay ``1 - 0.9 * step_count / max_steps`` (float32)
+    as XLA compiles it: the constants folded into one float32 ``c``, then
+    ``1 - step_count * c`` as one fused multiply-add. In float64 the
+    product and the difference are exact (step counts and max_steps below
+    2**27), so one rounding to float32 is the FMA's."""
+    c = float(np.float32(np.float32(0.9)
+                         * np.float32(1.0 / params.max_steps)))
+    return (1.0 - step_count.double() * c).float()
 
 
 def _float_lookup(table, idx):
@@ -190,14 +232,15 @@ def step(params: EnvParams, state: EnvState, actions):
 
     s.step_count = s.step_count + 1
     if params.reward_decay:
-        decay = 1.0 - 0.9 * s.step_count.to(torch.float32) / params.max_steps
-        rew = rew * decay[:, None]
+        rew = rew * reward_decay(params, s.step_count)[:, None]
     s.accum_reward = s.accum_reward + rew
     s.last_reward = rew
     # prestige display accumulator (SPEC §8): decay, then add this step's
-    # non-negative reward (beta may differ per agent)
-    betas = const(params.prestige_beta_tuple(), torch.float32, dev)
-    s.prestige = s.prestige * betas + torch.clamp(rew, min=0.0)
+    # non-negative reward (beta may differ per agent), one fused
+    # multiply-add as XLA compiles it
+    betas = const([float(np.float32(b)) for b in
+                   params.prestige_beta_tuple()], torch.float64, dev)
+    s.prestige = fma_f32(s.prestige, betas, torch.clamp(rew, min=0.0))
 
     alive = s.active
     if params.has_spawn_delays:
@@ -227,6 +270,18 @@ def _select(done, stepped: EnvState, fresh: EnvState) -> EnvState:
 
     return EnvState(**{f: sel(getattr(stepped, f), getattr(fresh, f))
                        for f in FIELDS})
+
+
+def step_autoreset(params: EnvParams, state: EnvState, actions):
+    """Per-env autoreset (SPEC §9): every env that finishes restarts on its
+    own fresh board, drawn from ``autoreset_key`` of its post-step key (B
+    resets per step, of which about B/max_steps are used). Returns
+    ``(state', rew, done, info)``, rew/done and info's episode aggregates
+    the terminal step's."""
+    stepped, rew, done = step(params, state, actions)
+    fresh = reset(params, rng.autoreset_key(stepped.key))
+    return _select(done, stepped, fresh), rew, done, _episode_info(stepped,
+                                                                   done)
 
 
 def step_autoreset_batch(params: EnvParams, state: EnvState, actions):

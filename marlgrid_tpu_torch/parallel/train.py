@@ -71,9 +71,9 @@ LATER = (
     (lambda a: a.model_shards != 1, "--model-shards > 1",
      "Slice G (multi-device)"),
     (lambda a: bool(a.profile_dir), "--profile-dir",
-     "Slice F (host API and tools)"),
+     "Slice F, its last tools: utils/profiling.py on torch.profiler"),
     (lambda a: a.debug_nans, "--debug-nans",
-     "Slice F (host API and tools)"),
+     "Slice F, its last tools: a NaN check after each step"),
 )
 
 

@@ -2,16 +2,19 @@
 
 A copy of ``marlgrid_tpu/rendering.py``'s numpy code: the pixel-geometry
 predicates, ``fill_coords``, ``downsample`` and ``highlight_img``, the base
-and agent sprites, the sprite tables ``base_lut``/``agent_lut`` and the
-top-down ``render_board``. The tables are built once on the host; the image
-observations (``core/obs.py::all_obs_image_b``) index them, through kernel
-K3 (``ops/sprite.py``) on the card. The port keeps its own copy so that it
+and agent sprites, the sprite tables ``base_lut``/``agent_lut``, the
+top-down ``render_board`` and the ``SimpleImageViewer`` window. The tables
+are built once on the host; the image observations
+(``core/obs.py::all_obs_image_b``) index them, through kernel K3
+(``ops/sprite.py``) on the card. The port keeps its own copy so that it
 never imports the JAX package.
 """
 from __future__ import annotations
 
 import functools
 import math
+import os
+import tempfile
 
 import numpy as np
 
@@ -199,6 +202,37 @@ def agent_lut(tile_size: int) -> np.ndarray:
             out[1 + c * 4 + d] = render_agent_tile(c, d, tile_size)
     out.flags.writeable = False
     return out
+
+
+class SimpleImageViewer:
+    """The ``render(mode='human')`` window (``marlgrid/rendering.py`` —
+    §viewer): PIL's ``show`` where a display exists, else each frame saved
+    as a PNG in the temporary directory. Raises ImportError, naming PIL,
+    where PIL is not installed."""
+
+    def __init__(self, caption="marlgrid-tpu-torch"):
+        self.caption = caption
+        self._n = 0
+
+    def imshow(self, img):
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError("SimpleImageViewer needs PIL (pillow), which "
+                              "is not installed") from e
+
+        im = Image.fromarray(np.asarray(img))
+        if os.environ.get("DISPLAY"):
+            im.show(title=self.caption)
+            return None
+        path = os.path.join(tempfile.gettempdir(),
+                            f"{self.caption}-{self._n:04d}.png")
+        im.save(path)
+        self._n += 1
+        return path
+
+    def close(self):
+        pass
 
 
 # --------------------------------------------------------------------------

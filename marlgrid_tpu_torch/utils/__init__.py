@@ -1,2 +1,2 @@
 """Host-side utilities of the PyTorch port: the JSONL metrics stream and
-the torch-native checkpoint."""
+rate counter, the torch-native checkpoint and episode video export."""

@@ -1,7 +1,7 @@
-"""Structured metrics / logging: a JSONL metric stream.
+"""Structured metrics / logging: a JSONL metric stream and a rate counter.
 
 The port's own copy of ``marlgrid_tpu/utils/metrics.py``'s ``MetricsLogger``
-(same records, same fields). The step functions keep metrics as device
+(same records, same fields) and ``Throughput``. The step functions keep metrics as device
 tensors; the host logs one line per logged iteration.
 """
 from __future__ import annotations
@@ -36,3 +36,19 @@ class MetricsLogger:
         if self._owns:
             self._fh.close()
 
+
+
+class Throughput:
+    """env-steps/s counter over a sliding window."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self._t = time.time()
+        self._steps = 0
+
+    def update(self, env_steps: int) -> float:
+        self._steps += env_steps
+        dt = time.time() - self._t
+        return self._steps / dt if dt > 0 else float("inf")

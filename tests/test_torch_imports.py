@@ -2,9 +2,14 @@
 
 A static AST scan (not ``sys.modules``: a site customization may import
 jax at interpreter start) of every module of ``marlgrid_tpu_torch`` and of
-``chip_smoke.py`` finds no import of jax, flax, optax or the JAX package.
+``chip_smoke.py`` and ``chip_pair.py`` finds no import of jax, flax, optax
+or the JAX package. The package imports, and its host env runs, without
+gymnasium, imageio and PIL (the card's machine has none of them).
 """
 import ast
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -13,7 +18,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "marlgrid_tpu"}
 FILES = sorted((ROOT / "marlgrid_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_pair.py"]
 
 
 def _imported_roots(path: Path):
@@ -42,10 +47,11 @@ def test_port_imports_no_jax(path):
 def test_entry_points_default_to_cuda(monkeypatch):
     """Without a card, an entry point called without ``device=`` raises;
     with ``device="cpu"`` it runs."""
+    from marlgrid_tpu_torch import envs, wrapper
     from marlgrid_tpu_torch.core import rng
     from marlgrid_tpu_torch.core.state import EnvParams
     from marlgrid_tpu_torch.models import ActorCritic, RecurrentActorCritic
-    from marlgrid_tpu_torch.parallel import (ppo, ppo_hetero,
+    from marlgrid_tpu_torch.parallel import (evaluate, ppo, ppo_hetero,
                                              ppo_hetero_mixed, ppo_hetero_rnn,
                                              ppo_rnn, train)
     from marlgrid_tpu_torch.vector import VectorEnv
@@ -72,6 +78,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: train.main(["--scenario", "empty", "--agent-config",
                             '[{"view_size":5},{"view_size":3}]', "--envs",
                             "4", "--iters", "1"]))
+    host_calls = (
+        lambda: wrapper.MultiGridEnv(params=ep),
+        lambda: envs.make("MarlGrid-3AgentCluttered15x15-v0"),
+        lambda: envs.env_from_config(dict(env_class="empty", n_agents=1)),
+        lambda: envs.ENV_CLASSES["goal_cycle"](grid_size=9),
+        lambda: VectorEnv(ep, 4, independent_resets=True),
+        lambda: evaluate.restore_policy(
+            evaluate.parse_args(["--checkpoint", "unused"]), ep, cfg))
     for call in (lambda: rng.PRNGKey(0),
                  lambda: VectorEnv(ep, 4),
                  lambda: ppo.init_env_batch(ep, 4, key),
@@ -84,8 +98,43 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  lambda: ppo_rnn.make_train_step_rnn(ep, rcfg, None, None),
                  lambda: train.main(["--scenario", "empty", "--agents", "1",
                                      "--envs", "4", "--iters", "1"])
-                 ) + hetero_calls:
+                 ) + hetero_calls + host_calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     state, obs = VectorEnv(ep, 4, device="cpu").reset(key)
     assert obs.shape == (4, 1, 7, 7, 3) and obs.device.type == "cpu"
+
+
+def test_imports_without_gymnasium_imageio_pil():
+    """In a fresh interpreter where gymnasium, imageio and PIL cannot be
+    imported: the package imports, registers its envs and runs an episode
+    step of the host env on the CPU; the spaces and the viewer name what
+    they miss."""
+    code = """
+import sys
+for m in ("gymnasium", "imageio", "PIL"):
+    sys.modules[m] = None
+import marlgrid_tpu_torch
+from marlgrid_tpu_torch import envs, rendering
+env = envs.make("MarlGrid-2AgentEmpty9x9-v0", device="cpu")
+obs = env.reset()
+obs, rew, done, info = env.step([2, 1])
+assert len(obs) == 2 and rew.shape == (2,) and env.render().ndim == 3
+assert "MarlGrid-3AgentCluttered15x15-v0" in envs.REGISTRY
+for what in (lambda: env.agents[0].action_space,
+             lambda: rendering.SimpleImageViewer().imshow(env.render())):
+    try:
+        what()
+    except ImportError as e:
+        print("refused:", e)
+    else:
+        raise AssertionError("no ImportError")
+print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert lines[-1] == "ok"
+    assert "gymnasium" in lines[-3] and "PIL" in lines[-2], lines

@@ -7,8 +7,8 @@ On the CPU there is no CUDA graph: a graphed step runs its raw step, and
 single steps bit for bit, as ``tests/test_ppo.py``'s
 ``test_multi_step_matches_repeated_single_steps`` holds JAX's. The port's
 ``multi_step`` is also held against JAX's ``multi_step`` from the same
-weights, env batch and key: the key and the env state bit-equal (its float
-fields within 1e-6), the weights within ``test_torch_ppo.py``'s tolerance.
+weights, env batch and key: the key and the env state bit-equal (its
+reward fields too), the weights within ``test_torch_ppo.py``'s tolerance.
 """
 import json
 
@@ -117,8 +117,7 @@ def _record_first_grad():
 def test_multi_step_matches_jax():
     """The port's ``multi_step`` against JAX's ``multi_step`` (k = 3 steps
     under one ``lax.scan``), from the same flax weights, env batch and
-    key: the key and the env state's integer fields bit-equal, its float
-    fields within 1e-6, every metric of the last step within 1e-5, and the
+    key: the key and every field of the env state bit-equal, every metric of the last step within 1e-5, and the
     weights within 1e-4 where JAX's first clipped gradient is above 1e-6
     (``test_torch_ppo.py``'s bounds: Adam moves a weight by +-lr whatever
     its gradient's size, so a gradient at float32 noise level may take the
@@ -154,14 +153,7 @@ def test_multi_step_matches_jax():
     got = state_to_numpy(env)
     for f in FIELDS:
         want = np.asarray(getattr(env3, f))
-        if want.dtype.kind == "f":
-            # prestige and the reward accumulators: XLA fuses their decay
-            # and sums, so they may differ in the last bit, as in
-            # test_torch_ppo.py
-            np.testing.assert_allclose(got[f], want, rtol=0, atol=1e-6,
-                                       err_msg=f)
-        else:
-            np.testing.assert_array_equal(got[f], want, err_msg=f)
+        np.testing.assert_array_equal(got[f], want, err_msg=f)
     np.testing.assert_array_equal(key.numpy(), key3)
     for k, v in jm.items():
         np.testing.assert_allclose(float(m[k]), float(v), rtol=1e-5,

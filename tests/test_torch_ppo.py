@@ -122,8 +122,9 @@ def test_train_step_matches_jax(jax_step):
                                    atol=1e-4, err_msg=name)
     got1 = state_to_numpy(env1)
     for f in FIELDS:
-        np.testing.assert_allclose(got1[f], np.asarray(getattr(j["env1"], f)),
-                                   rtol=0, atol=1e-6, err_msg=f)
+        np.testing.assert_array_equal(got1[f],
+                                      np.asarray(getattr(j["env1"], f)),
+                                      err_msg=f)
     np.testing.assert_array_equal(key1.numpy(), j["key1"])
 
 
