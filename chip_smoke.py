@@ -40,7 +40,9 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    update of the same trajectory from the same weights; then the same for
    one step of each heterogeneous population (all-encode views 7/5/7/5,
    with a GRU on the plane-major embed, and encode + image groups, the
-   image group held to the float32 image step's bounds); and the device
+   image group held to the float32 image step's bounds), and of the row
+   store (float32: the encode 'cnn' torso, and image obs with
+   ``recompute_image_obs=False``); and the device
    ops and time that the single-rounding reward decay and prestige update
    (``core/step.py::fma_f32``) cost beside the per-op formulas;
 5. the rollout path: a PPO rollout at the train default's full width
@@ -81,21 +83,32 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    against its plain version on the first step's own codes, tables and
    output gradients; then the ``--agent-config`` CLI (graphed) with a
    resume;
+8a. the row store at the same width: ``--torso cnn`` (channels (32, 64))
+   and image obs with ``recompute_image_obs=False`` (cnn_s2d), one
+   rollout each (K1 65, K3 65 on image rows, every other kernel none; the
+   stored (T, B*N, F) uint8 rows and their bytes) and two eager train steps
+   with the same launches per step, train env-steps/s and peak memory;
+   then the ``--torso cnn`` CLI (graphed) with a resume, its checkpoint
+   kept for 8d; then the CLI's ``--profile-dir`` (B = 1024, T = 8, 5
+   calls: the trace read back, its hotspots naming the ``rollout.`` and
+   ``update.`` stages) and ``--debug-nans`` (B = 1024, 3 calls);
 8c. the host API (``wrapper.MultiGridEnv`` through ``envs.make`` and
    ``envs.env_from_config``): a cluttered 15x15 image env, a goal-cycle
    encode env and a doorkey image env, one episode each to done bit-equal
    card vs CPU (obs, rewards, done, ``encode()``, ``render()`` and the
    agent views at 16-pixel tiles), and the card's wall per step;
 8d. evaluation: ``parallel/evaluate.py --episodes 2`` on the checkpoints
-   of the encode, ``--rnn gru`` (plane-major) and ``--agent-config`` CLI
-   phases, with the launches of K1 and K2f (K5f) per step, the stats line,
+   of the encode, ``--rnn gru`` (plane-major), ``--agent-config`` and
+   ``--torso cnn`` CLI phases, with the launches of K1 and K2f (K5f; none
+   for 'cnn') per step, the stats line,
    the wall per step and the card's logits against the plain CPU forward;
 9. torch.profiler over a short rollout, one eager train step, one image
    train step, one recurrent train step and one step of each all-encode
    hetero path (feedforward and recurrent), by stage;
 9b. graphs: each train step as one CUDA graph (``parallel/graph.py``)
-   against its eager step from one start, at full width for encode,
-   recurrent encode and hetero recurrent, at B = 1024 for image, the mixed
+   against its eager step from one start, at full width for encode, the
+   encode row store (``--torso cnn``), recurrent encode and hetero
+   recurrent, at B = 1024 for image, the mixed
    population and ``--overlap``: two eager runs of two steps (a step of
    the first under ``torch.cuda.set_sync_debug_mode('error')``), ``jit=True``
    two calls and ``multi_step`` with k = 2 once (then replays for the
@@ -705,11 +718,13 @@ def phase_reference(seed):
     reference_image(seed)
 
 
-def _train_config(kind, rnn=""):
+def _train_config(kind, rnn="", rows=False):
     """The reference train step's small config (goal_cycle 13x13, 4
     agents, B = 16, T = 8, hidden 32, float32, 2 epochs x 4 minibatches):
     'encode' with the mlp torso and palettes, or 'image' with cnn_s2d;
-    feedforward, or recurrent with ``rnn`` 'gru' or 'lstm'."""
+    feedforward, or recurrent with ``rnn`` 'gru' or 'lstm'. ``rows``: the
+    row store, 'encode' with the 'cnn' torso (channels (32, 64)) or
+    'image' with ``recompute_image_obs=False``."""
     from marlgrid_tpu_torch.core import obs
     from marlgrid_tpu_torch.core.state import EnvParams, default_agent_colors
     from marlgrid_tpu_torch.parallel import ppo
@@ -717,13 +732,15 @@ def _train_config(kind, rnn=""):
     ep = EnvParams(width=13, height=13, n_agents=4, scenario="goal_cycle",
                    max_steps=12, reward_decay=False, observation_style=kind,
                    agent_colors=default_agent_colors(4))
+    small = dict(n_envs=16, rollout_len=8, hidden=32, board_pool=4,
+                 dtype=torch.float32, rnn=rnn)
+    if kind == "encode" and rows:
+        return ep, ppo.PPOConfig(**small, torso="cnn")
     if kind == "encode":
-        return ep, ppo.PPOConfig(n_envs=16, rollout_len=8, hidden=32,
-                                 board_pool=4, dtype=torch.float32, rnn=rnn,
+        return ep, ppo.PPOConfig(**small,
                                  embed_palettes=obs.encode_palettes(ep))
-    return ep, ppo.PPOConfig(n_envs=16, rollout_len=8, hidden=32,
-                             board_pool=4, dtype=torch.float32,
-                             torso="cnn_s2d", rnn=rnn)
+    return ep, ppo.PPOConfig(**small, torso="cnn_s2d",
+                             recompute_image_obs=not rows)
 
 
 #: the reference train step's tolerances (see reference_train), per path
@@ -739,6 +756,10 @@ TRAIN_TOL = {
     # metrics 2.4e-7, gradients 2.5e-6 and weights 3.0e-5 apart; the bounds
     # sit 40x, 40x and 330x above those readings
     "image": dict(metrics=1e-5, grad=1e-4, weights=1e-2),
+    # The row store: float32 end to end as 'image' (the 'cnn' torso's
+    # one-hot planes are exact), so it takes 'image''s bounds
+    "encode rows": dict(metrics=1e-5, grad=1e-4, weights=1e-2),
+    "image rows": dict(metrics=1e-5, grad=1e-4, weights=1e-2),
     # The recurrent steps. The plane-major embed reads its tables and dout
     # in bf16 on both devices, so, as on the float32 image path, only the
     # order of float32 sums differs: on an H100 the GRU encode step read
@@ -766,7 +787,7 @@ TRAIN_TOL = {
 }
 
 
-def reference_train(seed, kind, rnn="", plane_major=False):
+def reference_train(seed, kind, rnn="", plane_major=False, rows=False):
     """A train step at a small size in float32 (:func:`_train_config`):
     the card's rollout and update, and the CPU's update of the card's
     trajectory (feature-major codes, or the stored EnvStates that the image
@@ -775,7 +796,8 @@ def reference_train(seed, kind, rnn="", plane_major=False):
     action.) With ``rnn``, the recurrent step (``ppo_rnn``), its update fed
     the card's stored window carries too; ``plane_major`` builds both nets
     with the plane-major embed (K5f/K5b on the card). The tolerances of
-    ``TRAIN_TOL``, per weight tensor:
+    ``TRAIN_TOL``, per weight tensor (``rows``: the row store's
+    configuration of :func:`_train_config`):
     every metric within ``metrics``; the first minibatch's gradient within
     ``grad`` of its L2 norm; the weights after the step within ``weights``
     of the step's change in L2 norm (Adam moves a weight by about lr
@@ -785,9 +807,9 @@ def reference_train(seed, kind, rnn="", plane_major=False):
     from marlgrid_tpu_torch.core import rng
     from marlgrid_tpu_torch.parallel import ppo, ppo_rnn
 
-    ep, cfg = _train_config(kind, rnn)
+    ep, cfg = _train_config(kind, rnn, rows)
     label = " ".join([kind] + [rnn] * bool(rnn)
-                     + ["plane-major"] * plane_major)
+                     + ["plane-major"] * plane_major + ["rows"] * rows)
     tol = TRAIN_TOL[label]
     devs = {"card": "cuda", "cpu": "cpu"}
     init = ppo_rnn.init_state_rnn if rnn else ppo.init_state
@@ -795,7 +817,8 @@ def reference_train(seed, kind, rnn="", plane_major=False):
         made = {who: init(ep, cfg, torch.Generator().manual_seed(seed),
                           device=dev) for who, dev in devs.items()}
     nets = {who: m[:2] for who, m in made.items()}
-    if kind == "encode" and nets["card"][0].torso0.plane_major != plane_major:
+    if cfg.torso == "mlp" and \
+            nets["card"][0].torso0.plane_major != plane_major:
         raise AssertionError(f"{label}: the embed route was not selected")
     key = rng.PRNGKey(seed, device="cuda")
     env = ppo.init_env_batch(ep, cfg.n_envs, rng.fold_in(key, 1),
@@ -813,8 +836,8 @@ def reference_train(seed, kind, rnn="", plane_major=False):
     for who, (net, opt) in nets.items():
         dev = devs[who]
         _record_first_grads(net, opt, grads.setdefault(who, {}))
-        tr = {k: v.map(lambda x: x.to(dev)) if k == "obs" and
-              kind == "image" else v.to(dev) for k, v in traj.items()}
+        tr = {k: v.to(dev) if isinstance(v, torch.Tensor) else
+              v.map(lambda x: x.to(dev)) for k, v in traj.items()}
         if rnn:
             update = ppo_rnn.make_update_rnn(ep, cfg, net, opt, device=dev)
             m = update(tr, ppo_rnn.map_carry(lambda x: x.to(dev), h0s),
@@ -924,6 +947,8 @@ def reference_image(seed):
           f"{err:.3e} (float32, tolerance 1e-3)")
     reference_train(seed, "image")
     reference_train(seed, "image", "gru")
+    reference_train(seed, "encode", rows=True)
+    reference_train(seed, "image", rows=True)
 
 
 def phase_rollout(seed, card):
@@ -1178,17 +1203,155 @@ def phase_rnn_image(seed, card, steps=2):
                 env_steps_per_s=B * T / steady)
 
 
-def cli_config(*flags):
+def cli_config(*flags, rows=False):
     """(EnvParams, PPOConfig) that ``python -m
     marlgrid_tpu_torch.parallel.train`` builds from ``flags``: at no flags
     the train path's config (goal_cycle 13x13 with reward_decay off, 4
     agents, 7x7 views, B = 4096, T = 64, hidden 128, mlp torso with the
     palettes, 2 epochs x 4 minibatches, board pool 256); with ``--obs
     image`` the image train path's (8-pixel tiles, the cnn_s2d torso,
-    recompute_image_obs, no palettes)."""
+    recompute_image_obs, no palettes); with ``--torso cnn`` the encode
+    row store's (channels (32, 64), no palettes). ``rows``: with
+    ``recompute_image_obs=False`` (``PPOConfig`` only: the CLI has no flag
+    for it), the image row store."""
+    import dataclasses
+
     from marlgrid_tpu_torch.parallel import train
 
-    return train.build(train.parse_args(list(flags)))
+    ep, cfg = train.build(train.parse_args(list(flags)))
+    if rows:
+        cfg = dataclasses.replace(cfg, recompute_image_obs=False)
+    return ep, cfg
+
+
+#: the row store's full-width paths: (train CLI flags, recompute_image_obs
+#: off). 'cnn': the JAX CLI's --torso cnn; 'image-rows': image obs stored
+#: as rendered s2d pixels, the store recompute_image_obs replaced
+ROW_PATHS = {"cnn": (("--torso", "cnn"), False),
+             "image-rows": (("--obs", "image"), True)}
+
+
+def path_counts(ep, cfg, plane_major):
+    """The kernel launches of one train step of any path: on the row store
+    K1 once per render of the rollout (T + 1) and K3 as often on image
+    rows, none in the update (it reads the stored rows); on every other
+    path :func:`hetero_counts`'s (a homogeneous path is one group)."""
+    from marlgrid_tpu_torch.parallel import ppo
+
+    if not (ep.has_hetero_obs or cfg.rnn) and \
+            ppo.storage(ep, cfg) == ppo.ROWS:
+        T1 = cfg.rollout_len + 1
+        image = ep.observation_style == "image"
+        return want_counts(transpose_bk=T1, compose_image_b=T1 * image)
+    return hetero_counts(ep, cfg, plane_major)
+
+
+def phase_rows(seed, card, name, steps=2):
+    """The row store at full width (``ROW_PATHS[name]``): one rollout
+    through ``make_rollout`` (K1 T + 1 = 65 times, K3 as often on image
+    rows, every other kernel none; the stored (T, B*N, F) uint8 rows, their
+    bytes, encode codes at most 176), then ``steps`` eager train steps
+    (``jit=False``; the same launches per step: the update reads the
+    stored rows), the launch counts read around each call, each step's
+    metrics, train env-steps/s and the peak device memory; then one more
+    eager step under torch.profiler, by stage (:func:`profile_stages`)."""
+    from marlgrid_tpu_torch.core import rng
+    from marlgrid_tpu_torch.parallel import ppo
+
+    flags, rows = ROW_PATHS[name]
+    ep, cfg = cli_config(*flags, rows=rows)
+    if ppo.storage(ep, cfg) != ppo.ROWS:
+        raise AssertionError(f"{name}: not the row store")
+    B, T, N = cfg.n_envs, cfg.rollout_len, ep.n_agents
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net, opt = ppo.init_state(ep, cfg, torch.Generator().manual_seed(seed),
+                              device="cuda")
+    key = rng.PRNGKey(seed, device="cuda")
+    env = ppo.init_env_batch(ep, B, rng.fold_in(key, 1), stagger=True,
+                             device="cuda")
+    key = rng.fold_in(key, 2)
+    want = path_counts(ep, cfg, False)
+    rollout = ppo.make_rollout(ep, cfg, net, device="cuda")
+    sync()
+    zero_counts()
+    t0 = time.perf_counter()
+    env, key, traj, last = rollout(env, key)
+    sync()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    if counts != want:
+        raise AssertionError(f"{name} rollout: launches {counts}, want "
+                             f"{want}")
+    shape, _ = ppo.obs_spec(ep, cfg)
+    F = math.prod(shape)
+    obs = traj["obs"]
+    if tuple(obs.shape) != (T, B * N, F) or obs.dtype != torch.uint8 or \
+            tuple(traj["act"].shape) != (T, B, N):
+        raise AssertionError(f"{name} trajectory: obs {tuple(obs.shape)} "
+                             f"{obs.dtype}, actions "
+                             f"{tuple(traj['act'].shape)}")
+    top = int(obs.max())
+    if ep.observation_style == "encode" and top > 176:
+        raise AssertionError(f"{name}: a stored code of {top} > 176")
+    for k in ("logp", "val"):
+        if not torch.isfinite(traj[k]).all():
+            raise AssertionError(f"{name} rollout: non-finite {k}")
+    if not torch.isfinite(last).all() or \
+            not ((traj["act"] >= 0) & (traj["act"] < 7)).all():
+        raise AssertionError(f"{name} rollout: last_value or actions")
+    n_done = int(traj["done"].sum())
+    if n_done <= 0:
+        raise AssertionError(f"{name} rollout: no episode ended")
+    store_bytes = obs.numel() * obs.element_size()
+    print(f"[rows] {name} ({' '.join(flags)}, torso {cfg.torso}) rollout "
+          f"B={B} T={T}: first call {dt:.3f} s, launches {counts}; "
+          f"trajectory store (T, B*N, F) = {tuple(obs.shape)} uint8, "
+          f"{store_bytes:,} bytes ({store_bytes / 1e9:.2f} GB), largest "
+          f"stored value {top}; {n_done} episodes ended [{card}]")
+    del traj, obs, last
+    step = ppo.make_train_step(ep, cfg, net, opt, device="cuda", jit=False)
+    w0 = [p.detach().clone() for p in net.parameters()]
+    secs, metrics = [], []
+    for i in range(steps):
+        sync()
+        zero_counts()
+        t0 = time.perf_counter()
+        env, key, m = step(env, key)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        counts = read_counts()
+        if counts != want:
+            raise AssertionError(f"{name} train step {i}: launches "
+                                 f"{counts}, want {want}")
+        m = {k: float(v) for k, v in m.items()}
+        if not (math.isfinite(m["loss"]) and m["entropy"] > 0
+                and m["n_episodes"] > 0):
+            raise AssertionError(f"{name} train step {i}: metrics {m}")
+        metrics.append(m)
+        print(f"[rows] {name} train step {i}: {secs[-1]:.3f} s, loss "
+              f"{m['loss']:.5f}, entropy {m['entropy']:.4f}, ratio_dev "
+              f"{m['ratio_dev']:.4f}, {m['n_episodes']:.0f} episodes, mean "
+              f"episode return {m['episode_return']:.4f}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if all(torch.equal(p, q) for p, q in zip(net.parameters(), w0)):
+        raise AssertionError(f"the {name} train steps changed no weight")
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    print(f"[rows] {name}: launches per train step {counts} (want {want}); "
+          f"B={B} T={T}, 2 epochs x 4 minibatches of "
+          f"{T * B * N // cfg.n_minibatches:,} rows: "
+          f"{', '.join(f'{t:.3f}' for t in secs)} s per step; median of "
+          f"steps 1-{steps - 1}: {B * T / steady:,.0f} eager train "
+          f"env-steps/s; peak device memory {peak_gb:.2f} GB [{card}]")
+    prof = profile_stages(lambda: step(env, key), ("rollout.", "update."),
+                          card, f"one {name} train step (B={B}, T={T}, "
+                          f"torso {cfg.torso}, row store)")
+    del net, opt, step, env, w0
+    torch.cuda.empty_cache()
+    return dict(counts=counts, rollout_first_s=dt, store_bytes=store_bytes,
+                max_stored=top, seconds=secs, metrics=metrics,
+                peak_gb=peak_gb, env_steps_per_s=B * T / steady,
+                profile=prof)
 
 
 def phase_image(seed, card, steps=2):
@@ -1346,6 +1509,57 @@ def phase_cli(card, flags=(), want=None, plane_major=False, spc=1,
           f"[{card}]")
     return dict(env_steps_per_s=[r["env_steps_per_s"] for r in recs],
                 returns=[r["episode_return"] for r in recs], counts=counts)
+
+
+def phase_cli_tools(card):
+    """The train CLI's two debugging tools, at B = 1024: ``--profile-dir``
+    over 5 calls (T = 8: the traced calls 2-4 run the raw step, and an
+    eager step's trace holds every kernel and op), its trace read back by
+    ``profiling.kernel_times`` and ``profiling.hotspots``, which must name
+    a ``rollout.`` and an ``update.`` stage; then ``--debug-nans`` on the
+    defaults (T = 64, graphed), 3 calls that must pass the finite check
+    after each."""
+    from marlgrid_tpu_torch.parallel import train
+    from marlgrid_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prof, log = f"{tmp}/prof", f"{tmp}/m.jsonl"
+        t0 = time.perf_counter()
+        train.main(["--envs", "1024", "--rollout", "8", "--iters", "5",
+                    "--profile-dir", prof, "--metrics", log])
+        prof_s = time.perf_counter() - t0
+        files = os.listdir(prof)
+        size = sum(os.path.getsize(f"{prof}/{f}") for f in files)
+        times = profiling.kernel_times(prof)
+        hot = profiling.hotspots(prof, top=20)
+        names = [n for _, n in hot]
+        if len(files) != 1 or not times or not (
+                any(n.startswith("rollout.") for n in names)
+                and any(n.startswith("update.") for n in names)):
+            raise AssertionError(f"--profile-dir: trace {files}, hotspots "
+                                 f"{hot}")
+        print(f"[cli] --profile-dir (B=1024, T=8, 5 calls, calls 2-4 "
+              f"traced): {prof_s:.1f} s, trace {files[0]} {size:,} bytes; "
+              f"{len(times)} kernel names, {sum(times.values()) / 1e3:.2f} "
+              f"ms of device time; hotspots (ms, stage): "
+              + "; ".join(f"{ms:.2f} {n}" for ms, n in hot[:8])
+              + f" [{card}]")
+        t0 = time.perf_counter()
+        train.main(["--envs", "1024", "--iters", "3", "--debug-nans",
+                    "--metrics", log])
+        nan_s = time.perf_counter() - t0
+        recs = [json.loads(line) for line in open(log)]
+    if len(recs) != 3 or not all(math.isfinite(r["loss"]) for r in recs):
+        raise AssertionError(f"--debug-nans: {recs}")
+    print(f"[cli] --debug-nans (B=1024, T=64, graphed): 3 calls passed the "
+          f"finite check in {nan_s:.1f} s; env_steps_per_s "
+          f"{', '.join(format(r['env_steps_per_s'], ',.0f') for r in recs)}"
+          f" [{card}]")
+    return dict(profile_s=prof_s, trace_bytes=size,
+                hotspots=[[ms, n] for ms, n in hot],
+                debug_nans_s=nan_s,
+                debug_nans_env_steps_per_s=[r["env_steps_per_s"]
+                                            for r in recs])
 
 
 def phase_cli_cpu_resume(card):
@@ -1920,9 +2134,10 @@ def phase_evaluate(ckpts, card):
     """``python -m marlgrid_tpu_torch.parallel.evaluate --checkpoint <dir>
     --episodes 2`` on the checkpoints the CLI phases wrote at full width
     (goal_cycle 13x13, 4 agents, hidden 128: mlp, ``--rnn gru`` on the
-    plane-major embed, the hetero population 7/5/7/5), with the launch
-    counts read around each: K1 once per host observation per group, K2f
-    (K5f for the plane-major checkpoint) once per step per group. Then the
+    plane-major embed, the hetero population 7/5/7/5, ``--torso cnn``),
+    with the launch counts read around each: K1 once per host observation
+    per group, K2f (K5f for the plane-major checkpoint; none for 'cnn')
+    once per step per group. Then the
     card's policy against the plain CPU forward of the same checkpoint on
     the first 8 steps' observations, logits within 5e-2 (bf16 layers after
     the embed, as the reference phase's bound), carries held alike."""
@@ -1940,9 +2155,10 @@ def phase_evaluate(ckpts, card):
             args = evaluate.parse_args(["--checkpoint", ck])
             ep, cfg = evaluate.resolve_config(args)
             ng = len(obs_groups(ep)) if ep.has_hetero_obs else 1
+            # the 'cnn' torso's first layer is its convolutions: no embed
             want = want_counts(
                 transpose_bk=ng * (stats["steps"] + stats["episodes"]),
-                **{embed: ng * stats["steps"]})
+                **{embed: ng * stats["steps"] * (cfg.torso == "mlp")})
             if counts != want or not math.isfinite(stats["mean_return"]):
                 raise AssertionError(f"evaluate {name}: launches {counts}, "
                                      f"want {want}; stats {stats}")
@@ -2904,10 +3120,12 @@ def phase_hetero(seed, card, name, steps=2):
 
 
 #: the graphs phase's paths: (train CLI flags, plane-major embed, B). The
-#: three largest host shares at full width; image, the mixed population and
-#: --overlap at B = 1024 (an eager step's host time does not depend on B)
+#: three largest host shares and the encode row store ('cnn') at full
+#: width; image, the mixed population and --overlap at B = 1024 (an eager
+#: step's host time does not depend on B)
 GRAPH_PATHS = {
     "encode": ((), False, 4096),
+    "cnn": (ROW_PATHS["cnn"][0], False, 4096),
     "rnn": (("--rnn", "gru"), True, 4096),
     "hetero-rnn": (HETERO_PATHS["hetero-rnn"][0], True, 4096),
     "image": (("--obs", "image"), False, 1024),
@@ -2984,7 +3202,7 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True):
     carry0 = _clone_tree(carry0)
     w0 = {k: v.clone() for k, v in net.state_dict().items()}
     o0 = copy.deepcopy(opt.state_dict())
-    per_step = hetero_counts(ep, cfg, plane_major)   # one group if homogeneous
+    per_step = path_counts(ep, cfg, plane_major)
 
     def make(jit):
         if overlap:
@@ -3272,7 +3490,8 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
     train = phase_train(args.seed, card)
     ckpts = {"mlp": (f"{ck_root}/mlp", False),
              "--rnn gru (plane-major)": (f"{ck_root}/gru", True),
-             "hetero 7/5/7/5": (f"{ck_root}/hetero", False)}
+             "hetero 7/5/7/5": (f"{ck_root}/hetero", False),
+             "--torso cnn": (f"{ck_root}/cnn", False)}
     cli = phase_cli(card, (), want_counts(
         transpose_bk=65, onehot_embed_fwd=73, onehot_embed_bwd=8), spc=2,
         keep=ckpts["mlp"][0])
@@ -3287,6 +3506,12 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
         transpose_bk=65, onehot_embed2_fwd=73, onehot_embed2_bwd=8),
         plane_major=True, keep=ckpts["--rnn gru (plane-major)"][0])
     stamp("image, recurrent")
+    rows = {name: phase_rows(args.seed, card, name) for name in ROW_PATHS}
+    cli_cnn = phase_cli(card, ROW_PATHS["cnn"][0], path_counts(
+        *cli_config(*ROW_PATHS["cnn"][0]), plane_major=False),
+        keep=ckpts["--torso cnn"][0])
+    tools = phase_cli_tools(card)
+    stamp("row store, CLI tools")
     hetero = {name: phase_hetero(args.seed, card, name)
               for name in HETERO_PATHS}
     for v in hetero.values():
@@ -3413,7 +3638,8 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
                                step_s=image["seconds"],
                                metrics=image["metrics"],
                                peak_gb=image["peak_gb"]),
-                           cli_image=cli_image,
+                           cli_image=cli_image, rows=rows,
+                           cli_cnn=cli_cnn, cli_tools=tools,
                            rnn={k: rnn[k] for k in (
                                "counts", "seconds", "metrics", "peak_gb",
                                "env_steps_per_s")},
@@ -3439,7 +3665,7 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
           f"{rnn['env_steps_per_s']:,.0f}, recurrent image train "
           f"{rnn_image['env_steps_per_s']:,.0f}, "
           + "".join(f"{n} train {v['env_steps_per_s']:,.0f}, "
-                    for n, v in hetero.items())
+                    for n, v in list(rows.items()) + list(hetero.items()))
           + "graphed train "
           + "".join(f"{n} {v['graphed']['env_steps_per_s']:,.0f} "
                     f"(eager {v['eager']['env_steps_per_s']:,.0f}, "

@@ -1,19 +1,23 @@
 """Actor-critic families (PyTorch port): the feedforward ``ActorCritic`` and
 the recurrent ``RecurrentActorCritic``, each with the mlp torso on 'encode'
-observations or one of the two pixels torsos on image observations.
+observations or one of the two pixels torsos on image observations; the
+feedforward family also takes the 'cnn' torso, and either pixels torso, on
+'encode' observations.
 
 Counterpart of ``marlgrid_tpu/models/actor_critic.py``: the mlp torso is
 ``OneHotEmbed`` on feature-major codes, through the fused one-hot embed
 (kernels K2f and K2b on the card) or, with ``MARLGRID_TPU_EMBED_V2=1``, the
-plane-major embed (K5f and K5b); the 'cnn_s2d' and 'cnn_image' torsos are
-``_conv_torso``'s conv stacks on uint8 images (the convolutions go to
-``F.conv2d``, as the JAX package leaves them to XLA). The feedforward family
-puts a dense torso layer and the policy/value heads on the torso; the
-recurrent one puts a gate-fused GRU or LSTM cell between them. Activations
-run in the compute dtype (bf16 by default, or float32); the heads' outputs
-are cast to float32. Parameters are float32 and carry the flax parameters'
-names, so :func:`load_flax_params` moves JAX weights across. The encode
-'cnn' torso waits for the rest of ROADMAP Slice C.
+plane-major embed (K5f and K5b); the 'cnn' torso is 3x3 convs on
+:func:`onehot_features` of row-major codes; the 'cnn_s2d' and 'cnn_image'
+torsos are the JAX ``_conv_torso``'s stacks on uint8 images or, on encode
+obs, on the (vs, vs, 3) codes themselves, as flax infers them (the
+convolutions go to ``F.conv2d``, as the JAX package leaves them to XLA).
+The feedforward family puts a dense torso layer and the policy/value heads
+on the torso; the recurrent one puts a gate-fused GRU or LSTM cell between
+them. Activations run in the compute dtype (bf16 by default, or float32);
+the heads' outputs are cast to float32. Parameters are float32 and carry
+the flax parameters' names, so :func:`load_flax_params` moves JAX weights
+across.
 """
 from __future__ import annotations
 
@@ -100,6 +104,19 @@ class OneHotEmbed(nn.Module):
         return out + self.bias.to(self.dtype)
 
 
+def onehot_features(obs: torch.Tensor, dtype) -> torch.Tensor:
+    """(..., vs, vs, 3) int codes -> (..., vs, vs, 42) one-hot planes in
+    ``dtype``: type (``N_TYPES + 1``), color (``N_COLORS + 1``), and state
+    clipped to ``0..19``, in that channel order (the JAX
+    ``onehot_features``)."""
+    nt, nc, ns = embed_op.WIDTHS
+    dev = obs.device
+    t = obs[..., 0:1] == torch.arange(nt, device=dev)
+    c = obs[..., 1:2] == torch.arange(nc, device=dev)
+    s = obs[..., 2:3].clamp(0, ns - 1) == torch.arange(ns, device=dev)
+    return torch.cat([t, c, s], dim=-1).to(dtype)
+
+
 def _same_pad(size: int, k: int, stride: int):
     """flax/XLA 'SAME' padding of one spatial axis: (low, high), the odd
     pixel of an uneven total on the high side."""
@@ -131,19 +148,18 @@ def _linear(in_features: int, out_features: int, generator, bias=True):
 
 class _Torso(nn.Module):
     """What both families share: the stateless torso (mlp ``OneHotEmbed``,
-    or a pixels conv stack with the 'rich' extras after it), the dense torso
-    layer and the policy/value heads on its output."""
+    the 'cnn' stack on one-hot planes, or a pixels conv stack with the
+    'rich' extras after it), the dense torso layer and the policy/value
+    heads on its output."""
 
     def _build_torso(self, cfg, view_size: int, generator, tile_size: int,
-                     aux_dim: int) -> int:
-        """Register the torso's layers; returns the width of its output."""
-        if cfg.torso == "cnn":
-            raise NotImplementedError(
-                "torso='cnn' (one-hot planes and 3x3 convs on encode obs) "
-                "is left over from ROADMAP Slice C (pixels)")
-        if cfg.torso not in ("mlp",) + tuple(_CONVS):
+                     aux_dim: int, encode: bool = False) -> int:
+        """Register the torso's layers; returns the width of its output.
+        ``encode``: a pixels torso reads (vs, vs, 3) encode codes, not
+        rendered images."""
+        if cfg.torso not in ("mlp", "cnn") + tuple(_CONVS):
             raise ValueError(f"unknown torso {cfg.torso!r}")
-        if aux_dim and cfg.torso == "mlp":
+        if aux_dim and cfg.torso in ("mlp", "cnn"):
             raise ValueError("aux features go with the pixels torsos")
         self.dtype = cfg.dtype
         self.kind = cfg.torso
@@ -152,18 +168,27 @@ class _Torso(nn.Module):
                                       cfg.dtype, cfg.embed_palettes,
                                       generator)
             return cfg.hidden
-        side = view_size * tile_size
-        c_in = 3
-        if cfg.torso == "cnn_s2d":
-            side, c_in = side // 4, 48
-        for name, c_out, k, stride in (_CONVS[cfg.torso],) + _CONV_TAIL:
+        if cfg.torso == "cnn":
+            side, c_in = view_size, sum(embed_op.WIDTHS)
+            layers = tuple((f"Conv_{i}", ch, 3, 1)
+                           for i, ch in enumerate(cfg.channels))
+        else:
+            side, c_in = view_size, 3
+            if not encode:
+                side *= tile_size
+                if cfg.torso == "cnn_s2d":
+                    side, c_in = side // 4, 48
+            layers = (_CONVS[cfg.torso],) + _CONV_TAIL
+        for name, c_out, k, stride in layers:
             conv = nn.Conv2d(c_in, c_out, k, stride, bias=name != "conv1")
             lecun_normal_(conv.weight, c_in * k * k, generator)
             if conv.bias is not None:
                 nn.init.zeros_(conv.bias)
             setattr(self, name, conv)
             side, c_in = -(-side // stride), c_out
-        self.conv1_bias = nn.Parameter(torch.zeros(32))
+        self.convs = tuple(name for name, *_ in layers)
+        if cfg.torso != "cnn":
+            self.conv1_bias = nn.Parameter(torch.zeros(32))
         return side * side * c_in + aux_dim
 
     def _build_heads(self, width: int, hidden: int, generator):
@@ -181,24 +206,31 @@ class _Torso(nn.Module):
             ht = wl = 0
         return F.conv2d(x, w, b, stride=stride, padding=(ht, wl))
 
-    def _conv_torso(self, obs: torch.Tensor):
-        lead = obs.shape[:-3]
-        x = obs.reshape((-1,) + obs.shape[-3:]).permute(0, 3, 1, 2).to(
+    def _conv_stack(self, x):
+        """(..., h, w, c) -> the conv stack flattened in (h, w, c) order,
+        as flax flattens it: 'cnn' is ReLU(conv) per layer; a pixels torso
+        is conv1 without bias, ``x / 255 + conv1_bias``, then ReLU(conv)."""
+        lead = x.shape[:-3]
+        x = x.reshape((-1,) + x.shape[-3:]).permute(0, 3, 1, 2).to(
             self.dtype)                        # NCHW, channels-last strides
-        x = self._conv(self.conv1, x)
-        x = F.relu(x / 255.0 + self.conv1_bias.to(self.dtype)[:, None, None])
-        x = F.relu(self._conv(self.Conv_0, x))
-        x = F.relu(self._conv(self.Conv_1, x))
+        for name in self.convs:
+            x = self._conv(getattr(self, name), x)
+            if name == "conv1":
+                x = x / 255.0 + self.conv1_bias.to(self.dtype)[:, None, None]
+            x = F.relu(x)
         return x.permute(0, 2, 3, 1).reshape(lead + (-1,))   # (h, w, c)
 
     def features(self, obs: torch.Tensor, aux=None):
         """The per-step stateless torso: ReLU of the embed (mlp), or the
-        flattened conv stack with ``aux`` concatenated after it."""
+        flattened conv stack ('cnn': on the one-hot planes of the codes)
+        with ``aux`` concatenated after it."""
+        if self.kind in ("mlp", "cnn") and aux is not None:
+            raise ValueError("aux features go with the pixels torsos")
         if self.kind == "mlp":
-            if aux is not None:
-                raise ValueError("aux features go with the pixels torsos")
             return F.relu(self.torso0(obs))
-        x = self._conv_torso(obs)
+        if self.kind == "cnn":
+            return self._conv_stack(onehot_features(obs, self.dtype))
+        x = self._conv_stack(obs)
         if aux is not None:
             x = torch.cat([x, aux.to(self.dtype)], dim=-1)
         return x
@@ -226,24 +258,30 @@ class ActorCritic(_Torso):
       NHWC input viewed as NCHW needs no copy) and flattens (h, w, c), as
       flax does, so the torso layer's rows are flax's as they are. ``aux``
       (..., aux_dim): the 'rich' style's extra features, concatenated
-      after the flatten.
+      after the flatten. With ``encode=True`` either stack reads row-major
+      encode codes ``(..., vs, vs, 3)`` instead (int or uint8, cast to the
+      compute dtype): its first conv has 3 input channels at side vs.
+    - ``torso='cnn'``: row-major encode codes ``(..., vs, vs, 3)`` ->
+      :func:`onehot_features` (42 planes: 12 + 10 + 20), then a 3x3
+      'SAME' conv with bias and a ReLU for each of ``cfg.channels``
+      (flax's ``Conv_0 … Conv_{k-1}``), flattened (h, w, c).
 
-    ``cfg`` is a PPOConfig (hidden, dtype, torso, rnn, embed_palettes);
-    ``tile_size`` (the env's view_tile_size) and ``aux_dim`` size the
-    pixels torsos. Weights are initialized as flax initializes them
-    (lecun-normal kernels, fan-in kh*kw*c_in for a conv; zero biases),
-    drawn from ``generator``.
+    ``cfg`` is a PPOConfig (hidden, channels, dtype, torso, rnn,
+    embed_palettes); ``tile_size`` (the env's view_tile_size), ``encode``
+    and ``aux_dim`` size the pixels torsos. Weights are initialized as flax
+    initializes them (lecun-normal kernels, fan-in kh*kw*c_in for a conv;
+    zero biases), drawn from ``generator``.
     """
 
     def __init__(self, cfg, view_size: int, generator=None, device="cuda",
-                 tile_size: int = 8, aux_dim: int = 0):
+                 tile_size: int = 8, aux_dim: int = 0, encode: bool = False):
         super().__init__()
         if cfg.rnn:
             raise ValueError(f"rnn={cfg.rnn!r}: the recurrent family is "
                              f"RecurrentActorCritic")
         dev = resolve(device)
         width = self._build_torso(cfg, view_size, generator, tile_size,
-                                  aux_dim)
+                                  aux_dim, encode)
         self._build_heads(width, cfg.hidden, generator)
         self.to(dev)
 
@@ -328,6 +366,11 @@ class RecurrentActorCritic(_Torso):
         if cfg.rnn not in ("gru", "lstm"):
             raise ValueError(f"rnn={cfg.rnn!r}: the recurrent cell is 'gru' "
                              f"or 'lstm'")
+        if cfg.torso == "cnn":
+            # the JAX family's setup asserts a pixels torso past the mlp
+            raise ValueError("the recurrent family has no 'cnn' torso: "
+                             "encode recurrent PPO uses the mlp "
+                             "feature-major path")
         dev = resolve(device)
         width = self._build_torso(cfg, view_size, generator, tile_size,
                                   aux_dim)
@@ -361,13 +404,15 @@ def load_flax_params(params):
     or the inner dict), or, for the hetero trainers' per-group list of flax
     trees, the list of their state_dicts (one per group, in group order).
     Each is ``torso0/{w0,w1,w2,bias}`` as they are (mlp, any view size and
-    either vocabulary: the shapes come with the arrays), or the
-    conv kernels ``conv1``/``Conv_0``/``Conv_1`` (kh, kw, in, out) as torch's
-    (out, in, kh, kw) with their biases and ``conv1_bias`` (pixels torsos);
-    the recurrent cell's ``cell/{i,h}`` kernels transposed, ``cell/i/bias``
-    and the GRU's ``cell/hn_bias``; and the ``torso``, ``pi`` and ``v``
-    Dense layers' ``kernel`` (in, out) transposed to torch's ``weight``
-    (out, in)."""
+    either vocabulary: the shapes come with the arrays), or the conv
+    kernels (kh, kw, in, out) as torch's (out, in, kh, kw) with their
+    biases: ``conv1`` and ``conv1_bias`` then ``Conv_0``/``Conv_1`` (pixels
+    torsos, at whatever input channels the arrays have: 48 or 3 for
+    images, 3 on encode codes), or ``Conv_0 … Conv_{k-1}`` alone (the
+    'cnn' torso); the recurrent cell's ``cell/{i,h}`` kernels transposed,
+    ``cell/i/bias`` and the GRU's ``cell/hn_bias``; and the ``torso``,
+    ``pi`` and ``v`` Dense layers' ``kernel`` (in, out) transposed to
+    torch's ``weight`` (out, in)."""
     if isinstance(params, (list, tuple)):
         return [load_flax_params(p) for p in params]
     p = params.get("params", params)
@@ -379,11 +424,16 @@ def load_flax_params(params):
         sd = {f"torso0.{k}": t(p["torso0"][k])
               for k in ("w0", "w1", "w2", "bias")}
     else:
-        sd = {"conv1.weight": t(p["conv1"]["kernel"]).permute(3, 2, 0, 1),
-              "conv1_bias": t(p["conv1_bias"])}
-        for name in ("Conv_0", "Conv_1"):
+        sd = {}
+        if "conv1" in p:
+            sd = {"conv1.weight": t(p["conv1"]["kernel"]).permute(3, 2, 0, 1),
+                  "conv1_bias": t(p["conv1_bias"])}
+        i = 0
+        while f"Conv_{i}" in p:
+            name = f"Conv_{i}"
             sd[f"{name}.weight"] = t(p[name]["kernel"]).permute(3, 2, 0, 1)
             sd[f"{name}.bias"] = t(p[name]["bias"])
+            i += 1
     if "cell" in p:
         cell = p["cell"]
         sd["cell.i.weight"] = t(cell["i"]["kernel"]).T

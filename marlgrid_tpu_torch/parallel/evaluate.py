@@ -17,7 +17,9 @@ policy); ``--max-steps`` is the evaluation's own override. A checkpoint
 without ``config.json`` is rebuilt from the flags and the historical
 defaults. All five families evaluate: the mlp and recurrent policies
 (``models.ActorCritic``, ``RecurrentActorCritic``: K2f, or K5f for a
-plane-major checkpoint, on the card), the hetero populations (a policy per
+plane-major checkpoint, on the card), the 'cnn' and 'cnn_image' torsos on
+encode obs (row-major codes; an encode 'cnn_s2d' checkpoint is refused,
+as the JAX evaluate fails on it), the hetero populations (a policy per
 observation group, with the recurrent carry dict) and mixed styles (the
 cnn_s2d relabel done on the host, :func:`style_obs_batch`). Actions are the
 argmax of the logits, or with ``--sample`` a categorical draw on the key
@@ -188,11 +190,13 @@ def restore_policy(args, ep: EnvParams, cfg: ppo.PPOConfig):
 def style_obs_batch(entries, ep, style, torso, device="cuda"):
     """Host per-agent obs entries of one style -> (policy input, aux or
     None) on ``device``: the mlp torso's feature-major codes (n, 3*vs*vs, 1)
-    uint8 (one sample per agent row), or the pov batch (n, h, w, c) uint8,
+    uint8 (one sample per agent row), the row-major codes (n, vs, vs, 3)
+    of any other torso on encode obs, or the pov batch (n, h, w, c) uint8,
     relabeled space-to-depth on the host for the cnn_s2d torso (the host
     env emits standard-layout images), with the 'rich' features (n, d) as
-    training normalizes them. Shared by the homogeneous and the per-group
-    hetero paths, so their feature order cannot diverge."""
+    training normalizes them. Raises for encode obs with the cnn_s2d
+    torso, where the JAX evaluate fails. Shared by the homogeneous and the
+    per-group hetero paths, so their feature order cannot diverge."""
     dev = resolve(device)
     aux = None
     if style == "rich":
@@ -218,6 +222,14 @@ def style_obs_batch(entries, ep, style, torso, device="cuda"):
         codes = pov.transpose(0, 3, 1, 2).reshape(n, -1, 1)
         return torch.as_tensor(codes.astype(np.uint8), device=dev), aux
     if torso == "cnn_s2d":
+        if style == "encode":
+            # the JAX evaluate relabels the (n, vs, vs, 3) codes as if they
+            # were pixels here, and that reshape cannot succeed
+            raise ValueError(
+                "evaluate: an encode checkpoint with the cnn_s2d torso has "
+                "no host obs batch: the JAX evaluate's space-to-depth "
+                "relabel of its (n, vs, vs, 3) codes fails (ROADMAP Queue "
+                "3, JAX at fault)")
         n, hh, ww, c = pov.shape
         pov = pov.reshape(n, hh // 4, 4, ww // 4, 4, c) \
             .transpose(0, 1, 3, 2, 4, 5).reshape(n, hh // 4, ww // 4,

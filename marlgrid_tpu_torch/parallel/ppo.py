@@ -1,8 +1,8 @@
 """PPO on the batched env (PyTorch port): config, env init, the rollout
 and the update.
 
-Counterpart of ``marlgrid_tpu/parallel/ppo.py`` on one device, for its two
-feedforward paths:
+Counterpart of ``marlgrid_tpu/parallel/ppo.py`` on one device, for its
+three feedforward trajectory stores (:func:`storage`):
 
 - encode observations with the mlp torso (the JAX ``bm_store`` branch):
   observations stay feature-major ``(N, 3*vs*vs, B)`` uint8 end to end;
@@ -13,7 +13,12 @@ feedforward paths:
   (the JAX ``recompute_image_obs`` branch): the rollout renders every step
   (kernel K3), the trajectory stores the pre-step ``EnvState`` of every
   step, and the update re-renders each minibatch's observations from the
-  stored states, ``rich_aux`` included.
+  stored states, ``rich_aux`` included;
+- the row store (the JAX branch after those two): encode observations
+  with the 'cnn', 'cnn_s2d' or 'cnn_image' torso, and image observations
+  with ``recompute_image_obs=False``. The policy reads row-major (B, N,
+  ...) obs, the trajectory stores them as (T, B*N, F) uint8 rows, and the
+  update cuts the T*B*N rows into blocks of contiguous rows.
 
 ``PPOConfig`` has the JAX fields and dict round trip; ``init_env_batch``,
 ``init_state`` (the network and Adam behind an optax-style global-norm
@@ -132,12 +137,18 @@ def rich_aux(env_params: EnvParams, state: EnvState):
     return torch.cat(parts, -1) if parts else None
 
 
-def _recompute(env_params: EnvParams, cfg: PPOConfig) -> bool:
-    """Which of the port's two paths a configuration takes: False for
-    encode/mlp (the feature-major store), True for image or rich obs with
-    a pixels torso (the EnvState store, re-rendered in the update). Raises
-    for the JAX package's other paths, naming the ROADMAP slice that
-    brings them."""
+#: the three trajectory stores, as the JAX ``make_train_step`` picks them
+FEATURES, STATES, ROWS = "features", "states", "rows"
+
+
+def storage(env_params: EnvParams, cfg: PPOConfig) -> str:
+    """Which trajectory store a configuration trains from, the JAX
+    ``bm_store`` / ``recompute`` / row-store choice: :data:`FEATURES` for
+    encode obs with the mlp torso (feature-major codes); :data:`STATES` for
+    image or rich obs with ``recompute_image_obs`` (the pre-step EnvStates,
+    re-rendered in the update); :data:`ROWS` for encode obs with any other
+    torso, and for image obs with ``recompute_image_obs=False`` (row-major
+    uint8 obs). Raises for what the feedforward step does not take."""
     if env_params.has_hetero_obs:
         raise ValueError(
             "heterogeneous per-agent obs groups train through "
@@ -149,21 +160,18 @@ def _recompute(env_params: EnvParams, cfg: PPOConfig) -> bool:
             f"rnn={cfg.rnn!r}: the recurrent family (ROADMAP Slice D) trains "
             f"through parallel/ppo_rnn.py (init_state_rnn, "
             f"make_train_step_rnn), not the feedforward step")
-    if env_params.observation_style == "encode":
-        if cfg.torso != "mlp":
-            raise NotImplementedError(
-                f"torso={cfg.torso!r} on encode obs trains from the "
-                f"row-major obs store, left over from ROADMAP Slice C "
-                f"(pixels)")
-        return False
+    style = env_params.observation_style
+    if style == "encode":
+        if cfg.torso not in ("mlp", "cnn", "cnn_s2d", "cnn_image"):
+            raise ValueError(f"unknown torso {cfg.torso!r}")
+        return FEATURES if cfg.torso == "mlp" else ROWS
+    if style == "rich" and not cfg.recompute_image_obs:
+        raise ValueError("rich-obs PPO needs recompute_image_obs=True "
+                         "(EnvState store)")
     if cfg.torso not in ("cnn_s2d", "cnn_image"):
-        raise ValueError(f"{env_params.observation_style} obs train with a "
-                         f"cnn_s2d or cnn_image torso, not {cfg.torso!r}")
-    if not cfg.recompute_image_obs:
-        raise NotImplementedError(
-            "recompute_image_obs=False (the rendered-pixels row store) is "
-            "left over from ROADMAP Slice C (pixels)")
-    return True
+        raise ValueError(f"{style} obs train with a cnn_s2d or cnn_image "
+                         f"torso, not {cfg.torso!r}")
+    return STATES if cfg.recompute_image_obs else ROWS
 
 
 def init_env_batch(env_params: EnvParams, n_envs: int, key,
@@ -187,10 +195,11 @@ def init_state(env_params: EnvParams, cfg: PPOConfig, generator=None,
     update clips the gradients' global norm to ``cfg.max_grad_norm`` before
     each Adam step (:func:`clip_by_global_norm`), as optax's chain does."""
     rich = env_params.observation_style == "rich"
-    _recompute(env_params, cfg)
+    storage(env_params, cfg)
     net = ActorCritic(cfg, env_params.view_size, generator, device=device,
                       tile_size=env_params.view_tile_size,
-                      aux_dim=aux_dim(env_params) if rich else 0)
+                      aux_dim=aux_dim(env_params) if rich else 0,
+                      encode=env_params.observation_style == "encode")
     return net, make_optimizer(net, cfg)
 
 
@@ -202,9 +211,14 @@ def make_optimizer(net, cfg: PPOConfig):
     eager step uses the same form, so both run the same arithmetic. torch
     refuses ``capturable`` on the CPU, which keeps the plain form."""
     params = list(net.parameters())
-    return torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
-                            foreach=False,
-                            capturable=params[0].device.type == "cuda")
+    opt = torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
+                           foreach=False,
+                           capturable=params[0].device.type == "cuda")
+    # set after the constructor, which refuses a NaN lr that optax takes
+    # (and trains into NaN weights, what --debug-nans is for)
+    for group in opt.param_groups:
+        group["lr"] = cfg.lr
+    return opt
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -285,12 +299,19 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda"):
     Per step t: the policy acts on the observation, actions come from
     ``categorical`` under the step's key, the envs step with the pool
     autoreset (``board_pool`` layouts, rotated by t, salt t). ``traj``
-    leaves are stacked over T. Encode/mlp: ``obs`` (T, N, F, B) uint8,
-    ``act``/``logp``/``val``/``rew`` (T, N, B). Image or rich with a pixels
-    torso: the policy reads (B, N, ...) images (s2d for 'cnn_s2d', with
-    ``rich_aux`` beside them for 'rich'), ``obs`` is the pre-step
-    ``EnvState`` with (T, B, ...) leaves, ``act``/``logp``/``val``/``rew``
-    are (T, B, N). ``done``/``ep_*`` are (T, B) either way.
+    leaves are stacked over T; ``done``/``ep_*`` are (T, B). By
+    :func:`storage`:
+
+    - features (encode/mlp): ``obs`` (T, N, F, B) uint8,
+      ``act``/``logp``/``val``/``rew`` (T, N, B);
+    - states (image or rich, ``recompute_image_obs``): the policy reads
+      (B, N, ...) images (s2d for 'cnn_s2d', with ``rich_aux`` beside them
+      for 'rich'); ``obs`` is the pre-step ``EnvState`` with (T, B, ...)
+      leaves, ``act``/``logp``/``val``/``rew`` are (T, B, N);
+    - rows (encode with a conv torso, or image without recompute): the
+      policy reads the row-major (B, N, ...) obs (encode codes, or images,
+      s2d for 'cnn_s2d'), ``obs`` is (T, B*N, F) uint8 (encode codes are at
+      most 176), the labels (T, B, N) as on the states path.
 
     Each stage runs under a ``torch.profiler.record_function`` label
     (``rollout.fresh_pool``, ``.obs``, ``.policy``, ``.sample``,
@@ -298,9 +319,10 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda"):
     no profiler running a label costs about a microsecond.
     """
     dev = resolve(device)
-    recompute = _recompute(env_params, cfg)
+    store = storage(env_params, cfg)
     rich = env_params.observation_style == "rich"
-    pov_params = env_params.replace(observation_style="image")
+    pov_params = (env_params.replace(observation_style="image") if rich
+                  else env_params)
     s2d = cfg.torso == "cnn_s2d"
     B, T, N = cfg.n_envs, cfg.rollout_len, env_params.n_agents
     Fd = 3 * env_params.view_size ** 2
@@ -308,15 +330,15 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda"):
     K = max(k for k in range(1, min(cfg.board_pool, B) + 1) if B % k == 0)
 
     def obs_of(state):
-        """The policy's inputs: feature-major codes, or (B, N, ...) images
-        and the rich features."""
+        """The policy's inputs: feature-major codes, or the (B, N, ...)
+        row-major obs and the rich features."""
         with record_function("rollout.obs"):
-            if not recompute:
+            if store == FEATURES:
                 bm = obs_mod.all_agent_obs_b(env_params, state, bminor=True)
                 return (bm.permute(1, 0, 2, 3, 4).reshape(N, Fd, B).to(
                     torch.uint8),)
-            img = obs_mod.all_agent_obs_b(pov_params, state, s2d=s2d)
-            return (img, rich_aux(env_params, state) if rich else None)
+            x = obs_mod.all_agent_obs_b(pov_params, state, s2d=s2d)
+            return (x, rich_aux(env_params, state) if rich else None)
 
     @torch.no_grad()
     def rollout(env_state, key):
@@ -326,12 +348,18 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda"):
         key, fk = ks[0], ks[1]
         with record_function("rollout.fresh_pool"):
             fresh_b = step_mod.fresh_pool_tiled(env_params, fk, K, B)
-        names = ("obs", "act", "logp", "val", "rew", "done", "ep_ret",
-                 "ep_len", "ep_cyc")
+        names = ("act", "logp", "val", "rew", "done", "ep_ret", "ep_len",
+                 "ep_cyc")
         steps = {k: [] for k in names}
+        kept = []                   # the stored obs (features or states)
+        if store == ROWS:
+            # written in place step by step: a stack of T steps would hold
+            # the store twice (9.9 GB at a time for s2d images at B = 4096)
+            rows = torch.empty((T, B * N, obs[0][0, 0].numel()),
+                               dtype=torch.uint8, device=dev)
         for t in range(T):
             with record_function("rollout.policy"):
-                # (N, B, A), (N, B) feature-major; (B, N, A), (B, N) images
+                # (N, B, A), (N, B) feature-major; (B, N, A), (B, N) rows
                 logits, value = net(*obs)
             with record_function("rollout.sample"):
                 ks = rng.split(key)
@@ -343,13 +371,17 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda"):
                 fresh_t = step_mod.rotate_fresh_batch(fresh_b, t)
                 stepped, rew, done, info = \
                     step_mod.step_autoreset_with_fresh_batch(
-                        env_params, env_state, a if recompute else a.T,
-                        fresh_t, salt=t)
+                        env_params, env_state,
+                        a.T if store == FEATURES else a, fresh_t, salt=t)
             # the stored obs is the PRE-step one (the state, on the
-            # recompute path), paired with the action taken from it
+            # states path), paired with the action taken from it
+            if store == ROWS:
+                rows[t].view(obs[0].shape).copy_(obs[0])
+            else:
+                kept.append(env_state if store == STATES else obs[0])
             for k, v in zip(names, (
-                    env_state if recompute else obs[0], a.to(torch.int32),
-                    logp_a, value, rew if recompute else rew.T, done,
+                    a.to(torch.int32), logp_a, value,
+                    rew.T if store == FEATURES else rew, done,
                     info["episode_return"], info["episode_length"],
                     info["episode_cycles"])):
                 steps[k].append(v)
@@ -357,8 +389,9 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda"):
             obs = obs_of(env_state)
         with record_function("rollout.policy"):
             _, last_value = net(*obs)
-        traj = {k: _stack_states(v) if k == "obs" and recompute
-                else torch.stack(v) for k, v in steps.items()}
+        traj = {"obs": rows if store == ROWS else _stack_states(kept)
+                if store == STATES else torch.stack(kept)}
+        traj.update({k: torch.stack(v) for k, v in steps.items()})
         return env_state, key, traj, last_value
 
     return rollout
@@ -486,58 +519,83 @@ def run_epochs(minibatches, loss_fn, params, optimizer, key, cfg: PPOConfig,
     return metrics
 
 
+def row_blocks(n: int, n_minibatches: int) -> int:
+    """The block count ``G`` of the row store's update: the largest power
+    of two <= 8192 dividing the ``n`` = T*B*N rows, or ``n`` (single rows)
+    when that is fewer than ``n_minibatches`` (awkward row counts)."""
+    G = 1
+    while G * 2 <= 8192 and n % (G * 2) == 0:
+        G *= 2
+    return n if G < n_minibatches else G
+
+
 def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
                 device="cuda"):
     """Build ``update(traj, last_value, key) -> metrics``, the update half of
-    the JAX ``make_train_step``: GAE on (T, N*B) (encode) or (T, B*N)
-    (images), the block layout, and per epoch a ``permutation(split(key)[1],
-    G)`` cut into ``n_minibatches`` gathers of whole blocks, each a
-    clipped-objective loss, a backward pass, the global-norm clip and an
-    Adam step on ``net`` (in place). ``metrics`` are 0-d device tensors:
-    the means over every minibatch of ``loss``, ``pg_loss``, ``vf_loss``,
-    ``entropy`` and ``ratio_dev``.
+    the JAX ``make_train_step``: GAE on (T, N*B) (encode/mlp) or (T, B*N)
+    (the other stores), the block layout, and per epoch a
+    ``permutation(split(key)[1], G)`` cut into ``n_minibatches`` gathers
+    of whole blocks, each a clipped-objective loss, a backward pass, the
+    global-norm clip and an Adam step on ``net`` (in place). ``metrics``
+    are 0-d device tensors: the means over every minibatch of ``loss``,
+    ``pg_loss``, ``vf_loss``, ``entropy`` and ``ratio_dev``.
 
-    Blocks: encode/mlp, the feature-major (G, F, c) codes with G =
-    N*T*(B//c) (agent, step, env-chunk) blocks (:func:`block_size`);
-    images, the stored EnvStates' (T, B, ...) leaves split into G =
-    T*(B//c) (step, env-chunk) blocks of c envs (:func:`state_block_size`)
-    with (G, c, N) labels. A minibatch of state blocks is flattened to one
-    render batch of S envs and re-rendered ``bminor`` (N, S, ...) (kernel
-    K3; no gradient flows into the render), with ``rich_aux`` read from the
-    same states, and its labels go (mb, c, N) -> (N, S).
+    Blocks, by :func:`storage`: features, the feature-major (G, F, c)
+    codes with G = N*T*(B//c) (agent, step, env-chunk) blocks
+    (:func:`block_size`); states, the stored EnvStates' (T, B, ...) leaves
+    split into G = T*(B//c) (step, env-chunk) blocks of c envs
+    (:func:`state_block_size`) with (G, c, N) labels: a minibatch of state
+    blocks is flattened to one render batch of S envs and re-rendered
+    ``bminor`` (N, S, ...) (kernel K3; no gradient flows into the render),
+    with ``rich_aux`` read from the same states, and its labels go (mb, c,
+    N) -> (N, S); rows, every leaf flattened to the T*B*N rows in (t, b,
+    n) order and cut into :func:`row_blocks` blocks of contiguous rows, a
+    minibatch's rows cast back to ``obs_spec``'s dtype and shape.
 
     The stages run under ``record_function`` labels (``update.gae``,
     ``update.render``, ``update.forward``, ``update.backward``,
     ``update.optimizer``), as the rollout's do.
     """
     dev = resolve(device)
-    recompute = _recompute(env_params, cfg)
+    store = storage(env_params, cfg)
     rich = env_params.observation_style == "rich"
     pov_params = env_params.replace(observation_style="image")
     s2d = cfg.torso == "cnn_s2d"
     B, T, N = cfg.n_envs, cfg.rollout_len, env_params.n_agents
     params = [p for p in net.parameters() if p.requires_grad]
-    if recompute:
+    if store == STATES:
         c = state_block_size(B, T)
         G = T * (B // c)
-    else:
+    elif store == FEATURES:
         c = block_size(B, T, N)
         G = N * T * (B // c)
+    else:
+        G = row_blocks(T * B * N, cfg.n_minibatches)
+        c = T * B * N // G                      # rows per block
     if G < cfg.n_minibatches:
         raise ValueError(f"fewer trajectory blocks ({G}) than minibatches "
                          f"({cfg.n_minibatches})")
     used = (G // cfg.n_minibatches) * cfg.n_minibatches
     labels = ("act", "logp", "val", "adv", "ret")
+    shape, dtype = obs_spec(env_params, cfg)
 
     def policy(batch):
         """logits, values and labels of a minibatch, aligned sample for
         sample."""
-        if not recompute:
+        if store == FEATURES:
             with record_function("update.forward"):
                 # blocks arrive feature-major (mb, F, c) uint8: logits
                 # (mb, c, A), labels (mb, c)
                 logits, value = net(batch["obs"])
             return logits, value, batch
+        if store == ROWS:
+            with record_function("update.forward"):
+                # (mb, c) blocks of rows: one (mb*c,) batch
+                flat = {k: v.reshape((-1,) + v.shape[2:])
+                        for k, v in batch.items()}
+                obs = flat["obs"].to(dtype).reshape((-1,) + shape)
+                logits, value = net(obs)
+            return logits, value, flat
         with record_function("update.render"):
             st = batch["obs"].map(lambda x: x.reshape((-1,) + x.shape[2:]))
             obs = obs_mod.all_agent_obs_b(pov_params, st, bminor=True,
@@ -560,9 +618,13 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
 
     def blocks(traj, last_value):
         """GAE, then the trajectory cut into G blocks: {name: (G, ...)},
-        with ``obs`` an EnvState on the recompute path."""
-        per_step = step_labels(traj, last_value, cfg, recompute)
-        if recompute:
+        with ``obs`` an EnvState on the states path."""
+        per_step = step_labels(traj, last_value, cfg, store != FEATURES)
+        if store == ROWS:
+            out = {k: v.reshape(G, c) for k, v in per_step.items()}
+            out["obs"] = traj["obs"].reshape(G, c, -1)
+            return out
+        if store == STATES:
             def blk(x):                       # (T, B, ...) -> (G, c, ...)
                 return x.reshape((G, c) + x.shape[2:])
 
@@ -596,7 +658,7 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
 def make_train_step(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
                     device="cuda", overlap=False, jit=True):
     """Build the rollout + update step, the JAX ``make_train_step`` on one
-    device (encode/mlp, or image/rich with a pixels torso):
+    device (any of the three stores of :func:`storage`):
     :func:`make_rollout` then :func:`make_update`, with the JAX step's key
     plumbing.
 

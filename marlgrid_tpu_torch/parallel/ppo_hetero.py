@@ -70,6 +70,11 @@ def init_state_hetero(env_params: EnvParams, cfg: PPOConfig, generator=None,
     if not env_params.has_hetero_obs:
         raise ValueError("init_state_hetero: the params hold no per-agent "
                          "observation configs")
+    if cfg.torso != "mlp":
+        # the JAX trainer's nets assert the feature-major mlp path
+        raise ValueError(f"all-encode hetero groups train with the mlp "
+                         f"torso on feature-major codes, not "
+                         f"torso={cfg.torso!r}")
     nets = torch.nn.ModuleList(
         ActorCritic(cfg, gp.view_size, generator, device=device)
         for _, gp in hetero_groups(env_params))

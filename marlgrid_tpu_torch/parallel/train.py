@@ -48,6 +48,7 @@ from ..core import constants as C, obs as obs_mod, rng
 from ..core.state import EnvParams, EnvState, FIELDS, default_agent_colors
 from ..device import resolve
 from ..utils import checkpoint as ckpt_mod
+from ..utils import profiling
 from ..utils.metrics import MetricsLogger
 from ..vector import obs_groups
 from . import ppo, ppo_hetero, ppo_hetero_mixed, ppo_hetero_rnn, ppo_rnn
@@ -59,22 +60,16 @@ BUILTIN_SCENARIOS = ("empty", "cluttered", "doorkey", "goal_cycle")
 #: (is it asked for, flag, the ROADMAP slice that brings it) for each flag
 #: with no path in the port yet
 LATER = (
-    (lambda a: a.torso == "cnn", "--torso cnn",
-     "Slice C (pixels): the encode cnn torso"),
-    (lambda a: a.obs == "encode" and a.torso in ("cnn_image", "cnn_s2d"),
-     "--torso cnn_image|cnn_s2d with --obs encode",
-     "Slice C (pixels): the row-major obs store"),
     (lambda a: a.shard_map, "--shard-map",
      "Slice G (multi-device)"),
     (lambda a: a.distributed, "--distributed",
      "Slice G (multi-device)"),
     (lambda a: a.model_shards != 1, "--model-shards > 1",
      "Slice G (multi-device)"),
-    (lambda a: bool(a.profile_dir), "--profile-dir",
-     "Slice F, its last tools: utils/profiling.py on torch.profiler"),
-    (lambda a: a.debug_nans, "--debug-nans",
-     "Slice F, its last tools: a NaN check after each step"),
 )
+
+#: the calls that --profile-dir traces (0-based), as the JAX CLI does
+TRACED = range(2, 5)
 
 
 def parse_args(argv=None):
@@ -97,7 +92,8 @@ def parse_args(argv=None):
     p.add_argument("--torso", default=None,
                    choices=["mlp", "cnn", "cnn_image", "cnn_s2d"],
                    help="policy torso (default: mlp for encode obs, "
-                        "cnn_s2d for image/rich; the port has no 'cnn')")
+                        "cnn_s2d for image/rich; 'cnn' is 3x3 convs on "
+                        "one-hot encode planes)")
     p.add_argument("--rnn", default="", choices=["", "gru", "lstm"],
                    help="recurrent policy cell: sequence-aware PPO with "
                         "env-block minibatches and done-masked hidden state "
@@ -154,9 +150,13 @@ def parse_args(argv=None):
                    help="explicit-collective train step (not in the port "
                         "yet)")
     p.add_argument("--profile-dir", default=None,
-                   help="profiler trace output dir (not in the port yet)")
+                   help="torch.profiler trace output dir: calls 2-4 run "
+                        "the raw step under the profiler "
+                        "(utils/profiling.py)")
     p.add_argument("--debug-nans", action="store_true",
-                   help="fail fast on NaN (not in the port yet)")
+                   help="fail fast on NaN: after each call, raise "
+                        "FloatingPointError at the first non-finite loss "
+                        "metric or parameter")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (cuda, or cpu)")
     return p.parse_args(argv)
@@ -178,6 +178,11 @@ def build(args):
                          "double-buffered variant is feedforward)")
     torso = args.torso or ("cnn_s2d" if args.obs in ("image", "rich")
                            else "mlp")
+    if args.rnn and args.obs == "encode" and torso != "mlp" \
+            and not args.agent_config:
+        # the JAX CLI stops at init_state_rnn's assert
+        raise SystemExit(f"--rnn --torso {torso}: encode recurrent PPO uses "
+                         f"the mlp feature-major path")
     if args.obs != "encode" and torso == "mlp":
         raise SystemExit(f"--obs {args.obs}: the pov is an image; train it "
                          f"with --torso cnn_s2d or cnn_image")
@@ -334,6 +339,40 @@ def make_call(ep: EnvParams, cfg, net, opt, dev, spc: int, overlap=False):
     return multi(make_step(ep, cfg, net, opt, dev, jit=False), spc), None
 
 
+def make_raw_call(ep: EnvParams, cfg, net, opt, dev, spc: int,
+                  overlap=False):
+    """The eager counterpart of :func:`make_call`'s step: ``spc`` raw steps
+    (``jit=False``) per call, what ``--profile-dir`` traces. A graph replay
+    runs the same kernels but carries no ``record_function`` stage labels,
+    so a trace of it could not attribute them to stages."""
+    if overlap:
+        raw = ppo.make_train_step(ep, cfg, net, opt, device=dev, overlap=True,
+                                  jit=False)[0]
+    else:
+        raw = make_step(ep, cfg, net, opt, dev, jit=False)
+
+    def call(*carry):
+        for _ in range(spc):
+            *carry, metrics = raw(*carry)
+        return (*carry, metrics)
+
+    return call
+
+
+def check_finite(iteration: int, metrics, net):
+    """``--debug-nans``: raise ``FloatingPointError`` naming ``iteration``
+    and the first non-finite tensor among the call's metrics and then the
+    net's parameters (in ``named_parameters`` order). One host sync when
+    every value is finite."""
+    named = ([(f"metric {k!r}", v) for k, v in metrics.items()]
+             + [(f"parameter {n!r}", p) for n, p in net.named_parameters()])
+    bad = torch.stack([~torch.isfinite(t).all() for _, t in named])
+    if bool(bad.any()):
+        raise FloatingPointError(
+            f"--debug-nans: non-finite {named[int(bad.int().argmax())][0]} "
+            f"after iteration {iteration}")
+
+
 def _state_dict(net):
     """The weights to checkpoint: the net's state_dict, or a hetero
     population's list of per-group state_dicts."""
@@ -405,6 +444,9 @@ def main(argv=None):
     step, prime = make_call(ep, cfg, net, opt, dev, spc, args.overlap)
     if prime is not None:
         env_state, prev, key = prime(env_state, key)
+    raw = (make_raw_call(ep, cfg, net, opt, dev, spc, args.overlap)
+           if args.profile_dir else None)
+    prof = None
     log = MetricsLogger(args.metrics)
     run_config = dict(format=1, env_params=ep.to_dict(),
                       ppo=ppo.ppo_config_to_dict(cfg))
@@ -418,12 +460,17 @@ def main(argv=None):
     t0 = time.time()
     last_logged = -1
     for it in range(n_calls):
+        if args.profile_dir and it == TRACED[0]:
+            prof = profiling.start(cuda=dev.type == "cuda")
+        call = step if prof is None else raw
         if cfg.rnn:
-            env_state, h, key, metrics = step(env_state, h, key)
+            env_state, h, key, metrics = call(env_state, h, key)
         elif args.overlap:
-            env_state, prev, key, metrics = step(env_state, prev, key)
+            env_state, prev, key, metrics = call(env_state, prev, key)
         else:
-            env_state, key, metrics = step(env_state, key)
+            env_state, key, metrics = call(env_state, key)
+        if args.debug_nans:
+            check_finite((it + 1) * spc - 1, metrics, net)
         if (it + 1) % args.log_every == 0 or it == n_calls - 1:
             metrics = {k: float(v) for k, v in metrics.items()}
             n_it = it - last_logged
@@ -435,6 +482,9 @@ def main(argv=None):
                     env_steps_per_s=env_steps_per_iter / dt,
                     agent_steps_per_s=env_steps_per_iter * ep.n_agents / dt,
                     **metrics)
+        if prof is not None and it == TRACED[-1]:
+            profiling.stop(prof, args.profile_dir)
+            prof = None
         if (args.checkpoint_dir and args.checkpoint_every
                 and (it + 1) % args.checkpoint_every == 0):
             # a graphed step's carry is its static buffers, which the next
@@ -447,6 +497,12 @@ def main(argv=None):
                 payload["h"] = _carry_map(torch.clone, h)
             ckpt_mod.save(args.checkpoint_dir, payload, step=it + 1,
                           config=run_config)
+    if prof is not None:
+        # the run ended inside the traced calls: the JAX CLI never stops
+        # its trace then, and writes none
+        profiling.stop(prof)
+        print(f"warning: --profile-dir: the run ended before call "
+              f"{TRACED[-1]}; no trace written", flush=True)
     log.close()
     return net
 

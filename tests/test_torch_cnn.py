@@ -71,5 +71,6 @@ def test_init_shapes_and_names():
         w = getattr(net, name).weight.detach()
         assert abs(float(w.std()) * fan_in ** 0.5 - 1) < 0.1, name
     assert not net.conv1_bias.any() and not net.Conv_0.bias.any()
-    with pytest.raises(NotImplementedError, match="Slice C"):
-        ActorCritic(ppo.PPOConfig(torso="cnn"), VS, device="cpu")
+    # the encode 'cnn' torso builds: 3x3 convs on the 42 one-hot planes
+    cnn = ActorCritic(ppo.PPOConfig(torso="cnn"), VS, device="cpu")
+    assert cnn.kind == "cnn" and cnn.Conv_0.in_channels == 42

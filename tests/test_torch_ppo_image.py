@@ -160,18 +160,28 @@ def test_obs_spec_matches_jax(style, torso):
 
 
 def test_state_blocks_and_paths():
-    """c = 32 at the train default (G = 8192 state blocks); the paths the
-    port lacks raise, naming their ROADMAP slice."""
+    """c = 32 at the train default (G = 8192 state blocks); the two row-store
+    configurations build and train a step (image obs without recompute, the
+    'cnn' torso on encode obs); the recurrent one raises, naming its
+    ROADMAP slice."""
     assert ppo.state_block_size(4096, 64) == 32
     assert ppo.state_block_size(8, 4) == 8
-    img = RICH.replace(observation_style="image")
-    for cfg, ep, match in (
-            (ppo.PPOConfig(torso="cnn_s2d", recompute_image_obs=False), img,
-             "Slice C"),
+    img = RICH.replace(observation_style="image", view_size=5)
+    for cfg, ep in (
+            (ppo.PPOConfig(torso="cnn_s2d", recompute_image_obs=False), img),
             (ppo.PPOConfig(torso="cnn"), img.replace(
-                observation_style="encode"), "Slice C"),
-            (ppo.PPOConfig(torso="cnn_s2d", rnn="gru"), img, "Slice D")):
-        with pytest.raises(NotImplementedError, match=match):
-            ppo.init_state(ep, cfg, device="cpu")
+                observation_style="encode"))):
+        cfg = ppo.PPOConfig(**{**cfg.__dict__, "n_envs": 4, "rollout_len": 2,
+                               "hidden": 8, "channels": (4,),
+                               "board_pool": 4, "dtype": torch.float32})
+        net, opt = ppo.init_state(ep, cfg, device="cpu")
+        key = rng.PRNGKey(0, device="cpu")
+        env = ppo.init_env_batch(ep, 4, key, device="cpu")
+        _, _, m = ppo.make_train_step(ep, cfg, net, opt, device="cpu")(
+            env, key)
+        assert np.isfinite(float(m["loss"]))
+    with pytest.raises(NotImplementedError, match="Slice D"):
+        ppo.init_state(img, ppo.PPOConfig(torso="cnn_s2d", rnn="gru"),
+                       device="cpu")
     with pytest.raises(ValueError, match="cnn_s2d or cnn_image"):
         ppo.make_rollout(img, ppo.PPOConfig(torso="mlp"), None, device="cpu")

@@ -2,9 +2,11 @@
 on the CPU, tiny: its JSONL carries the JAX CLI's fields, its checkpoint's
 config.json holds the PPOConfig the JAX CLI builds from the same flags
 (palettes included), and a flag whose path the port lacks exits with the
-ROADMAP slice that brings it. ``--agent-config`` trains each of the three
-hetero trainers, checkpoints and resumes, and rejects bad specs with the
-JAX CLI's messages. The ``--rnn`` CLI is in ``test_torch_ppo_rnn.py``."""
+ROADMAP slice that brings it. ``--torso cnn`` trains from the row store and
+evaluates; ``--profile-dir`` writes a trace; ``--debug-nans`` raises.
+``--agent-config`` trains each of the three hetero trainers, checkpoints
+and resumes, and rejects bad specs with the JAX CLI's messages. The
+``--rnn`` CLI is in ``test_torch_ppo_rnn.py``."""
 import json
 
 import pytest
@@ -99,16 +101,70 @@ def test_cli_image(tmp_path):
 @pytest.mark.parametrize("flag,slice_", [
     (["--rnn", "gru", "--shard-map"], "Slice G"),
     (["--rnn", "gru", "--agent-config", "[{}]", "--shard-map"], "Slice G"),
-    (["--torso", "cnn"], "Slice C"),
-    (["--torso", "cnn_s2d"], "Slice C"),
     (["--agent-config", "[{}]", "--distributed"], "Slice G"),
     (["--shard-map"], "Slice G"),
     (["--model-shards", "2"], "Slice G"),
-    (["--profile-dir", "p"], "Slice F"),
+    # not a missing slice: the JAX CLI stops at init_state_rnn's assert
+    (["--rnn", "gru", "--torso", "cnn"], "mlp feature-major path"),
 ])
 def test_unsupported_flag_names_its_slice(flag, slice_):
     with pytest.raises(SystemExit, match=slice_):
         train.main(TINY + flag)
+
+
+@pytest.mark.parametrize("torso", ["cnn", "cnn_s2d"])
+def test_cli_encode_conv_torso(tmp_path, torso):
+    """--torso cnn (and cnn_s2d) on encode obs: two iterations from the row
+    store with a checkpoint, no palettes in config.json; the cnn
+    checkpoint evaluates from its path alone, and the cnn_s2d one is
+    refused where the JAX evaluate fails (its space-to-depth relabel of
+    the codes)."""
+    from marlgrid_tpu_torch.parallel import evaluate
+
+    ck = tmp_path / "ck"
+    net = train.main(TINY + ["--torso", torso, "--checkpoint-dir", str(ck),
+                             "--checkpoint-every", "2"])
+    assert net.kind == torso
+    config = json.loads((ck / "config.json").read_text())
+    assert config["ppo"]["torso"] == torso
+    assert config["ppo"]["embed_palettes"] is None
+    argv = ["--checkpoint", str(ck), "--episodes", "1", "--device", "cpu"]
+    if torso == "cnn_s2d":
+        with pytest.raises(ValueError, match="JAX at fault"):
+            evaluate.main(argv)
+        return
+    stats = evaluate.main(argv)
+    assert stats["episodes"] == 1 and stats["steps"] == 6
+
+
+def test_cli_profile_dir(tmp_path):
+    """--profile-dir with 5 iterations traces calls 2-4 (the raw step under
+    torch.profiler): a trace that ``profiling.kernel_times`` reads, and
+    whose hotspots name the rollout's and the update's stages; a run that
+    ends inside the traced calls writes none, as the JAX CLI."""
+    from marlgrid_tpu_torch.utils import profiling
+
+    prof = tmp_path / "prof"
+    train.main(TINY + ["--iters", "5", "--rollout", "4", "--profile-dir",
+                       str(prof)])
+    assert len(list(prof.iterdir())) == 1
+    times = profiling.kernel_times(str(prof))
+    assert sum(times.values()) > 0
+    names = [name for _, name in profiling.hotspots(str(prof), top=50)]
+    assert any(n.startswith("rollout.") for n in names)
+    assert any(n.startswith("update.") for n in names)
+    short = tmp_path / "short"
+    train.main(TINY + ["--iters", "3", "--rollout", "4", "--profile-dir",
+                       str(short)])
+    assert not short.exists() or not list(short.iterdir())
+
+
+def test_cli_debug_nans():
+    """--debug-nans: a NaN learning rate makes NaN weights in the first
+    update, and the check after the first call raises, naming it."""
+    with pytest.raises(FloatingPointError, match="after iteration 0"):
+        train.main(TINY + ["--debug-nans", "--lr", "nan"])
+    train.main(TINY + ["--debug-nans"])
 
 
 HETERO = ["--device", "cpu", "--scenario", "goal_cycle", "--grid-size", "9",
@@ -236,3 +292,29 @@ def test_custom_palette_complete_accepted(my_cluttered):
                    agent_colors=default_agent_colors(2))
     assert tobs.validate_encode_palette(ep, device="cpu") is None
     train.main(CUSTOM)
+
+
+def test_profiling_trace(tmp_path):
+    """``profiling.trace`` writes a trace of the block; on a CPU run
+    ``kernel_times`` sums its ops and ``hotspots`` its labels."""
+    from torch.profiler import record_function
+
+    from marlgrid_tpu_torch.utils import profiling
+
+    with profiling.trace(str(tmp_path)):
+        with record_function("update.probe"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    assert profiling.kernel_times(str(tmp_path))["aten::mm"] > 0
+    assert "update.probe" in [n for _, n in profiling.hotspots(
+        str(tmp_path))]
+
+
+@pytest.mark.parametrize("rnn,error,match", [
+    ([], ValueError, "mlp torso on feature-major"),
+    (["--rnn", "gru"], SystemExit, "mlp path")])
+def test_cli_hetero_encode_conv_torso_refused(rnn, error, match):
+    """All-encode hetero groups train with the mlp torso: the JAX trainers'
+    nets assert the feature-major path, and the port's inits refuse."""
+    with pytest.raises(error, match=match):
+        train.main(HETERO + rnn + ["--agent-config", VIEWS, "--torso",
+                                   "cnn_s2d"])
