@@ -92,15 +92,27 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    kept for 8d; then the CLI's ``--profile-dir`` (B = 1024, T = 8, 5
    calls: the trace read back, its hotspots naming the ``rollout.`` and
    ``update.`` stages) and ``--debug-nans`` (B = 1024, 3 calls);
+8e. the data axis across processes: two ``--shard-map`` ranks on the one
+   card (``torch.multiprocessing`` spawn, gloo over the card's tensors,
+   eager; NCCL refuses two ranks on one GPU) against one rank with no
+   group, the JAX package's equivalence case at B = 64 (cluttered 9x9, 2
+   agents, T = 4, float32, 1 epoch x 1 minibatch, no stagger, two steps):
+   env state and key bit-equal, weights within rtol 2e-4 / atol 2e-5, the
+   loss within rtol 2e-3, launches per rank the unsharded step's; then
+   ``torchrun --standalone --nproc-per-node 1 ... train --distributed
+   --shard-map`` at the CLI defaults (one NCCL rank, graphed) with a
+   checkpoint of the global batch, one iteration resumed from it without
+   ``--distributed`` (the unsharded step's launches), and the checkpoint
+   kept for 8d;
 8c. the host API (``wrapper.MultiGridEnv`` through ``envs.make`` and
    ``envs.env_from_config``): a cluttered 15x15 image env, a goal-cycle
    encode env and a doorkey image env, one episode each to done bit-equal
    card vs CPU (obs, rewards, done, ``encode()``, ``render()`` and the
    agent views at 16-pixel tiles), and the card's wall per step;
-8d. evaluation: ``parallel/evaluate.py --episodes 2`` on the checkpoints
-   of the encode, ``--rnn gru`` (plane-major), ``--agent-config`` and
-   ``--torso cnn`` CLI phases, with the launches of K1 and K2f (K5f; none
-   for 'cnn') per step, the stats line,
+8d. evaluation: ``parallel/evaluate.py --episodes 1`` on the checkpoints
+   of the encode, ``--rnn gru`` (plane-major), ``--agent-config``,
+   ``--torso cnn`` and ``--distributed --shard-map`` CLI phases, with the
+   launches of K1 and K2f (K5f; none for 'cnn') per step, the stats line,
    the wall per step and the card's logits against the plain CPU forward;
 9. torch.profiler over a short rollout, one eager train step, one image
    train step, one recurrent train step and one step of each all-encode
@@ -109,15 +121,21 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    against its eager step from one start, at full width for encode, the
    encode row store (``--torso cnn``), recurrent encode and hetero
    recurrent, at B = 1024 for image, the mixed
-   population and ``--overlap``: two eager runs of two steps (a step of
-   the first under ``torch.cuda.set_sync_debug_mode('error')``), ``jit=True``
-   two calls and ``multi_step`` with k = 2 once (then replays for the
-   rates); env state and key
-   bit-equal, weights, Adam's state, carry and metrics bit-equal or within
-   the eager runs' spread, launches per replayed step equal to the eager
-   step's; eager and graphed train env-steps/s, the capture's seconds,
-   peak memory, and the busy and idle time of one profiled replay beside
-   phase 9's eager step;
+   population and ``--overlap``: an eager run of two steps (its second
+   under ``torch.cuda.set_sync_debug_mode('error')``), ``jit=True`` two
+   calls and ``multi_step`` with k = 2 once (then replays for the rates);
+   env state, key, weights, Adam's state, carry and metrics bit-equal to
+   the eager run's, launches per replayed step equal to the eager step's;
+   eager and graphed train env-steps/s, the capture's seconds, peak
+   memory, and the busy and idle time of one profiled replay beside phase
+   9's eager step;
+9c. the ``--shard-map`` steps (feedforward, and GRU on the plane-major
+   embed) at full width on an NCCL group of world size 1 (every
+   collective runs on NCCL), through 9b's runs over the group's mesh:
+   launches per step equal to the unsharded step's, replays bit-equal to
+   the eager steps, the ``all_reduce`` calls of an eager step and of the
+   capture counted (one graph node each, none from the host on a
+   replay), the graphed rate beside 9b's unsharded graphed rate;
 10. the env-only phase at bench.py's config (cluttered 15x15, 3 agents,
    25 clutter, B = 32768, T = 16 random actions, board pool 256), with
    encode and with image observations;
@@ -2132,7 +2150,7 @@ def phase_host_api(seed, card):
 
 def phase_evaluate(ckpts, card):
     """``python -m marlgrid_tpu_torch.parallel.evaluate --checkpoint <dir>
-    --episodes 2`` on the checkpoints the CLI phases wrote at full width
+    --episodes 1`` on the checkpoints the CLI phases wrote at full width
     (goal_cycle 13x13, 4 agents, hidden 128: mlp, ``--rnn gru`` on the
     plane-major embed, the hetero population 7/5/7/5, ``--torso cnn``),
     with the launch counts read around each: K1 once per host observation
@@ -2150,7 +2168,7 @@ def phase_evaluate(ckpts, card):
         embed = "onehot_embed2_fwd" if plane_major else "onehot_embed_fwd"
         with embed_v2(plane_major):
             zero_counts()
-            stats = evaluate.main(["--checkpoint", ck, "--episodes", "2"])
+            stats = evaluate.main(["--checkpoint", ck, "--episodes", "1"])
             counts = read_counts()
             args = evaluate.parse_args(["--checkpoint", ck])
             ep, cfg = evaluate.resolve_config(args)
@@ -3153,23 +3171,24 @@ def _max_diff(xs, ys):
     return d
 
 
-def phase_graphs(seed, card, name, n=2, envs=None, profile=True):
+def phase_graphs(seed, card, name, n=2, envs=None, profile=True, mesh=None):
     """One path's train step graphed against its eager step, from one start
-    (``GRAPH_PATHS[name]``'s CLI config at B = ``envs`` or the path's own):
+    (``GRAPH_PATHS[name]``'s CLI config at B = ``envs`` or the path's own;
+    with a ``mesh``, the ``--shard-map`` step over it, whose env batch is
+    this rank's slice, and the ``all_reduce`` calls of an eager step and of
+    the capture counted):
     the weights, Adam's state and the carry (env state, key; ``h``, or the
     overlap step's priming rollout) copied before, and restored for every
-    run. Runs: eager ``n`` steps (``jit=False``) twice, the second step of
-    the first run under ``torch.cuda.set_sync_debug_mode('error')`` (a host
-    sync in the step raises); ``jit=True`` ``n`` calls (eager, then the
-    capture) and two more replays for its rate; ``ppo.multi_step``
-    (``multi_step_rnn``, ``multi_step_overlap``) of the raw step with k = 2,
-    ``n // 2`` calls and one more for its rate. Every call's launch counts
-    equal :func:`hetero_counts` times its steps. Bars: after the ``n``
-    steps each graphed run's env
-    state and key are bit-equal to the first eager run's; its weights,
-    Adam's moments and step counts, the rest of its carry and the last
-    step's metrics are bit-equal too, or (where the two eager runs differ)
-    no farther from either eager run than the two are from each other.
+    run. Runs: eager ``n`` steps (``jit=False``), the second step under
+    ``torch.cuda.set_sync_debug_mode('error')`` (a host sync in the step
+    raises); ``jit=True`` ``n`` calls (eager, then the capture) and two more
+    replays for its rate; ``ppo.multi_step`` (``multi_step_rnn``,
+    ``multi_step_overlap``) of the raw step with k = 2, ``n // 2`` calls and
+    one more for its rate. Every call's launch counts equal
+    :func:`hetero_counts` times its steps. Bar: after the ``n`` steps each
+    graphed run's env state, key, weights, Adam's moments and step counts,
+    the rest of its carry and the last step's metrics are bit-equal to the
+    eager run's.
     Prints train env-steps/s of each run (median of its steps after the
     first; a multi-step call's time over its 2 steps), the capture's
     seconds, peak device memory and, with ``profile``, the device busy and
@@ -3191,8 +3210,10 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True):
                                      torch.Generator().manual_seed(seed), dev)
     key = rng.PRNGKey(seed, device=dev)
     env = ppo.init_env_batch(ep, B, rng.fold_in(key, 1), stagger=True,
-                             device=dev)
+                             device=dev, mesh=mesh)
+    h = train_mod.local_carry(mesh, h)
     key = rng.fold_in(key, 2)
+    label = name + (f" --shard-map (D={mesh.D})" if mesh else "")
     if overlap:
         _, prime = ppo.make_train_step(ep, cfg, net, opt, device=dev,
                                        overlap=True, jit=False)
@@ -3208,7 +3229,9 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True):
         if overlap:
             return ppo.make_train_step(ep, cfg, net, opt, device=dev,
                                        overlap=True, jit=jit)[0]
-        return train_mod.make_step(ep, cfg, net, opt, dev, jit=jit)
+        return train_mod.make_step(ep, cfg, net, opt, dev, jit=jit, mesh=mesh)
+
+    collectives = {}
 
     def run(mode, sync_check=False):
         net.load_state_dict(w0)
@@ -3234,6 +3257,7 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True):
             debug = sync_check and i == 1
             if debug:
                 torch.cuda.set_sync_debug_mode("error")
+            ar = mesh.all_reduces if mesh else 0
             t0 = time.perf_counter()
             try:
                 *carry, m = step(*carry)
@@ -3242,9 +3266,11 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True):
                     torch.cuda.set_sync_debug_mode("default")
             sync()
             secs.append((time.perf_counter() - t0) / k)
+            if mesh:
+                collectives[f"{mode} call {i}"] = mesh.all_reduces - ar
             got = read_counts()
             if got != want:
-                raise AssertionError(f"graphs {name} {mode} call {i}: "
+                raise AssertionError(f"graphs {label} {mode} call {i}: "
                                      f"launches {got}, want {want}")
         peak = (torch.cuda.max_memory_allocated() / 1e9,
                 torch.cuda.max_memory_reserved() / 1e9)
@@ -3264,22 +3290,27 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True):
         for _ in range({"graphed": 2, "multi": 1}.get(mode, 0)):
             sync()
             zero_counts()
+            ar = mesh.all_reduces if mesh else 0
             t0 = time.perf_counter()
             *carry, m = step(*carry)
             sync()
             secs.append((time.perf_counter() - t0) / k)
             if read_counts() != want:
-                raise AssertionError(f"graphs {name} {mode} replay: "
+                raise AssertionError(f"graphs {label} {mode} replay: "
                                      f"launches {read_counts()}")
+            if mesh and mesh.all_reduces != ar:
+                raise AssertionError(f"graphs {label}: a replay called "
+                                     f"all_reduce from the host")
         if profile and mode == "graphed":
             out["profile"] = profile_stages(
                 lambda: step(*carry), ("rollout.", "update."), card,
-                f"graphs {name}: one graphed step (a replay; B={B}, T={T})")
+                f"graphs {label}: one graphed step (a replay; B={B}, "
+                f"T={T})")
         del step, gs, carry, m
         torch.cuda.empty_cache()
         return out
 
-    runs = {"eager": run("eager", sync_check=True), "eager2": run("eager"),
+    runs = {"eager": run("eager", sync_check=True),
             "graphed": run("graphed"), "multi": run("multi")}
 
     def dist(a, b):
@@ -3290,24 +3321,20 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True):
             metrics=max(abs(a["metrics"][kn] - b["metrics"][kn])
                         for kn in a["metrics"]))
 
-    e1, e2 = runs["eager"], runs["eager2"]
-    spread = dist(e1, e2)
-    report = dict(B=B, T=T, spread=spread)
+    e1 = runs["eager"]
+    report = dict(B=B, T=T)
     for mode in ("graphed", "multi"):
         g = runs[mode]
-        for e in (e1, e2):
-            if not all(torch.equal(x, y) for x, y in zip(
-                    g["env_key"], e["env_key"], strict=True)):
-                raise AssertionError(f"graphs {name} {mode}: the env state "
-                                     f"or key differs from an eager run's")
-        d1, d2 = dist(g, e1), dist(g, e2)
-        for what, bar in spread.items():
-            if not (d1[what] <= bar and d2[what] <= bar):
-                raise AssertionError(
-                    f"graphs {name} {mode}: {what} {d1[what]:.3e} / "
-                    f"{d2[what]:.3e} from the eager runs, which are "
-                    f"{bar:.3e} apart")
-        report[mode] = dict(vs_eager=d1, vs_eager2=d2)
+        if not all(torch.equal(x, y) for x, y in zip(
+                g["env_key"], e1["env_key"], strict=True)):
+            raise AssertionError(f"graphs {label} {mode}: the env state or "
+                                 f"key differs from the eager run's")
+        d1 = dist(g, e1)
+        for what, d in d1.items():
+            if d != 0:
+                raise AssertionError(f"graphs {label} {mode}: {what} "
+                                     f"{d:.3e} from the eager run's")
+        report[mode] = dict(vs_eager=d1)
     rates = {}
     for mode, r in runs.items():
         steady = sorted(r["secs"][1:])[len(r["secs"][1:]) // 2]
@@ -3315,19 +3342,25 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True):
         report[mode] = dict(report.get(mode, {}), seconds=r["secs"],
                             env_steps_per_s=rates[mode], peak_gb=r["peak_gb"],
                             capture_s=r["capture_s"], profile=r["profile"])
-    exact = all(v == 0 for v in spread.values())
-    print(f"[graphs] {name} ({' '.join(flags) or 'defaults'}, B={B}, T={T}): "
+    if mesh:
+        # the eager step's all_reduce calls, and those the capture recorded
+        # (the graphed run's call 1): one graph node each
+        report["all_reduces"] = collectives
+        per = collectives["eager call 0"]
+        if collectives["graphed call 1"] != per or per == 0:
+            raise AssertionError(f"graphs {label}: all_reduce calls "
+                                 f"{collectives}")
+        print(f"[graphs] {label}: {per} all_reduce calls per eager step, "
+              f"{collectives['graphed call 1']} captured into the graph "
+              f"(one node each), none from the host on a replay [{card}]")
+    print(f"[graphs] {label} ({' '.join(flags) or 'defaults'}, B={B}, T={T}): "
           f"launches per step {per_step}, equal on every eager, captured "
           f"and replayed step; no host sync in an eager step; after {n} "
-          f"steps the env state and key of jit=True and multi_step(k=2) "
-          f"bit-equal to both eager runs; "
-          + ("weights, Adam's state, carry and metrics bit-equal too "
-             "(the eager runs are bit-equal)" if exact else
-             f"eager vs eager spread {spread}, graphed vs eager "
-             f"{report['graphed']['vs_eager']}, multi_step vs eager "
-             f"{report['multi']['vs_eager']}"))
-    print(f"[graphs] {name}: train env-steps/s eager {rates['eager']:,.0f} "
-          f"(second eager run {rates['eager2']:,.0f}), graphed "
+          f"steps the env state, key, weights, Adam's state, carry and "
+          f"metrics of jit=True and multi_step(k=2) bit-equal to the eager "
+          f"run's")
+    print(f"[graphs] {label}: train env-steps/s eager "
+          f"{rates['eager']:,.0f}, graphed "
           f"{rates['graphed']:,.0f}, multi_step(k=2) {rates['multi']:,.0f} "
           f"({rates['graphed'] / rates['eager']:.2f}x eager); step seconds "
           f"eager {', '.join(f'{t:.3f}' for t in e1['secs'])}, graphed "
@@ -3341,6 +3374,203 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True):
     del net, opt, h, carry0, w0, o0, runs
     torch.cuda.empty_cache()
     return report
+
+
+def phase_shard_map(seed, card):
+    """The ``--shard-map`` steps in one process on an NCCL group of world
+    size 1 (a ``file://`` store in a temporary directory; the group is
+    destroyed at the end): ``phase_graphs``' runs of the feedforward and
+    the recurrent (GRU, plane-major embed) step over its mesh, at full
+    width: every collective runs on NCCL, and the graphed step captures
+    them. Bars as ``phase_graphs``': launches per step equal to the
+    unsharded step's, replays bit-equal to the eager steps. The
+    feedforward replay is profiled, beside the unsharded
+    one's."""
+    import torch.distributed as dist
+
+    from marlgrid_tpu_torch.parallel import mesh as mesh_mod
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0,
+                                device_id=torch.device("cuda", 0))
+        try:
+            mesh = mesh_mod.make_mesh(device="cuda")
+            for name in ("encode", "rnn"):
+                out[name] = phase_graphs(seed, card, name,
+                                         profile=name == "encode", mesh=mesh)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+#: the JAX package's shard-count equivalence case (tests/test_shard_map.py)
+#: at B = 64: (EnvParams fields, PPOConfig fields)
+RANKS_CASE = (dict(width=9, height=9, n_agents=2, scenario="cluttered",
+                   n_clutter=6, max_steps=100, view_size=5,
+                   observation_style="encode"),
+              dict(n_envs=64, rollout_len=4, n_epochs=1, n_minibatches=1,
+                   dtype=torch.float32))
+
+
+def _ranks_run(seed, mesh, steps=2):
+    """Two eager ``--shard-map`` steps of :data:`RANKS_CASE` on the card over
+    ``mesh`` from the weights of ``seed`` (rank 0's, broadcast) and no
+    stagger: the weights, the last loss, the launch counts, and the env
+    state gathered in global env order with the key (on the CPU)."""
+    from marlgrid_tpu_torch.core import rng
+    from marlgrid_tpu_torch.core.state import (EnvParams, FIELDS,
+                                               default_agent_colors)
+    from marlgrid_tpu_torch.parallel import mesh as mesh_mod
+    from marlgrid_tpu_torch.parallel import ppo
+
+    ep = EnvParams(agent_colors=default_agent_colors(2), **RANKS_CASE[0])
+    cfg = ppo.PPOConfig(**RANKS_CASE[1])
+    dev = mesh.device
+    net, opt = ppo.init_state(ep, cfg, torch.Generator().manual_seed(seed),
+                              device=dev)
+    mesh_mod.broadcast_from(mesh, list(net.state_dict().values()))
+    key = rng.PRNGKey(seed, device=dev)
+    env = ppo.init_env_batch(ep, cfg.n_envs, rng.fold_in(key, 1),
+                             stagger=False, device=dev, mesh=mesh)
+    step = ppo.make_train_step_shard_map(ep, cfg, net, opt, mesh, jit=False,
+                                         device=dev)
+    zero_counts()
+    for _ in range(steps):
+        env, key, m = step(env, key)
+    counts = read_counts()
+    return dict(
+        weights={k: v.cpu() for k, v in net.state_dict().items()},
+        loss=float(m["loss"]), counts=counts, key=key.cpu(),
+        env={f: mesh_mod.gather(mesh, getattr(env, f)).cpu() for f in FIELDS},
+        path=path_counts(ep, cfg, False))
+
+
+def _ranks_worker(rank, world, store, seed, out):
+    """One rank of :func:`phase_shard_map_ranks` (a spawned process):
+    a gloo group over the card's tensors, then :func:`_ranks_run`; rank 0
+    saves its result to ``out``."""
+    import torch.distributed as dist
+
+    from marlgrid_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        res = _ranks_run(seed, mesh_mod.make_mesh(device="cuda"))
+        if rank == 0:
+            torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_shard_map_ranks(seed, card):
+    """Two ranks on the one card (``torch.multiprocessing`` spawn; NCCL
+    refuses two ranks on one GPU, so a gloo group, its collectives over the
+    card's tensors; eager steps, since gloo cannot be captured) against
+    one rank with no group (D = 1), :data:`RANKS_CASE`: the weights after
+    two steps within the JAX test's bound (rtol 2e-4, atol 2e-5), the loss
+    within rtol 2e-3, the env state and the key bit-equal; each rank's
+    launches are those of the unsharded step at its B."""
+    import torch.multiprocessing as mp
+
+    from marlgrid_tpu_torch.parallel import mesh as mesh_mod
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/rank0.pt"
+        mp.spawn(_ranks_worker, args=(2, f"{tmp}/store", seed, out),
+                 nprocs=2, join=True)
+        d2 = torch.load(out, weights_only=False)
+    spawn_s = time.perf_counter() - t0
+    d1 = _ranks_run(seed, mesh_mod.make_mesh(device="cuda"))
+    for run in (d1, d2):
+        want = {k: 2 * v for k, v in run["path"].items()}
+        if run["counts"] != want:
+            raise AssertionError(f"shard_map ranks: launches "
+                                 f"{run['counts']}, want {want}")
+    worst = 0.0
+    for k, w in d1["weights"].items():
+        x = d2["weights"][k].double()
+        if not torch.allclose(x, w.double(), rtol=2e-4, atol=2e-5):
+            raise AssertionError(f"shard_map ranks: weight {k} of D=2 off "
+                                 f"D=1's beyond rtol 2e-4, atol 2e-5")
+        worst = max(worst, float((x - w.double()).abs().max()))
+    if not (math.isfinite(d2["loss"]) and math.isclose(
+            d2["loss"], d1["loss"], rel_tol=2e-3, abs_tol=1e-4)):
+        raise AssertionError(f"shard_map ranks: loss {d2['loss']} vs "
+                             f"{d1['loss']}")
+    for f, v in d1["env"].items():
+        if not torch.equal(v, d2["env"][f]):
+            raise AssertionError(f"shard_map ranks: env field {f} differs")
+    if not torch.equal(d1["key"], d2["key"]):
+        raise AssertionError("shard_map ranks: the key differs")
+    print(f"[shard_map] 2 ranks on one card (gloo over the card's tensors, "
+          f"spawned, {spawn_s:.1f} s) against 1 (no group): cluttered 9x9, "
+          f"B=64, T=4, float32, 2 eager steps: env state and key bit-equal, "
+          f"weights max |D2 - D1| {worst:.3e} (bound rtol 2e-4, atol 2e-5), "
+          f"loss {d2['loss']:.6f} vs {d1['loss']:.6f}; launches per rank "
+          f"{d2['counts']} [{card}]")
+    return dict(max_weight_diff=worst, loss=[d2["loss"], d1["loss"]],
+                counts=d2["counts"], spawn_s=spawn_s)
+
+
+def phase_cli_distributed(card, keep):
+    """``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
+    marlgrid_tpu_torch.parallel.train --distributed --shard-map`` at the CLI
+    defaults (one NCCL rank, graphed): two iterations with a checkpoint,
+    written to ``keep`` (for the evaluate phase); then one iteration
+    resumed from it in this process, ``--shard-map`` without
+    ``--distributed``, with the unsharded step's launches."""
+    from marlgrid_tpu_torch.parallel import train
+    from marlgrid_tpu_torch.utils import checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        log = f"{tmp}/m.jsonl"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m",
+             "marlgrid_tpu_torch.parallel.train", "--distributed",
+             "--shard-map", "--iters", "2", "--metrics", log,
+             "--checkpoint-dir", keep, "--checkpoint-every", "2"],
+            cwd=root, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=root))
+        first = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"torchrun --distributed --shard-map exited "
+                                 f"{proc.returncode}:\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-3000:]}")
+        recs = [json.loads(line) for line in open(log)]
+        tree = checkpoint.restore(keep, map_location="cpu")
+        if checkpoint.steps(keep) != [2] or \
+                tree["env_state"]["step_count"].shape != (4096,):
+            raise AssertionError("torchrun --shard-map wrote no global "
+                                 "checkpoint")
+        zero_counts()
+        train.main(["--shard-map", "--resume", keep, "--iters", "1",
+                    "--metrics", log])
+        counts = read_counts()
+        recs += [json.loads(line) for line in open(log)]
+    want = path_counts(*cli_config(), plane_major=False)
+    if counts != want:
+        raise AssertionError(f"resumed --shard-map: launches {counts}, want "
+                             f"{want}")
+    for r in recs:
+        if not (math.isfinite(r["loss"]) and r["n_episodes"] > 0):
+            raise AssertionError(f"--shard-map CLI metrics {r}")
+    print(f"[cli] torchrun --nproc-per-node 1 ... train --distributed "
+          f"--shard-map (defaults, NCCL, graphed): 2 iterations + checkpoint "
+          f"in {first:.2f} s (process start included), then 1 resumed "
+          f"without --distributed; launches {counts}; env_steps_per_s "
+          f"{', '.join(format(r['env_steps_per_s'], ',.0f') for r in recs)}"
+          f" [{card}]")
+    return dict(env_steps_per_s=[r["env_steps_per_s"] for r in recs],
+                losses=[r["loss"] for r in recs], counts=counts,
+                first_s=first)
 
 
 def _to(tree, dev):
@@ -3491,7 +3721,8 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
     ckpts = {"mlp": (f"{ck_root}/mlp", False),
              "--rnn gru (plane-major)": (f"{ck_root}/gru", True),
              "hetero 7/5/7/5": (f"{ck_root}/hetero", False),
-             "--torso cnn": (f"{ck_root}/cnn", False)}
+             "--torso cnn": (f"{ck_root}/cnn", False),
+             "--shard-map (torchrun)": (f"{ck_root}/shard_map", False)}
     cli = phase_cli(card, (), want_counts(
         transpose_bk=65, onehot_embed_fwd=73, onehot_embed_bwd=8), spc=2,
         keep=ckpts["mlp"][0])
@@ -3521,6 +3752,9 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
         *cli_config(*HETERO_PATHS["hetero"][0]), plane_major=False),
         keep=ckpts["hetero 7/5/7/5"][0])
     stamp("hetero")
+    shard_ranks = phase_shard_map_ranks(args.seed, card)
+    cli_shard = phase_cli_distributed(card, ckpts["--shard-map (torchrun)"][0])
+    stamp("shard_map ranks, torchrun CLI")
     host_api = phase_host_api(args.seed, card)
     stamp("host API")
     evaluation = phase_evaluate(ckpts, card)
@@ -3545,6 +3779,16 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
               f"{1 - g['device_busy_s'] / g['wall_s']:.3f}, "
               f"{g['device_ops']} device ops [{card}]")
     stamp("graphs")
+    shard = phase_shard_map(args.seed, card)
+    for name, v in shard.items():
+        u = graphs[name]["graphed"]["env_steps_per_s"]
+        r = v["graphed"]["env_steps_per_s"]
+        print(f"[shard_map] {name}: graphed --shard-map step (D=1, NCCL) "
+              f"{r:,.0f} env-steps/s beside the unsharded graphed step's "
+              f"{u:,.0f} in this run ({r / u:.3f}x); "
+              f"{v['all_reduces']['eager call 0']} all_reduce nodes per "
+              f"step [{card}]")
+    stamp("shard_map")
     env = phase_env_only(args.seed, card)
     env_img = phase_env_only(args.seed, card, "image")
     stamp("env-only")
@@ -3655,6 +3899,8 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
                            profile=prof, graphs=graphs, timings=tim,
                            host_shape_timings=tim_host, rounding=rounding,
                            vector=vector, host_api=host_api,
+                           shard_map=shard, shard_map_ranks=shard_ranks,
+                           cli_shard_map=cli_shard,
                            evaluate=evaluation, clock_s=clock,
                            total_s=total_s), f,
                       indent=1)

@@ -119,6 +119,19 @@ def categorical(key: torch.Tensor, logits: torch.Tensor,
     return torch.argmax(noise + logits, dim=axis)
 
 
+def categorical_per_key(keys: torch.Tensor, logits: torch.Tensor,
+                        key_axis: int = 0) -> torch.Tensor:
+    """``jax.vmap(jax.random.categorical, in_axes=(0, key_axis),
+    out_axes=key_axis)(keys, logits)``: the batch of keys ``(K, 2)`` maps
+    over the logits' axis ``key_axis`` (of size K), each key drawing Gumbel
+    noise of the shape of its slice, and the draw is over the last axis.
+    ``key_axis=1`` for feature-major (N, B, A) logits -> (N, B); 0 for
+    (B, N, A) -> (B, N)."""
+    lg = logits.movedim(key_axis, 0)
+    noise = gumbel(keys, lg.shape[1:])
+    return torch.argmax(noise + lg, dim=-1).movedim(0, key_axis)
+
+
 def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.permutation(key, n)`` per key: ``(..., n)`` int64.
 

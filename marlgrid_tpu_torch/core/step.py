@@ -337,13 +337,16 @@ def step_autoreset_with_fresh_batch(params: EnvParams, state: EnvState,
     return new_state, rew, done, _episode_info(stepped, done)
 
 
-def stagger_step_counts(state: EnvState, max_steps: int) -> EnvState:
+def stagger_step_counts(state: EnvState, max_steps: int, offset: int = 0,
+                        total: int = None) -> EnvState:
     """Spread initial episode phases evenly over the batch: env i starts at
-    step_count i*max_steps//B (training init only)."""
+    step_count i*max_steps//B (training init only). For a slice of a
+    global batch of ``total`` envs whose first env is env ``offset``, i is
+    the global index and B the global size."""
     B = state.batch_size
-    return state.replace(step_count=(
-        torch.arange(B, dtype=torch.int32, device=state.step_count.device)
-        * max_steps) // B)
+    idx = offset + torch.arange(B, dtype=torch.int32,
+                                device=state.step_count.device)
+    return state.replace(step_count=(idx * max_steps) // (total or B))
 
 
 def _select_fresh(stepped: EnvState, rew, done, fresh: EnvState,

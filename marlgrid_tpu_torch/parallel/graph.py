@@ -17,7 +17,9 @@ tuple or a hetero ``{group: h}`` dict) or the overlap step's ``prev =
   results. This real step fills what the step creates on first use and a
   capture could not: the device tables the kernel wrappers copy from numpy
   (a pageable host-to-device copy is an error inside a capture), Adam's
-  state, the cuBLAS and cuDNN handles and workspaces of that stream.
+  state, the cuBLAS and cuDNN handles and workspaces of that stream, and
+  the NCCL communicator of a step with collectives (a communicator cannot
+  be created inside a capture).
 - The second call clones its carry into static buffers, captures one step
   on them (with the graph's own memory pool) that ends by copying the new
   carry into the same buffers, and replays it. Every later call copies a
@@ -102,11 +104,14 @@ def _describe(leaves):
 class GraphedStep:
     """``fn(*carry) -> (*carry, metrics)`` as a captured CUDA graph with the
     same signature (see the module docstring). ``name`` names the step in
-    errors. ``capture_s`` is the capture's wall time (recording and
-    instantiation), None before it."""
+    errors. ``capture_error_mode`` is ``torch.cuda.graph``'s; a step whose
+    collectives run on a process group is captured ``"thread_local"``
+    (``ppo.capture_error_mode``). ``capture_s`` is the capture's wall time
+    (recording and instantiation), None before it."""
 
-    def __init__(self, fn, name: str):
+    def __init__(self, fn, name: str, capture_error_mode: str = "global"):
         self.fn, self.name = fn, name
+        self.capture_error_mode = capture_error_mode
         self.stream = None
         self.graph = None
         self.capture_s = None
@@ -153,7 +158,8 @@ class GraphedStep:
         storages = {x.untyped_storage().data_ptr() for x in static}
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, stream=self.stream):
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode=self.capture_error_mode):
                 out = self.fn(*unflatten(spec, static))
                 new, out_spec = flatten(tuple(out[:-1]))
                 if out_spec != spec or _describe(new) != _describe(static):

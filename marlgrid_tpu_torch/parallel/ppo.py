@@ -48,6 +48,7 @@ from ..core.state import FIELDS, EnvParams, EnvState
 from ..device import const, resolve
 from ..models import ActorCritic
 from .graph import GraphedStep
+from .mesh import Mesh, host_local_slice
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,14 +176,21 @@ def storage(env_params: EnvParams, cfg: PPOConfig) -> str:
 
 
 def init_env_batch(env_params: EnvParams, n_envs: int, key,
-                   stagger: bool = True, device="cuda"):
+                   stagger: bool = True, device="cuda", mesh: Mesh = None):
     """Reset of ``n_envs`` envs from ``split(key, n_envs)``; ``stagger``
     spreads initial episode phases evenly over the batch (env i starts at
-    step_count i*max_steps//B)."""
+    step_count i*max_steps//B). With a ``mesh`` (``parallel/mesh.py``),
+    only this rank's ``host_local_slice`` of the global batch: the same
+    rows, bit for bit, as those of the whole batch."""
     keys = rng.split(key.to(resolve(device)), n_envs)
+    offset = 0
+    if mesh is not None:
+        sl = host_local_slice(mesh, n_envs)
+        keys, offset = keys[sl], sl.start
     state = grid_gen.reset(env_params, keys)
     if stagger:
-        state = step_mod.stagger_step_counts(state, env_params.max_steps)
+        state = step_mod.stagger_step_counts(state, env_params.max_steps,
+                                             offset, n_envs)
     return state
 
 
@@ -233,14 +241,19 @@ def clip_by_global_norm(grads, max_norm: float):
         g.copy_(torch.where(keep, g, (g / g_norm) * max_norm))
 
 
-def episode_metrics(metrics: Dict[str, torch.Tensor], traj):
+def episode_metrics(metrics: Dict[str, torch.Tensor], traj,
+                    axis: Mesh = None):
     """Fold the rollout's per-step episode-completion tallies into mean
     return / length / cycle metrics, weighted by completed episodes (the
-    JAX ``episode_metrics`` on one device)."""
+    JAX ``episode_metrics``; with ``axis``, the tallies ``psum``'d over the
+    data axis first, so every rank returns the same metrics)."""
     n_eps = traj["done"].float().sum()
     ep_ret = traj["ep_ret"].sum()
     ep_len = traj["ep_len"].float().sum()
     ep_cyc = traj["ep_cyc"].float().sum()
+    if axis is not None:
+        n_eps, ep_ret, ep_len, ep_cyc = axis.psum(
+            (n_eps, ep_ret, ep_len, ep_cyc))
     some = n_eps > 0
     den = n_eps.clamp(min=1)
     zero = torch.zeros_like(n_eps)
@@ -291,10 +304,35 @@ def _stack_states(states) -> EnvState:
                        for f in FIELDS})
 
 
-def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda"):
+def local_batch(cfg: PPOConfig, axis: Mesh = None) -> int:
+    """The envs of one rank: ``cfg.n_envs`` over the data axis's D."""
+    D = 1 if axis is None else axis.D
+    assert cfg.n_envs % D == 0, (cfg.n_envs, D)
+    return cfg.n_envs // D
+
+
+def sample_actions(ak, logits, axis: Mesh, B: int, key_axis: int):
+    """Actions from the step's key ``ak``: one ``categorical`` draw over
+    the whole logits without ``axis``; with it, the JAX shard_map recipe:
+    env b draws from ``fold_in(ak, rank * B + b)``, its global index, so
+    the actions do not depend on how the batch is split. ``key_axis``: the
+    logits' env axis (1 feature-major, 0 env-leading)."""
+    if axis is None:
+        return rng.categorical(ak, logits)
+    ids = axis.rank * B + torch.arange(B, device=logits.device)
+    return rng.categorical_per_key(rng.fold_in(ak, ids), logits, key_axis)
+
+
+def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda",
+                 axis: Mesh = None):
     """Build ``rollout(env_state, key) -> (env_state, key, traj,
-    last_value)``, the JAX ``rollout`` of ``make_train_step`` (one device,
-    no shards).
+    last_value)``, the JAX ``rollout`` of ``make_train_step``.
+
+    ``axis`` (a ``parallel/mesh.py`` Mesh): the JAX ``axis`` variant, on
+    this rank's B = n_envs / D envs: the fresh-board key folded with the
+    rank, per-env action keys from the global env index
+    (:func:`sample_actions`) and ``env_offset = rank * B`` into the
+    autoreset. None: one device, no shards.
 
     Per step t: the policy acts on the observation, actions come from
     ``categorical`` under the step's key, the envs step with the pool
@@ -324,10 +362,11 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda"):
     pov_params = (env_params.replace(observation_style="image") if rich
                   else env_params)
     s2d = cfg.torso == "cnn_s2d"
-    B, T, N = cfg.n_envs, cfg.rollout_len, env_params.n_agents
+    B, T, N = local_batch(cfg, axis), cfg.rollout_len, env_params.n_agents
     Fd = 3 * env_params.view_size ** 2
     # board-pool size: the largest divisor of B not above cfg.board_pool
     K = max(k for k in range(1, min(cfg.board_pool, B) + 1) if B % k == 0)
+    offset = 0 if axis is None else axis.rank * B
 
     def obs_of(state):
         """The policy's inputs: feature-major codes, or the (B, N, ...)
@@ -346,6 +385,9 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda"):
         obs = obs_of(env_state)
         ks = rng.split(key)
         key, fk = ks[0], ks[1]
+        if axis is not None:
+            # distinct fresh-board layouts per rank (the key is replicated)
+            fk = rng.fold_in(fk, axis.rank)
         with record_function("rollout.fresh_pool"):
             fresh_b = step_mod.fresh_pool_tiled(env_params, fk, K, B)
         names = ("act", "logp", "val", "rew", "done", "ep_ret", "ep_len",
@@ -364,7 +406,8 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda"):
             with record_function("rollout.sample"):
                 ks = rng.split(key)
                 key, ak = ks[0], ks[1]
-                a = rng.categorical(ak, logits)
+                a = sample_actions(ak, logits, axis, B,
+                                   1 if store == FEATURES else 0)
                 logp_a = F.log_softmax(logits, -1).gather(
                     -1, a[..., None])[..., 0]
             with record_function("rollout.env_step"):
@@ -372,7 +415,8 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda"):
                 stepped, rew, done, info = \
                     step_mod.step_autoreset_with_fresh_batch(
                         env_params, env_state,
-                        a.T if store == FEATURES else a, fresh_t, salt=t)
+                        a.T if store == FEATURES else a, fresh_t,
+                        env_offset=offset, salt=t)
             # the stored obs is the PRE-step one (the state, on the
             # states path), paired with the action taken from it
             if store == ROWS:
@@ -450,13 +494,20 @@ def ppo_terms(logits, value, lab, adv, cfg: PPOConfig):
     return pg, vf, ent, (ratio - 1.0).abs()
 
 
-def ppo_loss(logits, value, lab, cfg: PPOConfig):
+def ppo_loss(logits, value, lab, cfg: PPOConfig, axis: Mesh = None):
     """The clipped PPO objective of the JAX ``loss_fn``: :func:`ppo_terms`
     averaged over the minibatch -> ``(total, {pg_loss, vf_loss, entropy,
     ratio_dev})``. The advantages ``lab['adv']`` are normalized over the
-    minibatch (population std, as ``jnp.std``)."""
+    minibatch (population std, as ``jnp.std``); with ``axis``, over the
+    global minibatch, from the ``pmean`` of the ranks' means and then of
+    their mean squared deviations, as the JAX shard_map step does."""
     adv = lab["adv"]
-    adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    if axis is None:
+        adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    else:
+        m, = axis.pmean([adv.mean()])
+        var, = axis.pmean([((adv - m) ** 2).mean()])
+        adv = (adv - m) / (torch.sqrt(var) + 1e-8)
     pg, vf, ent, dev = (x.mean() for x in ppo_terms(logits, value, lab, adv,
                                                      cfg))
     total = pg + cfg.vf_coef * vf - cfg.ent_coef * ent
@@ -488,13 +539,16 @@ def shuffled_blocks(blocked, G: int, used: int, cfg: PPOConfig):
 
 
 def run_epochs(minibatches, loss_fn, params, optimizer, key, cfg: PPOConfig,
-               dev):
+               dev, axis: Mesh = None):
     """The epochs of a PPO update: per epoch the minibatches of
     ``minibatches(split(key)[1])`` (:func:`shuffled_blocks`), and for each
     ``loss_fn(batch) -> (total, aux)``, a backward pass, the global-norm
-    clip and an Adam step on ``params`` (in place). Returns the means over
-    every minibatch of ``loss`` and of each ``aux`` entry, as 0-d device
-    tensors."""
+    clip and an Adam step on ``params`` (in place). With ``axis``, the
+    gradients, ``total`` and ``aux`` are ``pmean``'d over the data axis
+    (one bucket) between the backward pass and the clip: the data-parallel
+    gradient all-reduce, written out as the JAX shard_map step writes it.
+    Returns the means over every minibatch of ``loss`` and of each ``aux``
+    entry, as 0-d device tensors."""
     losses, auxs = [], []
     key = key.to(dev)
     for _ in range(cfg.n_epochs):
@@ -504,6 +558,12 @@ def run_epochs(minibatches, loss_fn, params, optimizer, key, cfg: PPOConfig,
             total, aux = loss_fn(batch)
             with record_function("update.backward"):
                 grads = torch.autograd.grad(total, params)
+            if axis is not None:
+                with record_function("update.all_reduce"):
+                    *grads, total, av = axis.pmean(
+                        [*grads, total.detach(),
+                         torch.stack(list(aux.values())).detach()])
+                    aux = dict(zip(aux, av))
             with record_function("update.optimizer"):
                 for p, g in zip(params, grads):
                     p.grad = g
@@ -530,7 +590,7 @@ def row_blocks(n: int, n_minibatches: int) -> int:
 
 
 def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
-                device="cuda"):
+                device="cuda", axis: Mesh = None):
     """Build ``update(traj, last_value, key) -> metrics``, the update half of
     the JAX ``make_train_step``: GAE on (T, N*B) (encode/mlp) or (T, B*N)
     (the other stores), the block layout, and per epoch a
@@ -554,14 +614,18 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
 
     The stages run under ``record_function`` labels (``update.gae``,
     ``update.render``, ``update.forward``, ``update.backward``,
-    ``update.optimizer``), as the rollout's do.
+    ``update.all_reduce``, ``update.optimizer``), as the rollout's do.
+
+    ``axis``: the JAX ``axis`` variant on this rank's B = n_envs / D envs
+    (blocks cut from the local trajectory, the advantage statistics and the
+    gradients over the data axis: :func:`ppo_loss`, :func:`run_epochs`).
     """
     dev = resolve(device)
     store = storage(env_params, cfg)
     rich = env_params.observation_style == "rich"
     pov_params = env_params.replace(observation_style="image")
     s2d = cfg.torso == "cnn_s2d"
-    B, T, N = cfg.n_envs, cfg.rollout_len, env_params.n_agents
+    B, T, N = local_batch(cfg, axis), cfg.rollout_len, env_params.n_agents
     params = [p for p in net.parameters() if p.requires_grad]
     if store == STATES:
         c = state_block_size(B, T)
@@ -614,7 +678,7 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     def loss_fn(batch):
         logits, value, batch = policy(batch)
         with record_function("update.forward"):
-            return ppo_loss(logits, value, batch, cfg)
+            return ppo_loss(logits, value, batch, cfg, axis)
 
     def blocks(traj, last_value):
         """GAE, then the trajectory cut into G blocks: {name: (G, ...)},
@@ -650,13 +714,13 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
                 f"data). Pick n_minibatches dividing {G} to use all of it.",
                 stacklevel=3)
         return run_epochs(shuffled_blocks(blocked, G, used, cfg), loss_fn,
-                          params, optimizer, key, cfg, dev)
+                          params, optimizer, key, cfg, dev, axis)
 
     return update
 
 
 def make_train_step(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
-                    device="cuda", overlap=False, jit=True):
+                    device="cuda", overlap=False, jit=True, axis: Mesh = None):
     """Build the rollout + update step, the JAX ``make_train_step`` on one
     device (any of the three stores of :func:`storage`):
     :func:`make_rollout` then :func:`make_update`, with the JAX step's key
@@ -683,14 +747,20 @@ def make_train_step(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     ``metrics`` are the update's and :func:`episode_metrics` of the
     rollout, as 0-d device tensors. With ``jit=True`` the overlap step is
     graphed and ``rollout_only``, called once, stays eager.
+
+    ``axis``: the JAX ``axis`` variant, the per-rank step of
+    :func:`make_train_step_shard_map` (not with ``overlap``, as in JAX).
     """
+    if overlap and axis is not None:
+        raise ValueError("--overlap + --shard-map not supported")
     dev = resolve(device)
-    rollout = make_rollout(env_params, cfg, net, device=dev)
-    update = make_update(env_params, cfg, net, optimizer, device=dev)
+    rollout = make_rollout(env_params, cfg, net, device=dev, axis=axis)
+    update = make_update(env_params, cfg, net, optimizer, device=dev,
+                         axis=axis)
 
     def train_step(env_state, key):
         env_state, key, traj, last_value = rollout(env_state, key)
-        metrics = episode_metrics(update(traj, last_value, key), traj)
+        metrics = episode_metrics(update(traj, last_value, key), traj, axis)
         return env_state, rng.fold_in(key, 1), metrics
 
     def rollout_only(env_state, key):
@@ -715,9 +785,48 @@ def make_train_step(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
             train_step_overlap = GraphedStep(
                 train_step_overlap, "ppo.make_train_step(overlap=True)")
         return train_step_overlap, rollout_only
+    if axis is not None:
+        train_step.capture_error_mode = capture_error_mode(axis)
+        if jit:
+            return GraphedStep(train_step, "ppo.make_train_step_shard_map",
+                               train_step.capture_error_mode)
+        return train_step
     if jit:
         return GraphedStep(train_step, "ppo.make_train_step")
     return train_step
+
+
+def capture_error_mode(axis: Mesh) -> str:
+    """How a step with collectives over ``axis`` is captured: on a process
+    group, ``"thread_local"``: the group's own threads (its watchdog) may
+    query CUDA while the main thread captures, which the default
+    ``"global"`` mode makes an error in every thread; else ``"global"``."""
+    return "global" if axis.group is None else "thread_local"
+
+
+def make_train_step_shard_map(env_params: EnvParams, cfg: PPOConfig, net,
+                              optimizer, mesh: Mesh, jit=True,
+                              device="cuda"):
+    """The explicit-collective train step, the JAX
+    ``make_train_step_shard_map``: ``train_step(env_state, key) ->
+    (env_state, key, metrics)`` on this rank's slice of the env batch (B =
+    ``cfg.n_envs / mesh.D`` envs, ``init_env_batch(..., mesh=mesh)``),
+    every rank with the same key, weights and optimizer state. The ranks
+    meet only at the collectives the step calls over ``mesh``: the
+    advantage statistics and the gradients, loss and aux metrics of each
+    minibatch (``pmean``), and the episode tallies (``psum``); actions are
+    keyed by the global env index, so the computation does not depend on
+    D where no env resets (each rank draws its own fresh-board pool). The
+    returned key and metrics are the same on every rank.
+
+    ``jit=True``: on the card one CUDA graph of the whole step, the
+    collectives captured inside it (``parallel/graph.py``; its first call
+    runs eagerly and creates the communicator); ``jit=False``: the raw
+    step, for :func:`multi_step`. Do not wrap the net in
+    ``DistributedDataParallel``: its reducer hooks fire on ``.backward()``,
+    and the step takes its gradients with ``torch.autograd.grad``."""
+    return make_train_step(env_params, cfg, net, optimizer,
+                           device=resolve(device), jit=jit, axis=mesh)
 
 
 def multi_step(step_fn, k: int):
@@ -730,7 +839,8 @@ def multi_step(step_fn, k: int):
     launches, where a k-step graph would multiply the capture's size and
     instantiation time and save nothing. Returned tensors are donated, as
     the graphed step's."""
-    step = GraphedStep(step_fn, f"multi_step(k={k})")
+    step = GraphedStep(step_fn, f"multi_step(k={k})",
+                       getattr(step_fn, "capture_error_mode", "global"))
 
     def fn(*carry):
         for _ in range(k):

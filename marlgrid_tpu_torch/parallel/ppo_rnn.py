@@ -28,8 +28,10 @@ where the JAX step functions take and return params and opt_state too.
 ``make_train_step_rnn(..., jit=True)`` and ``multi_step_rnn`` run the step
 as one CUDA graph on the card (``parallel/graph.py``).
 ``PPOConfig.cell_unroll`` (the JAX scan's unroll factor) is accepted and
-changes nothing: the cell loop is a Python loop. The shard_map variant waits
-for ROADMAP Slice G.
+changes nothing: the cell loop is a Python loop.
+``make_train_step_rnn_shard_map`` is the explicit-collective variant over
+the ranks of a ``parallel/mesh.py`` Mesh (encode only, as in JAX): each rank
+trains on its envs and its slice of the carry, which no collective touches.
 """
 from __future__ import annotations
 
@@ -44,8 +46,10 @@ from ..core.state import EnvParams
 from ..device import resolve
 from ..models import RecurrentActorCritic
 from .graph import GraphedStep
-from .ppo import (PPOConfig, _stack_states, aux_dim, episode_metrics,
-                  make_optimizer, multi_step, ppo_loss, rich_aux, run_epochs,
+from .mesh import Mesh
+from .ppo import (PPOConfig, _stack_states, aux_dim, capture_error_mode,
+                  episode_metrics, local_batch, make_optimizer, multi_step,
+                  ppo_loss, rich_aux, run_epochs, sample_actions,
                   shuffled_blocks, step_labels)
 
 _LABELS = ("act", "logp", "val", "adv", "ret")
@@ -73,11 +77,12 @@ def _mask_carry_env0(h, done, dtype):
     return map_carry(lambda x: x * keep, h)
 
 
-def _image_path(env_params: EnvParams, cfg: PPOConfig) -> bool:
+def _image_path(env_params: EnvParams, cfg: PPOConfig,
+                axis: Mesh = None) -> bool:
     """Which path a configuration takes: False for encode with the mlp
     torso, True for image or rich observations with a pixels torso. Raises
-    for what the recurrent family does not take, naming the ROADMAP slice
-    that brings what the port lacks."""
+    for what the recurrent family does not take (with ``axis``, the image
+    path, as the JAX step asserts)."""
     if cfg.rnn not in ("gru", "lstm"):
         raise ValueError(f"recurrent PPO: rnn={cfg.rnn!r}, want 'gru' or "
                          f"'lstm'")
@@ -95,6 +100,8 @@ def _image_path(env_params: EnvParams, cfg: PPOConfig) -> bool:
     if style not in ("image", "rich"):
         raise ValueError(f"recurrent PPO: unknown observation style "
                          f"{style!r}")
+    assert axis is None, \
+        "image/rich recurrent PPO is the GSPMD path (no shard_map variant)"
     if cfg.torso not in ("cnn_s2d", "cnn_image"):
         raise ValueError(f"{style} recurrent PPO uses a cnn_s2d or cnn_image "
                          f"torso, not {cfg.torso!r}")
@@ -154,7 +161,7 @@ def init_state_rnn(env_params: EnvParams, cfg: PPOConfig, generator=None,
 
 
 def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
-                     device="cuda"):
+                     device="cuda", axis: Mesh = None):
     """Build ``rollout(env_state, h, key) -> (env_state, h, key, traj, h0s,
     last_value)``, the JAX ``rollout`` of ``make_train_step_rnn`` (one
     device).
@@ -167,18 +174,22 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
     ``traj`` is :func:`ppo.make_rollout`'s: feature-major codes (T, N, F, B)
     and (T, N, B) labels on encode; the pre-step EnvStates and (T, B, N)
     labels on images. The stages run under the rollout's
-    ``record_function`` labels.
+    ``record_function`` labels. ``axis``: on this rank's B = n_envs / D
+    envs and carry, with ``ppo.make_rollout``'s three changes (the rank
+    folded into the fresh-board key, per-env action keys from the global
+    env index, the global env offset).
     """
     dev = resolve(device)
-    image = _image_path(env_params, cfg)
+    image = _image_path(env_params, cfg, axis)
     rich = env_params.observation_style == "rich"
     pov_params = env_params.replace(observation_style="image")
     s2d = cfg.torso == "cnn_s2d"
-    B, T, N = cfg.n_envs, cfg.rollout_len, env_params.n_agents
+    B, T, N = local_batch(cfg, axis), cfg.rollout_len, env_params.n_agents
     Fd = 3 * env_params.view_size ** 2
     L, _ = _windows(cfg)
     # board-pool size: the largest divisor of B not above cfg.board_pool
     K = max(k for k in range(1, min(cfg.board_pool, B) + 1) if B % k == 0)
+    offset = 0 if axis is None else axis.rank * B
     mask = _mask_carry_env0 if image else mask_carry_env1
 
     def obs_of(state):
@@ -197,6 +208,8 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
         obs, aux = obs_of(env_state)
         ks = rng.split(key)
         key, fk = ks[0], ks[1]
+        if axis is not None:
+            fk = rng.fold_in(fk, axis.rank)
         with record_function("rollout.fresh_pool"):
             fresh_b = step_mod.fresh_pool_tiled(env_params, fk, K, B)
         names = ("obs", "act", "logp", "val", "rew", "done", "ep_ret",
@@ -211,7 +224,7 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
             with record_function("rollout.sample"):
                 ks = rng.split(key)
                 key, ak = ks[0], ks[1]
-                a = rng.categorical(ak, logits)
+                a = sample_actions(ak, logits, axis, B, 0 if image else 1)
                 logp_a = F.log_softmax(logits, -1).gather(
                     -1, a[..., None])[..., 0]
             with record_function("rollout.env_step"):
@@ -219,7 +232,7 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
                 stepped, rew, done, info = \
                     step_mod.step_autoreset_with_fresh_batch(
                         env_params, env_state, a if image else a.T,
-                        fresh_t, salt=t)
+                        fresh_t, env_offset=offset, salt=t)
                 h = mask(h, done, cfg.dtype)
             for k, v in zip(names, (
                     env_state if image else obs, a.to(torch.int32), logp_a,
@@ -241,7 +254,7 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
 
 
 def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
-                    device="cuda"):
+                    device="cuda", axis: Mesh = None):
     """Build ``update(traj, h0s, last_value, key) -> metrics``, the update
     half of the JAX ``make_train_step_rnn``: GAE on (T, N*B) (encode) or
     (T, B*N) (images), the trajectory cut into G = W * (B // c) sequence
@@ -257,15 +270,17 @@ def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     stored carries with the done masking, the heads over all L outputs in
     one batch, and ``ppo.ppo_loss``. The stages run under
     ``record_function`` labels: ``update.gae``, ``update.render``,
-    ``update.forward``, ``update.cell`` (the cell loop), ``update.backward``
-    and ``update.optimizer``.
+    ``update.forward``, ``update.cell`` (the cell loop), ``update.backward``,
+    ``update.all_reduce`` and ``update.optimizer``. ``axis``: on this
+    rank's blocks, with the advantage statistics and the gradients over the
+    data axis (``ppo.ppo_loss``, ``ppo.run_epochs``).
     """
     dev = resolve(device)
-    image = _image_path(env_params, cfg)
+    image = _image_path(env_params, cfg, axis)
     rich = env_params.observation_style == "rich"
     pov_params = env_params.replace(observation_style="image")
     s2d = cfg.torso == "cnn_s2d"
-    B, N = cfg.n_envs, env_params.n_agents
+    B, N = local_batch(cfg, axis), env_params.n_agents
     Fd = 3 * env_params.view_size ** 2
     L, W = _windows(cfg)
     c = sequence_block_size(B, W, cfg.n_minibatches, image)
@@ -339,7 +354,7 @@ def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
             logits, value = net.heads(torch.stack(ys))
             # labels arrive (mb, L, ...): to the logits' (L, mb, ...)
             lab = {k: batch[k].transpose(0, 1) for k in _LABELS}
-            return ppo_loss(logits, value, lab, cfg)
+            return ppo_loss(logits, value, lab, cfg, axis)
 
     def update(traj, h0s, last_value, key):
         with record_function("update.gae"):
@@ -352,13 +367,13 @@ def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
                 f"epoch's data). Pick n_minibatches dividing {G} to use all "
                 f"of it.", stacklevel=3)
         return run_epochs(shuffled_blocks(blocked, G, used, cfg), loss_fn,
-                          params, optimizer, key, cfg, dev)
+                          params, optimizer, key, cfg, dev, axis)
 
     return update
 
 
 def make_train_step_rnn(env_params: EnvParams, cfg: PPOConfig, net,
-                        optimizer, device="cuda", jit=True):
+                        optimizer, device="cuda", jit=True, axis: Mesh = None):
     """Build ``train_step(env_state, h, key) -> (env_state, h, key,
     metrics)``, the JAX ``make_train_step_rnn`` on one device (encode/mlp,
     or image/rich with a pixels torso): :func:`make_rollout_rnn` then
@@ -369,26 +384,46 @@ def make_train_step_rnn(env_params: EnvParams, cfg: PPOConfig, net,
     update's and ``ppo.episode_metrics`` of the rollout. ``jit`` as in
     ``ppo.make_train_step``: True (the default) gives one CUDA graph of the
     whole step on the card, its returned tensors donated; False the raw
-    eager step."""
+    eager step. ``axis``: the per-rank step of
+    :func:`make_train_step_rnn_shard_map`."""
     dev = resolve(device)
-    rollout = make_rollout_rnn(env_params, cfg, net, device=dev)
-    update = make_update_rnn(env_params, cfg, net, optimizer, device=dev)
+    rollout = make_rollout_rnn(env_params, cfg, net, device=dev, axis=axis)
+    update = make_update_rnn(env_params, cfg, net, optimizer, device=dev,
+                             axis=axis)
 
     def train_step(env_state, h, key):
         env_state, h, key, traj, h0s, last_value = rollout(env_state, h, key)
-        metrics = episode_metrics(update(traj, h0s, last_value, key), traj)
+        metrics = episode_metrics(update(traj, h0s, last_value, key), traj,
+                                  axis)
         return env_state, h, rng.fold_in(key, 1), metrics
 
+    if axis is not None:
+        train_step.capture_error_mode = capture_error_mode(axis)
+        if jit:
+            return GraphedStep(train_step,
+                               "ppo_rnn.make_train_step_rnn_shard_map",
+                               train_step.capture_error_mode)
+        return train_step
     if jit:
         return GraphedStep(train_step, "ppo_rnn.make_train_step_rnn")
     return train_step
 
 
-def make_train_step_rnn_shard_map(*args, **kwargs):
-    """The explicit-collective (shard_map) variant of the JAX package; not
-    in the port yet."""
-    raise NotImplementedError("the recurrent shard_map train step comes "
-                              "with ROADMAP Slice G (multi-device)")
+def make_train_step_rnn_shard_map(env_params: EnvParams, cfg: PPOConfig,
+                                  net, optimizer, mesh: Mesh, jit=True,
+                                  device="cuda"):
+    """The explicit-collective recurrent step, the JAX
+    ``make_train_step_rnn_shard_map`` (encode obs with the mlp torso):
+    ``train_step(env_state, h, key) -> (env_state, h, key, metrics)`` on
+    this rank's envs (``init_env_batch(..., mesh=mesh)``) and this rank's
+    slice of the carry (leaves (N, B / D, H), ``parallel/mesh.py``'s
+    ``shard(mesh, h, 1)``), which stays local to the rank: no collective
+    touches it. The rollout,
+    the loss, the update and the metrics change as in
+    ``ppo.make_train_step_shard_map``; truncated BPTT (``bptt_window``)
+    works under the mesh. ``jit`` as there."""
+    return make_train_step_rnn(env_params, cfg, net, optimizer,
+                               device=resolve(device), jit=jit, axis=mesh)
 
 
 def multi_step_rnn(step_fn, k: int):

@@ -15,6 +15,10 @@ Usage:
         [--rnn gru|lstm [--bptt-window L]] \
         [--agent-config '[{"view_size":7},{"view_size":5}]'] [--device cpu]
 
+    # data-parallel over ranks (explicit collectives), one process a card:
+    torchrun --nproc-per-node K -m marlgrid_tpu_torch.parallel.train \
+        --distributed --shard-map [--rnn gru] ...
+
 ``MARLGRID_TPU_EMBED_V2=1`` in the environment routes the mlp torso's embed
 through the plane-major kernels (K5f, K5b), as it does for the JAX CLI.
 
@@ -33,12 +37,25 @@ CLI draws them from its key); the env batch and the step keys follow the
 JAX CLI's key plumbing. Metrics go out as JSONL, one line per logged
 iteration, with the JAX CLI's fields; checkpoints are ``utils/checkpoint.py``
 directories with the run's ``config.json``.
+
+``--shard-map`` trains with ``ppo.make_train_step_shard_map`` (with
+``--rnn``, ``ppo_rnn.make_train_step_rnn_shard_map``) over
+``parallel/mesh.py``'s data axis: D = 1 in one process, or one rank per
+process under ``--distributed`` (``mesh.init_distributed``: NCCL on the
+card, gloo on the CPU; ``--coordinator host:port`` with ``--num-processes``
+and ``--process-id``, or torchrun's variables). Every rank draws the
+weights from ``--seed`` and takes rank 0's, with its optimizer state,
+through ``mesh.broadcast_from``; each rank logs the same metrics to its own
+``--metrics``; rank 0 writes the checkpoints, the env state (and ``h``)
+gathered in global env order, so a checkpoint holds the global batch and
+``--resume`` slices it for any D that divides ``--envs``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import torch
@@ -51,21 +68,32 @@ from ..utils import checkpoint as ckpt_mod
 from ..utils import profiling
 from ..utils.metrics import MetricsLogger
 from ..vector import obs_groups
+from . import mesh as mesh_mod
 from . import ppo, ppo_hetero, ppo_hetero_mixed, ppo_hetero_rnn, ppo_rnn
 
 #: the scenarios whose palettes the tests sweep; a custom scenario's palette
 #: is checked when training starts (core/obs.py::validate_encode_palette)
 BUILTIN_SCENARIOS = ("empty", "cluttered", "doorkey", "goal_cycle")
 
+
+def world_size(args) -> int:
+    """The processes a run asks for: 1 without ``--distributed``, else
+    ``--num-processes`` or torchrun's ``WORLD_SIZE``."""
+    if not args.distributed:
+        return 1
+    if args.num_processes is not None:
+        return args.num_processes
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 #: (is it asked for, flag, the ROADMAP slice that brings it) for each flag
 #: with no path in the port yet
 LATER = (
-    (lambda a: a.shard_map, "--shard-map",
-     "Slice G (multi-device)"),
-    (lambda a: a.distributed, "--distributed",
-     "Slice G (multi-device)"),
     (lambda a: a.model_shards != 1, "--model-shards > 1",
-     "Slice G (multi-device)"),
+     "Slice G2 (the 'model' axis)"),
+    (lambda a: world_size(a) > 1 and not a.shard_map,
+     "more than one process without --shard-map",
+     "Slice G2 (the sharded default path)"),
 )
 
 #: the calls that --profile-dir traces (0-based), as the JAX CLI does
@@ -142,13 +170,20 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--resume", default=None)
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training (not in the port yet)")
-    p.add_argument("--coordinator", default=None)
+                   help="join a torch.distributed process group first "
+                        "(parallel/mesh.py::init_distributed; one rank per "
+                        "process and card)")
+    p.add_argument("--coordinator", default=None,
+                   help="with --distributed: coordinator host:port, or an "
+                        "init URL such as file:///path (default: "
+                        "auto-detect from the cluster env, torchrun's "
+                        "variables)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--shard-map", action="store_true",
-                   help="explicit-collective train step (not in the port "
-                        "yet)")
+                   help="explicit-collective train step (hand-written "
+                        "pmean/psum over the ranks of the 'data' axis, "
+                        "parallel/mesh.py)")
     p.add_argument("--profile-dir", default=None,
                    help="torch.profiler trace output dir: calls 2-4 run "
                         "the raw step under the profiler "
@@ -162,12 +197,18 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build(args):
-    """(EnvParams, PPOConfig) from the flags, as the JAX CLI builds them."""
+def refuse_later(args):
+    """Exit naming the ROADMAP slice of the first :data:`LATER` flag
+    asked for."""
     for unsupported, flag, slice_ in LATER:
         if unsupported(args):
             raise SystemExit(f"{flag}: not in the PyTorch port yet; it comes "
                              f"with ROADMAP {slice_}")
+
+
+def build(args):
+    """(EnvParams, PPOConfig) from the flags, as the JAX CLI builds them."""
+    refuse_later(args)
     if args.bptt_window and not args.rnn:
         raise SystemExit("--bptt-window is a --rnn option")
     if args.bptt_window and args.rollout % args.bptt_window:
@@ -214,14 +255,20 @@ def build(args):
     if args.prestige_scale is not None:
         ep = ep.replace(prestige_scale=args.prestige_scale)
     if ep.has_hetero_obs:
-        if args.overlap:
-            raise SystemExit("heterogeneous agent configs train without "
+        if args.overlap or args.shard_map:
+            raise SystemExit("heterogeneous agent configs train on the GSPMD "
+                             "path (no --overlap/--shard-map): without "
                              "--overlap (the double-buffered variant is the "
-                             "shared-policy step's)")
+                             "shared-policy step's) and without --shard-map")
         if args.rnn and is_mixed(ep):
             raise SystemExit("hetero recurrent training is encode-only "
                              "(ppo_hetero_rnn.py); mixed-style groups train "
                              "feedforward (drop --rnn)")
+    elif args.rnn and args.shard_map and args.obs != "encode":
+        raise SystemExit("--rnn --shard-map is the encode path; image "
+                         "recurrent runs use the default GSPMD mesh")
+    elif args.overlap and args.shard_map:
+        raise SystemExit("--overlap + --shard-map not supported")
     if observe and not any(ep.agent_obs_style(i) == "rich"
                            for i in range(ep.n_agents)):
         print(f"warning: --observe {args.observe!r} is consumed by the "
@@ -305,10 +352,15 @@ def init(ep: EnvParams, cfg, generator, dev):
     return ppo.init_state(ep, cfg, generator, device=dev) + (None,)
 
 
-def make_step(ep: EnvParams, cfg, net, opt, dev, jit=True):
+def make_step(ep: EnvParams, cfg, net, opt, dev, jit=True, mesh=None):
     """The train step of the trainer that ``ep`` and ``cfg`` select
     (without ``--overlap``): graphed on the card with ``jit=True``, the raw
-    eager step with ``jit=False``."""
+    eager step with ``jit=False``; with a ``mesh`` (``--shard-map``), the
+    explicit-collective step on this rank's envs."""
+    if mesh is not None:
+        make = (ppo_rnn.make_train_step_rnn_shard_map if cfg.rnn
+                else ppo.make_train_step_shard_map)
+        return make(ep, cfg, net, opt, mesh, jit=jit, device=dev)
     if ep.has_hetero_obs and cfg.rnn:
         return ppo_hetero_rnn.make_train_step_hetero_rnn(ep, cfg, net, opt,
                                                          device=dev, jit=jit)
@@ -322,7 +374,8 @@ def make_step(ep: EnvParams, cfg, net, opt, dev, jit=True):
     return ppo.make_train_step(ep, cfg, net, opt, device=dev, jit=jit)
 
 
-def make_call(ep: EnvParams, cfg, net, opt, dev, spc: int, overlap=False):
+def make_call(ep: EnvParams, cfg, net, opt, dev, spc: int, overlap=False,
+              mesh=None):
     """``(step, prime)``: what one train call runs, wired as the JAX CLI
     wires it. ``spc`` steps per call: the graphed step (``jit=True``) for
     one, ``ppo.multi_step`` (``ppo_rnn.multi_step_rnn`` for the recurrent
@@ -334,13 +387,14 @@ def make_call(ep: EnvParams, cfg, net, opt, dev, spc: int, overlap=False):
                                          overlap=True, jit=spc == 1)
         return (ppo.multi_step_overlap(raw, spc) if spc > 1 else raw), prime
     if spc == 1:
-        return make_step(ep, cfg, net, opt, dev), None
+        return make_step(ep, cfg, net, opt, dev, mesh=mesh), None
     multi = ppo_rnn.multi_step_rnn if cfg.rnn else ppo.multi_step
-    return multi(make_step(ep, cfg, net, opt, dev, jit=False), spc), None
+    return multi(make_step(ep, cfg, net, opt, dev, jit=False, mesh=mesh),
+                 spc), None
 
 
 def make_raw_call(ep: EnvParams, cfg, net, opt, dev, spc: int,
-                  overlap=False):
+                  overlap=False, mesh=None):
     """The eager counterpart of :func:`make_call`'s step: ``spc`` raw steps
     (``jit=False``) per call, what ``--profile-dir`` traces. A graph replay
     runs the same kernels but carries no ``record_function`` stage labels,
@@ -349,7 +403,7 @@ def make_raw_call(ep: EnvParams, cfg, net, opt, dev, spc: int,
         raw = ppo.make_train_step(ep, cfg, net, opt, device=dev, overlap=True,
                                   jit=False)[0]
     else:
-        raw = make_step(ep, cfg, net, opt, dev, jit=False)
+        raw = make_step(ep, cfg, net, opt, dev, jit=False, mesh=mesh)
 
     def call(*carry):
         for _ in range(spc):
@@ -410,41 +464,75 @@ def _carry_map(fn, h):
     return ppo_rnn.map_carry(fn, h)
 
 
+def local_carry(mesh, h):
+    """This rank's slice of a global carry (env axis 1: the encode path's
+    (N, B, H) leaves, the only recurrent carry ``--shard-map`` takes)."""
+    if mesh is None or h is None:
+        return h
+    return _carry_map(lambda t: mesh_mod.shard(mesh, t, 1), h)
+
+
 def main(argv=None):
     args = parse_args(argv)
+    refuse_later(args)
+    if args.distributed:
+        # before anything touches the card: the rank picks its card here
+        dev = mesh_mod.init_distributed(args.device, args.coordinator,
+                                        args.num_processes, args.process_id)
+    else:
+        dev = resolve(args.device)
+    try:
+        return train(args, dev)
+    finally:
+        if args.distributed:
+            torch.distributed.destroy_process_group()
+
+
+def train(args, dev):
     ep, cfg = build(args)
-    dev = resolve(args.device)
+    mesh = mesh_mod.make_mesh(device=dev) if args.shard_map else None
     key = rng.PRNGKey(args.seed, device=dev)
     gen = torch.Generator().manual_seed(args.seed)
     net, opt, h = init(ep, cfg, gen, dev)
+    h = local_carry(mesh, h)
     env_state = ppo.init_env_batch(ep, cfg.n_envs, rng.fold_in(key, 1),
-                                   stagger=not args.no_stagger, device=dev)
+                                   stagger=not args.no_stagger, device=dev,
+                                   mesh=mesh)
     key = rng.fold_in(key, 2)
     if args.resume:
         # load on the CPU: load_state_dict moves each tensor where it
         # belongs (Adam's step counts onto the card, where it is
         # capturable). Everything is restored before the first call, so a
-        # graphed step captures the restored tensors.
+        # graphed step captures the restored tensors. A checkpoint holds
+        # the global batch: a rank takes its slice.
         tree = ckpt_mod.restore(args.resume, map_location="cpu")
         _load_state_dict(net, tree["net"])
         load_optimizer(opt, tree["opt"])
         if "env_state" in tree and "key" in tree:
             env_state = EnvState(**tree["env_state"]).map(
                 lambda t: t.to(dev))
+            if mesh is not None:
+                env_state = env_state.map(lambda t: mesh_mod.shard(mesh, t))
             key = tree["key"].to(dev)
             if h is not None and "h" in tree:
-                h = _carry_map(lambda t: t.to(dev), tree["h"])
+                h = local_carry(mesh, _carry_map(lambda t: t.to(dev),
+                                                 tree["h"]))
         else:
             print("warning: the checkpoint holds no env state and key"
                   + (" or carry" if h is not None else "")
                   + "; they restart fresh", flush=True)
+    if mesh is not None:
+        # every rank starts from rank 0's weights and optimizer state
+        mesh_mod.broadcast_from(mesh, list(net.state_dict().values()) + [
+            t for st in opt.state.values() for t in st.values()
+            if torch.is_tensor(t)])
 
     spc = max(1, args.steps_per_call)
     prev = None
-    step, prime = make_call(ep, cfg, net, opt, dev, spc, args.overlap)
+    step, prime = make_call(ep, cfg, net, opt, dev, spc, args.overlap, mesh)
     if prime is not None:
         env_state, prev, key = prime(env_state, key)
-    raw = (make_raw_call(ep, cfg, net, opt, dev, spc, args.overlap)
+    raw = (make_raw_call(ep, cfg, net, opt, dev, spc, args.overlap, mesh)
            if args.profile_dir else None)
     prof = None
     log = MetricsLogger(args.metrics)
@@ -457,6 +545,10 @@ def main(argv=None):
         print(f"warning: --iters {args.iters} is not a multiple of "
               f"--steps-per-call {spc}; running {n_calls * spc} iterations "
               f"({n_calls} calls)", flush=True)
+    def whole(t, dim=0):
+        """A copy of the global batch's ``t`` (env axis ``dim``)."""
+        return (t if mesh is None else mesh_mod.gather(mesh, t, dim)).clone()
+
     t0 = time.time()
     last_logged = -1
     for it in range(n_calls):
@@ -488,15 +580,17 @@ def main(argv=None):
         if (args.checkpoint_dir and args.checkpoint_every
                 and (it + 1) % args.checkpoint_every == 0):
             # a graphed step's carry is its static buffers, which the next
-            # call overwrites: the checkpoint clones it
+            # call overwrites: the checkpoint clones it (under a mesh, the
+            # global batch gathered from every rank, which rank 0 writes)
             payload = dict(net=_state_dict(net), opt=opt.state_dict(),
-                           env_state={f: getattr(env_state, f).clone()
+                           env_state={f: whole(getattr(env_state, f))
                                       for f in FIELDS},
                            key=key.clone())
             if h is not None:
-                payload["h"] = _carry_map(torch.clone, h)
-            ckpt_mod.save(args.checkpoint_dir, payload, step=it + 1,
-                          config=run_config)
+                payload["h"] = _carry_map(lambda t: whole(t, 1), h)
+            if mesh is None or mesh.rank == 0:
+                ckpt_mod.save(args.checkpoint_dir, payload, step=it + 1,
+                              config=run_config)
     if prof is not None:
         # the run ended inside the traced calls: the JAX CLI never stops
         # its trace then, and writes none

@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: no JAX, and no silent CPU fallback.
 
 A static AST scan (not ``sys.modules``: a site customization may import
-jax at interpreter start) of every module of ``marlgrid_tpu_torch`` and of
-``chip_smoke.py`` and ``chip_pair.py`` finds no import of jax, flax, optax
-or the JAX package. The package imports, and its host env runs, without
+jax at interpreter start) of every module of ``marlgrid_tpu_torch`` (the
+data axis ``parallel/mesh.py`` among them), of ``chip_smoke.py`` and
+``chip_pair.py``, and of the multi-process tests' worker
+``tests/torch_dist_worker.py`` finds no import of jax, flax, optax or the
+JAX package. The package imports, and its host env runs, without
 gymnasium, imageio and PIL (the card's machine has none of them).
 """
 import ast
@@ -18,7 +20,8 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "marlgrid_tpu"}
 FILES = sorted((ROOT / "marlgrid_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "chip_pair.py"]
+    ROOT / "chip_smoke.py", ROOT / "chip_pair.py",
+    ROOT / "tests" / "torch_dist_worker.py"]
 
 
 def _imported_roots(path: Path):
@@ -36,6 +39,10 @@ def _imported_roots(path: Path):
             yield str(node.args[0].value).split(".")[0]
 
 
+def test_the_walk_covers_the_data_axis():
+    assert ROOT / "marlgrid_tpu_torch" / "parallel" / "mesh.py" in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(
     p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
@@ -51,7 +58,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from marlgrid_tpu_torch.core import rng
     from marlgrid_tpu_torch.core.state import EnvParams
     from marlgrid_tpu_torch.models import ActorCritic, RecurrentActorCritic
-    from marlgrid_tpu_torch.parallel import (evaluate, ppo, ppo_hetero,
+    from marlgrid_tpu_torch.parallel import (evaluate, mesh, ppo, ppo_hetero,
                                              ppo_hetero_mixed, ppo_hetero_rnn,
                                              ppo_rnn, train)
     from marlgrid_tpu_torch.vector import VectorEnv
@@ -65,6 +72,20 @@ def test_entry_points_default_to_cuda(monkeypatch):
     cfg = ppo.PPOConfig(n_envs=4, rollout_len=2, hidden=8)
     rcfg = ppo.PPOConfig(n_envs=4, rollout_len=2, hidden=8, rnn="gru")
     key = rng.PRNGKey(0, device="cpu")
+    cpu_mesh = mesh.make_mesh(device="cpu")
+    mesh_calls = (
+        lambda: mesh.init_distributed(),
+        lambda: mesh.make_mesh(),
+        lambda: ppo.make_train_step_shard_map(ep, cfg, None, None, cpu_mesh),
+        lambda: ppo_rnn.make_train_step_rnn_shard_map(ep, rcfg, None, None,
+                                                      cpu_mesh),
+        lambda: train.main(["--scenario", "empty", "--agents", "1", "--envs",
+                            "4", "--iters", "1", "--shard-map"]),
+        lambda: train.main(["--scenario", "empty", "--agents", "1", "--envs",
+                            "4", "--iters", "1", "--shard-map",
+                            "--distributed", "--num-processes", "1",
+                            "--process-id", "0", "--coordinator",
+                            "localhost:1"]))
     hetero_calls = (
         lambda: VectorEnv(het, 4),
         lambda: ppo_hetero.init_state_hetero(het, cfg),
@@ -98,7 +119,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  lambda: ppo_rnn.make_train_step_rnn(ep, rcfg, None, None),
                  lambda: train.main(["--scenario", "empty", "--agents", "1",
                                      "--envs", "4", "--iters", "1"])
-                 ) + hetero_calls + host_calls:
+                 ) + mesh_calls + hetero_calls + host_calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     state, obs = VectorEnv(ep, 4, device="cpu").reset(key)

@@ -16,7 +16,7 @@ import torch
 from marlgrid_tpu_torch.core import rng
 from marlgrid_tpu_torch.core.state import (EnvParams, FIELDS,
                                            default_agent_colors)
-from marlgrid_tpu_torch.parallel import ppo, ppo_rnn, train
+from marlgrid_tpu_torch.parallel import mesh, ppo, ppo_rnn, train
 from marlgrid_tpu_torch.utils import checkpoint as ck
 
 EP = EnvParams(width=9, height=9, n_agents=2, scenario="empty", max_steps=10,
@@ -94,7 +94,8 @@ def test_sequence_blocks_and_paths():
     assert ppo_rnn.sequence_block_size(16, 1, 4, image=True) == 4
     assert ppo_rnn.sequence_block_size(16, 1, 4) == 4
     with pytest.raises(NotImplementedError, match="Slice G"):
-        ppo_rnn.make_train_step_rnn_shard_map(EP, _cfg(), None, None)
+        ppo_rnn.make_train_step_rnn_shard_map(
+            EP, _cfg(), None, None, mesh.make_mesh(n_model=2, device="cpu"))
     with pytest.raises(NotImplementedError, match="Slice D"):
         ppo.init_state(EP, _cfg(), device="cpu")
     with pytest.raises(ValueError, match="bptt_window 3"):

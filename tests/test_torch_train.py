@@ -2,13 +2,17 @@
 on the CPU, tiny: its JSONL carries the JAX CLI's fields, its checkpoint's
 config.json holds the PPOConfig the JAX CLI builds from the same flags
 (palettes included), and a flag whose path the port lacks exits with the
-ROADMAP slice that brings it. ``--torso cnn`` trains from the row store and
-evaluates; ``--profile-dir`` writes a trace; ``--debug-nans`` raises.
+ROADMAP slice that brings it. ``--distributed --shard-map`` trains on two
+gloo ranks, checkpoints the global batch and resumes in one process; the
+JAX CLI's ``--shard-map`` exits are reproduced. ``--torso cnn`` trains
+from the row store and evaluates; ``--profile-dir`` writes a trace;
+``--debug-nans`` raises.
 ``--agent-config`` trains each of the three hetero trainers, checkpoints
 and resumes, and rejects bad specs with the JAX CLI's messages. The
 ``--rnn`` CLI is in ``test_torch_ppo_rnn.py``."""
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -99,10 +103,11 @@ def test_cli_image(tmp_path):
 
 
 @pytest.mark.parametrize("flag,slice_", [
-    (["--rnn", "gru", "--shard-map"], "Slice G"),
-    (["--rnn", "gru", "--agent-config", "[{}]", "--shard-map"], "Slice G"),
-    (["--agent-config", "[{}]", "--distributed"], "Slice G"),
-    (["--shard-map"], "Slice G"),
+    (["--rnn", "gru", "--model-shards", "2"], "Slice G"),
+    (["--rnn", "gru", "--agent-config", "[{}]", "--distributed",
+      "--num-processes", "2"], "Slice G"),
+    (["--agent-config", "[{}]", "--model-shards", "2"], "Slice G"),
+    (["--distributed", "--num-processes", "2"], "Slice G"),
     (["--model-shards", "2"], "Slice G"),
     # not a missing slice: the JAX CLI stops at init_state_rnn's assert
     (["--rnn", "gru", "--torso", "cnn"], "mlp feature-major path"),
@@ -110,6 +115,88 @@ def test_cli_image(tmp_path):
 def test_unsupported_flag_names_its_slice(flag, slice_):
     with pytest.raises(SystemExit, match=slice_):
         train.main(TINY + flag)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--model-shards", "2", "--shard-map"],
+    ["--distributed", "--num-processes", "3"],
+    ["--agent-config", '[{"view_size":5},{"view_size":3}]', "--distributed",
+     "--num-processes", "2"],
+], ids=["model-shards", "multi-rank", "multi-rank-hetero"])
+def test_later_refusals_name_slice_g2(flag, monkeypatch):
+    """What stays refused after --shard-map and --distributed came: the
+    'model' axis, and more than one process without --shard-map (the
+    sharded default path, hetero populations included), before any process
+    group is made; torchrun's WORLD_SIZE counts as --num-processes."""
+    with pytest.raises(SystemExit, match="Slice G2"):
+        train.main(TINY + flag)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit, match="Slice G2"):
+        train.main(TINY + ["--distributed"])
+
+
+@pytest.mark.parametrize("flag,match", [
+    (["--agent-config", '[{"view_size":5},{"view_size":3}]', "--shard-map"],
+     r"GSPMD path \(no --overlap/--shard-map\)"),
+    (["--overlap", "--shard-map"], r"--overlap \+ --shard-map not supported"),
+    (["--rnn", "gru", "--obs", "image", "--shard-map"],
+     "--rnn --shard-map is the encode path; image recurrent runs use the "
+     "default GSPMD mesh"),
+], ids=["hetero", "overlap", "rnn-image"])
+def test_shard_map_exits_as_the_jax_cli(flag, match):
+    with pytest.raises(SystemExit, match=match):
+        train.main(TINY + flag)
+
+
+def test_cli_shard_map_two_ranks(tmp_path):
+    """``--distributed --shard-map`` in two CPU processes (gloo, a
+    ``file://`` coordinator): both ranks log the same finite losses over
+    the global batch's env-steps; rank 0's checkpoint holds the global
+    batch, resumes in one process (D = 1, with and without --shard-map)
+    and evaluates from its path alone."""
+    import os
+    import subprocess
+    import sys
+
+    from marlgrid_tpu_torch.parallel import evaluate
+    from marlgrid_tpu_torch.utils import checkpoint
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ck = tmp_path / "ck"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "marlgrid_tpu_torch.parallel.train"] + TINY + [
+            "--distributed", "--coordinator", f"file://{tmp_path}/store",
+            "--num-processes", "2", "--process-id", str(i), "--shard-map",
+            "--metrics", str(tmp_path / f"m{i}.jsonl"), "--checkpoint-dir",
+            str(ck), "--checkpoint-every", "2"],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(2)]
+    for i, p in enumerate(procs):
+        out = p.communicate(timeout=300)[0]
+        assert p.returncode == 0, f"rank {i}:\n{out[-3000:]}"
+    recs = [[json.loads(line) for line in
+             (tmp_path / f"m{i}.jsonl").read_text().splitlines()]
+            for i in range(2)]
+    assert [r["step"] for r in recs[0]] == [0, 1]
+    for a, b in zip(*recs):
+        assert set(a) == FIELDS and np.isfinite(a["loss"])
+        for k in FIELDS - {"time", "env_steps_per_s", "agent_steps_per_s"}:
+            assert a[k] == b[k], k
+    assert recs[0][-1]["env_steps"] == 2 * 8 * 8
+    assert checkpoint.steps(ck) == [2]
+    tree = checkpoint.restore(ck, map_location="cpu")
+    assert all(v.shape[0] == 8 for v in tree["env_state"].values())
+    assert checkpoint.load_config(ck)["ppo"]["n_envs"] == 8
+    for flags in (["--shard-map"], []):
+        log = tmp_path / f"r{len(flags)}.jsonl"
+        train.main(TINY + flags + ["--resume", str(ck), "--iters", "1",
+                                   "--metrics", str(log)])
+        rec = json.loads(log.read_text().splitlines()[-1])
+        assert np.isfinite(rec["loss"]) and rec["n_episodes"] > 0
+    stats = evaluate.main(["--checkpoint", str(ck), "--episodes", "1",
+                           "--device", "cpu"])
+    assert stats["episodes"] == 1 and stats["steps"] == 6
 
 
 @pytest.mark.parametrize("torso", ["cnn", "cnn_s2d"])

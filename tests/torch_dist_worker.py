@@ -1,0 +1,162 @@
+"""One rank of the port's multi-process CPU tests (gloo), importing torch and
+the port only, never JAX:
+
+    python tests/torch_dist_worker.py JOB RANK WORLD STORE INPUT OUTPUT
+
+Joins a gloo group of WORLD ranks through the ``file://`` store STORE, runs
+JOB on the arguments ``torch.load(INPUT)`` holds, and ``torch.save``s what
+it returns to OUTPUT (every rank writes its own file).
+
+- ``mesh``: ``parallel/mesh.py`` on the group: the mesh's D and rank,
+  ``host_local_slice``, ``psum``/``pmean`` of rank-seeded float32 data,
+  ``broadcast_from`` rank 0, ``gather`` of ``shard``, and the rank's slice of
+  ``ppo.init_env_batch``.
+- ``train``: for each run of ``runs``, a feedforward
+  (``ppo.make_train_step_shard_map``) or recurrent
+  (``ppo_rnn.make_train_step_rnn_shard_map``) run from the weights and keys
+  given (rank 0's, through ``broadcast_from``: the other ranks start from
+  other weights), with the first minibatch's gradients as the optimizer
+  sees them (after the all-reduce and the clip) and a snapshot after every
+  step: the weights, the env state and carry gathered in global env order,
+  the key and the metrics.
+"""
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from marlgrid_tpu_torch.core.state import EnvParams, FIELDS, state_to_numpy
+from marlgrid_tpu_torch.parallel import mesh as mesh_mod
+from marlgrid_tpu_torch.parallel import ppo, ppo_rnn
+
+
+def job_mesh(args):
+    mesh = mesh_mod.make_mesh(device="cpu")
+    data = torch.as_tensor(np.random.default_rng(mesh.rank).normal(
+        size=(3, 5)).astype(np.float32))
+    count = torch.tensor([mesh.rank + 1], dtype=torch.int32)
+    summed = mesh.psum([data, count])
+    mean, = mesh.pmean([data])
+    mine = torch.full((4,), float(mesh.rank))
+    mesh_mod.broadcast_from(mesh, [mine])
+    rows = torch.arange(2 * mesh.D * 3).reshape(2, mesh.D * 3)
+    ep = EnvParams.from_dict(args["ep"])
+    state = ppo.init_env_batch(ep, args["n_envs"], args["key"],
+                               stagger=True, device="cpu", mesh=mesh)
+    return dict(D=mesh.D, rank=mesh.rank, all_reduces=mesh.all_reduces,
+                slice=mesh_mod.host_local_slice(mesh, 10), data=data,
+                psum=summed[0], psum_count=summed[1], pmean=mean,
+                broadcast=mine,
+                gathered=mesh_mod.gather(mesh, mesh_mod.shard(mesh, rows, 1),
+                                         1),
+                env=state_to_numpy(state))
+
+
+def job_train(args):
+    return [train_run(run) for run in args["runs"]]
+
+
+def train_run(args):
+    mesh = mesh_mod.make_mesh(device="cpu")
+    ep = EnvParams.from_dict(args["ep"])
+    cfg = ppo.PPOConfig(**{**ppo.ppo_config_from_dict(args["cfg"]).__dict__,
+                           "dtype": args.get("dtype", torch.float32)})
+    gen = torch.Generator().manual_seed(mesh.rank + 1)
+    if cfg.rnn:
+        net, opt, h = ppo_rnn.init_state_rnn(ep, cfg, gen, device="cpu")
+        h = ppo_rnn.map_carry(lambda x: mesh_mod.shard(mesh, x, 1), h)
+        step = ppo_rnn.make_train_step_rnn_shard_map(ep, cfg, net, opt, mesh,
+                                                     device="cpu")
+    else:
+        net, opt = ppo.init_state(ep, cfg, gen, device="cpu")
+        h = None
+        step = ppo.make_train_step_shard_map(ep, cfg, net, opt, mesh,
+                                             device="cpu")
+    if mesh.rank == 0:
+        net.load_state_dict(args["state_dict"])
+    mesh_mod.broadcast_from(mesh, list(net.state_dict().values()))
+    grads = []
+    opt.register_step_pre_hook(lambda o, a, k: grads.append(
+        {n: p.grad.clone() for n, p in net.named_parameters()})
+        if not grads else None)
+    env = ppo.init_env_batch(ep, cfg.n_envs, args["env_key"],
+                             stagger=args["stagger"], device="cpu", mesh=mesh)
+    key = args["key"]
+    snaps = []
+    for _ in range(args["steps"]):
+        if h is None:
+            env, key, m = step(env, key)
+        else:
+            env, h, key, m = step(env, h, key)
+        snaps.append(dict(
+            weights={k: v.clone() for k, v in net.state_dict().items()},
+            env={f: mesh_mod.gather(mesh, getattr(env, f)).numpy()
+                 for f in FIELDS},
+            h=None if h is None else ppo_rnn.map_carry(
+                lambda x: mesh_mod.gather(mesh, x, 1), h),
+            key=key.clone(), metrics={k: float(v) for k, v in m.items()}))
+    return dict(snaps=snaps, grad0=grads[0], all_reduces=mesh.all_reduces)
+
+
+JOBS = dict(mesh=job_mesh, train=job_train)
+
+
+def main(argv):
+    job, rank, world, store, inp, out = argv
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=int(world), rank=int(rank))
+    try:
+        torch.save(JOBS[job](torch.load(inp, weights_only=False)), out)
+    finally:
+        dist.destroy_process_group()
+
+
+def run(tmp_path, job, args, world=2, timeout=240):
+    """Run ``world`` ranks of JOB on ``args`` (from the calling test) and
+    return each rank's result, in rank order; fails with a rank's output if
+    it exits non-zero."""
+    return start(tmp_path, job, args, world)(timeout)
+
+
+def start(tmp_path, job, args, world=2):
+    """Start ``world`` ranks of JOB on ``args`` and return ``wait(timeout)``,
+    which returns :func:`run`'s result: the caller works while they run."""
+    import os
+    import subprocess
+    import tempfile
+    from pathlib import Path
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    d = Path(tempfile.mkdtemp(prefix=f"{job}-", dir=tmp_path))
+    inp, store = d / "in.pt", d / "store"
+    torch.save(args, inp)
+    outs = [d / f"rank{r}.pt" for r in range(world)]
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), job, str(r), str(world),
+         str(store), str(inp), str(outs[r])], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+
+    def wait(timeout=240):
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=timeout)[0])
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            assert p.returncode == 0, \
+                f"rank {r} of {job} failed:\n{log[-4000:]}"
+        return [torch.load(o, weights_only=False) for o in outs]
+
+    return wait
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
