@@ -103,27 +103,41 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    --shard-map`` at the CLI defaults (one NCCL rank, graphed) with a
    checkpoint of the global batch, one iteration resumed from it without
    ``--distributed`` (the unsharded step's launches), and the checkpoint
-   kept for 8d;
+   kept for 8d. In the same spawn the sharded default path's step
+   (``ppo.make_train_step(mesh=...)``) on two ranks against one with
+   resets inside the rollout (empty 9x9, max_steps 10 with the stagger,
+   B = 64, T = 8, 2 epochs x 2 minibatches: each rank takes half of every
+   minibatch), with the same bars but for the weights, held in norm
+   (``GSPMD_RANKS_TOL``), and the same pair again with the embed's
+   gradient by K2b's plain version on float32 dout, its weights held
+   within rtol 2e-4 / atol 2e-5 (the witness that K2b's bf16 dout is what
+   parts them); after the spawn, ``torchrun ... train
+   --distributed`` without ``--shard-map`` (the sharded default path, one
+   NCCL rank, graphed), two iterations, on the card beside the first
+   torchrun run (their rates marked as measured on a shared card);
 8c. the host API (``wrapper.MultiGridEnv`` through ``envs.make`` and
    ``envs.env_from_config``): a cluttered 15x15 image env, a goal-cycle
    encode env and a doorkey image env, one episode each to done bit-equal
    card vs CPU (obs, rewards, done, ``encode()``, ``render()`` and the
    agent views at 16-pixel tiles), and the card's wall per step;
-8d. evaluation: ``parallel/evaluate.py --episodes 1`` on the checkpoints
-   of the encode, ``--rnn gru`` (plane-major), ``--agent-config``,
-   ``--torso cnn`` and ``--distributed --shard-map`` CLI phases, with the
+8d. evaluation: ``parallel/evaluate.py --episodes 1 --max-steps 100`` on
+   the checkpoints of the encode, ``--rnn gru`` (plane-major),
+   ``--agent-config``, ``--torso cnn`` and ``--distributed --shard-map``
+   CLI phases, with the
    launches of K1 and K2f (K5f; none for 'cnn') per step, the stats line,
    the wall per step and the card's logits against the plain CPU forward;
 9. torch.profiler over a short rollout, one eager train step, one image
    train step, one recurrent train step and one step of each all-encode
-   hetero path (feedforward and recurrent), by stage;
+   hetero path (feedforward and recurrent), each at T = 16, by stage;
 9b. graphs: each train step as one CUDA graph (``parallel/graph.py``)
    against its eager step from one start, at full width for encode, the
    encode row store (``--torso cnn``), recurrent encode and hetero
    recurrent, at B = 1024 for image, the mixed
-   population and ``--overlap``: an eager run of two steps (its second
-   under ``torch.cuda.set_sync_debug_mode('error')``), ``jit=True`` two
-   calls and ``multi_step`` with k = 2 once (then replays for the rates);
+   population and ``--overlap`` (T = 64 on encode and recurrent encode,
+   beside 9c's mesh steps; 32 on the others): an
+   eager run of two steps (its second under
+   ``torch.cuda.set_sync_debug_mode('error')``), ``jit=True`` two calls
+   and ``multi_step`` with k = 2 once (then replays for the rates);
    env state, key, weights, Adam's state, carry and metrics bit-equal to
    the eager run's, launches per replayed step equal to the eager step's;
    eager and graphed train env-steps/s, the capture's seconds, peak
@@ -131,11 +145,20 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    9's eager step;
 9c. the ``--shard-map`` steps (feedforward, and GRU on the plane-major
    embed) at full width on an NCCL group of world size 1 (every
-   collective runs on NCCL), through 9b's runs over the group's mesh:
-   launches per step equal to the unsharded step's, replays bit-equal to
-   the eager steps, the ``all_reduce`` calls of an eager step and of the
-   capture counted (one graph node each, none from the host on a
-   replay), the graphed rate beside 9b's unsharded graphed rate;
+   collective runs on NCCL), through 9b's eager, graphed and
+   ``multi_step`` runs over the group's mesh at T = 32 (no profiled
+   replay): launches per step equal to the unsharded step's, replays
+   bit-equal to the eager steps, the ``all_reduce`` calls of an eager
+   step and of the capture counted (one graph node each, none from the
+   host on a replay); then on the same group the sharded default path's
+   steps (``mesh=``, the same two paths, full width, T = 64): the
+   unsharded eager step and the mesh step's eager call and capture from
+   one start, env state and key bit-equal to the unsharded step's after
+   one step, weights within rtol 2e-4 / atol 2e-5, one ``all_gather``
+   and 25 ``all_reduce`` calls a step captured, replays' wall, peak
+   memory, and the busy time and device ops of one profiled replay beside
+   9b's unsharded graphed replay; and ``multi_step`` (k = 2) of the raw
+   mesh step, bit-equal to two eager steps, its collectives captured;
 10. the env-only phase at bench.py's config (cluttered 15x15, 3 agents,
    25 clutter, B = 32768, T = 16 random actions, board pool 256), with
    encode and with image observations;
@@ -690,12 +713,12 @@ def phase_reference(seed):
     for dev in ("cpu", "cuda"):
         key = rng.PRNGKey(seed, device=dev)
         s = grid_gen.reset(ep, rng.split(key, B))
-        pool = step.fresh_pool_tiled(ep, rng.fold_in(key, 7), 8, B)
+        pool = step.fresh_pool(ep, rng.fold_in(key, 7), 8)
         acts = rng.randint(rng.fold_in(key, 3), (T, B, 3), 0, 7)
         states, views = [], []
         for t in range(T):
             s, _, _, _ = step.step_autoreset_with_fresh_batch(
-                ep, s, acts[t], step.rotate_fresh_batch(pool, t), salt=t)
+                ep, s, acts[t], step.fresh_pool_rows(pool, t, 0, B), salt=t)
             states.append(s)
             views.append(obs.all_obs_encode_b(ep, s, bminor=True))
         runs[dev] = (states, views)
@@ -928,12 +951,12 @@ def reference_image(seed):
     for dev in ("cpu", "cuda"):
         key = rng.PRNGKey(seed, device=dev)
         s = _spread_prestige(ep, grid_gen.reset(ep, rng.split(key, B)))
-        pool = step.fresh_pool_tiled(ep, rng.fold_in(key, 7), 8, B)
+        pool = step.fresh_pool(ep, rng.fold_in(key, 7), 8)
         acts = rng.randint(rng.fold_in(key, 3), (T, B, N), 0, 7)
         views = []
         for t in range(T):
             s, _, _, _ = step.step_autoreset_with_fresh_batch(
-                ep, s, acts[t], step.rotate_fresh_batch(pool, t), salt=t)
+                ep, s, acts[t], step.fresh_pool_rows(pool, t, 0, B), salt=t)
             views.append((obs.all_obs_image_b(ep, s),
                           obs.all_obs_image_b(ep, s, bminor=True, s2d=True),
                           int((s.step_count == 0).sum())))
@@ -1093,7 +1116,7 @@ def phase_train(seed, card, steps=2):
           f"[{card}]")
     return dict(counts=counts, seconds=secs, metrics=metrics,
                 env_steps_per_s=B * T / steady, step=step, env=env, key=key,
-                ep=ep, cfg=cfg)
+                ep=ep, cfg=cfg, net=net, opt=opt)
 
 
 def phase_rnn(seed, card, steps=2):
@@ -1160,7 +1183,7 @@ def phase_rnn(seed, card, steps=2):
           f"peak device memory {peak_gb:.2f} GB [{card}]")
     return dict(counts=got, seconds=secs, metrics=metrics, peak_gb=peak_gb,
                 env_steps_per_s=B * T / steady, step=step, env=env, h=h,
-                key=key, ep=ep, cfg=cfg, net=net)
+                key=key, ep=ep, cfg=cfg, net=net, opt=opt)
 
 
 def phase_rnn_image(seed, card, steps=2):
@@ -1272,7 +1295,10 @@ def phase_rows(seed, card, name, steps=2):
     (``jit=False``; the same launches per step: the update reads the
     stored rows), the launch counts read around each call, each step's
     metrics, train env-steps/s and the peak device memory; then one more
-    eager step under torch.profiler, by stage (:func:`profile_stages`)."""
+    eager step at T = 16 (the depth cut of :func:`phase_profile`) under
+    torch.profiler, by stage (:func:`profile_stages`)."""
+    import dataclasses
+
     from marlgrid_tpu_torch.core import rng
     from marlgrid_tpu_torch.parallel import ppo
 
@@ -1361,8 +1387,11 @@ def phase_rows(seed, card, name, steps=2):
           f"{', '.join(f'{t:.3f}' for t in secs)} s per step; median of "
           f"steps 1-{steps - 1}: {B * T / steady:,.0f} eager train "
           f"env-steps/s; peak device memory {peak_gb:.2f} GB [{card}]")
+    del step
+    step = ppo.make_train_step(ep, dataclasses.replace(cfg, rollout_len=16),
+                               net, opt, device="cuda", jit=False)
     prof = profile_stages(lambda: step(env, key), ("rollout.", "update."),
-                          card, f"one {name} train step (B={B}, T={T}, "
+                          card, f"one {name} train step (B={B}, T=16, "
                           f"torso {cfg.torso}, row store)")
     del net, opt, step, env, w0
     torch.cuda.empty_cache()
@@ -1461,7 +1490,7 @@ def phase_image(seed, card, steps=2):
     return dict(counts=counts, rollout_counts=roll_counts, rollout_first_s=dt,
                 seconds=secs, metrics=metrics, peak_gb=peak_gb,
                 env_steps_per_s=B * T / steady, step=step, env=env, key=key,
-                traj=traj, ep=ep, cfg=cfg)
+                traj=traj, ep=ep, cfg=cfg, net=net, opt=opt)
 
 
 def phase_cli(card, flags=(), want=None, plane_major=False, spc=1,
@@ -1686,16 +1715,20 @@ def profile_stages(run, prefixes, card, title):
     return out
 
 
-def phase_profile(roll, train, image, rnn, hetero, card, T=8):
+def phase_profile(roll, train, image, rnn, hetero, card, T=8, T_step=16):
     """torch.profiler over a T-step rollout of the rollout path's config,
     over one train step of the train path, one of the image train path, one
     of the recurrent encode train path (``update.cell`` is its update's
     cell loop) and one each of the all-encode hetero train paths,
     feedforward and recurrent (``hetero``: :func:`phase_hetero`'s results
-    by path name)."""
+    by path name). The train steps are those paths' nets, optimizers, env
+    states and carries stepped at ``T_step`` steps (full width, the depth
+    cut: an eager step under the profiler costs the host about a second
+    per 5,000 launches, and its launches grow with T)."""
     import dataclasses
 
     from marlgrid_tpu_torch.parallel import ppo
+    from marlgrid_tpu_torch.parallel import train as train_mod
 
     cfg = dataclasses.replace(roll["cfg"], rollout_len=T)
     rollout = ppo.make_rollout(roll["ep"], cfg, roll["net"], device="cuda")
@@ -1707,29 +1740,30 @@ def phase_profile(roll, train, image, rnn, hetero, card, T=8):
     out["device_ops_per_step"] = out["device_ops"] / T
     print(f"[profile] {out['device_ops_per_step']:.0f} device ops per "
           f"rollout step")
-    tr = profile_stages(lambda: train["step"](train["env"], train["key"]),
-                        ("rollout.", "update."), card,
-                        "one train step (B=4096, T=64)")
-    im = profile_stages(lambda: image["step"](image["env"], image["key"]),
-                        ("rollout.", "update."), card,
-                        "one image train step (B=4096, T=64, cnn_s2d)")
-    rn = profile_stages(lambda: rnn["step"](rnn["env"], rnn["h"], rnn["key"]),
-                        ("rollout.", "update."), card,
-                        "one recurrent train step (B=4096, T=64, GRU, "
-                        "plane-major embed)")
+
+    def train_step(p, what):
+        """One eager train step of phase result ``p`` at ``T_step``."""
+        step = train_mod.make_step(
+            p["ep"], dataclasses.replace(p["cfg"], rollout_len=T_step),
+            p["net"], p["opt"], torch.device("cuda"), jit=False)
+        carry = (p["env"], p["key"]) if p.get("h") is None else (
+            p["env"], p["h"], p["key"])
+        res = profile_stages(lambda: step(*carry), ("rollout.", "update."),
+                             card, f"one {what} (B=4096, T={T_step})")
+        res["T"] = T_step
+        return res
+
     het, hrn = hetero["hetero"], hetero["hetero-rnn"]
-    he = profile_stages(lambda: het["step"](het["env"], het["key"]),
-                        ("rollout.", "update."), card,
-                        "one hetero train step (B=4096, T=64, views "
-                        "7/5/7/5)")
-    hr = profile_stages(lambda: hrn["step"](hrn["env"], hrn["h"],
-                                            hrn["key"]),
-                        ("rollout.", "update."), card,
-                        "one hetero recurrent train step (B=4096, T=64, "
-                        "views 7/5/7/5, GRU, plane-major embed)")
-    return dict(rollout=out, train_step=tr, image_train_step=im,
-                rnn_train_step=rn, hetero_train_step=he,
-                hetero_rnn_train_step=hr)
+    return dict(
+        rollout=out, train_step=train_step(train, "train step"),
+        image_train_step=train_step(image, "image train step (cnn_s2d)"),
+        rnn_train_step=train_step(rnn, "recurrent train step (GRU, "
+                                  "plane-major embed)"),
+        hetero_train_step=train_step(het, "hetero train step (views "
+                                     "7/5/7/5)"),
+        hetero_rnn_train_step=train_step(hrn, "hetero recurrent train step "
+                                         "(views 7/5/7/5, GRU, plane-major "
+                                         "embed)"))
 
 
 def phase_env_only(seed, card, style="encode"):
@@ -1751,14 +1785,14 @@ def phase_env_only(seed, card, style="encode"):
     state = grid_gen.reset(ep, rng.split(key, B))
 
     def run(state, key):
-        fresh = step.fresh_pool_tiled(ep, rng.fold_in(key, 0xF), pool, B)
+        fresh = step.fresh_pool(ep, rng.fold_in(key, 0xF), pool)
         acc = torch.zeros((), device="cuda")
         for t in range(T):
             ks = rng.split(key)
             key, ak = ks[0], ks[1]
             a = rng.randint(ak, (B, 3), 0, 7)
             state, rew, done, _ = step.step_autoreset_with_fresh_batch(
-                ep, state, a, step.rotate_fresh_batch(fresh, t), salt=t)
+                ep, state, a, step.fresh_pool_rows(fresh, t, 0, B), salt=t)
             o = obs.all_agent_obs_b(ep, state, bminor=True)
             if style == "image":
                 # an integer sum of the uint8 pixels: no float copy of them
@@ -2148,9 +2182,15 @@ def phase_host_api(seed, card):
     return out
 
 
+#: the evaluate phase's episode cap (the checkpoints' envs run to 250): its
+#: depth, cut to keep the run's time
+EVAL_STEPS = 100
+
+
 def phase_evaluate(ckpts, card):
     """``python -m marlgrid_tpu_torch.parallel.evaluate --checkpoint <dir>
-    --episodes 1`` on the checkpoints the CLI phases wrote at full width
+    --episodes 1 --max-steps EVAL_STEPS`` on the checkpoints the CLI phases
+    wrote at full width
     (goal_cycle 13x13, 4 agents, hidden 128: mlp, ``--rnn gru`` on the
     plane-major embed, the hetero population 7/5/7/5, ``--torso cnn``),
     with the launch counts read around each: K1 once per host observation
@@ -2168,7 +2208,8 @@ def phase_evaluate(ckpts, card):
         embed = "onehot_embed2_fwd" if plane_major else "onehot_embed_fwd"
         with embed_v2(plane_major):
             zero_counts()
-            stats = evaluate.main(["--checkpoint", ck, "--episodes", "1"])
+            stats = evaluate.main(["--checkpoint", ck, "--episodes", "1",
+                                   "--max-steps", str(EVAL_STEPS)])
             counts = read_counts()
             args = evaluate.parse_args(["--checkpoint", ck])
             ep, cfg = evaluate.resolve_config(args)
@@ -3134,21 +3175,25 @@ def phase_hetero(seed, card, name, steps=2):
           f"peak device memory {peak_gb:.2f} GB [{card}]")
     return dict(counts=got, seconds=secs, metrics=metrics, peak_gb=peak_gb,
                 env_steps_per_s=B * T / steady, step=step, env=env, h=h,
-                key=key, embed_errs=errs, embed_5x5=embed_5x5)
+                key=key, embed_errs=errs, embed_5x5=embed_5x5, ep=ep,
+                cfg=cfg, net=net, opt=opt)
 
 
 #: the graphs phase's paths: (train CLI flags, plane-major embed, B). The
 #: three largest host shares and the encode row store ('cnn') at full
 #: width; image, the mixed population and --overlap at B = 1024 (an eager
-#: step's host time does not depend on B)
+#: step's host time does not depend on B). Depth: T = 64 (the CLI's) on
+#: encode and rnn, whose profiled replays the gspmd phase's mesh steps
+#: stand beside; 32 on the others
 GRAPH_PATHS = {
     "encode": ((), False, 4096),
-    "cnn": (ROW_PATHS["cnn"][0], False, 4096),
+    "cnn": (ROW_PATHS["cnn"][0] + ("--rollout", "32"), False, 4096),
     "rnn": (("--rnn", "gru"), True, 4096),
-    "hetero-rnn": (HETERO_PATHS["hetero-rnn"][0], True, 4096),
-    "image": (("--obs", "image"), False, 1024),
+    "hetero-rnn": (HETERO_PATHS["hetero-rnn"][0] + ("--rollout", "32"), True,
+                   4096),
+    "image": (("--obs", "image", "--rollout", "32"), False, 1024),
     "hetero-mixed": (HETERO_PATHS["hetero-mixed"][0], False, 1024),
-    "overlap": (("--overlap",), False, 1024),
+    "overlap": (("--overlap", "--rollout", "32"), False, 1024),
 }
 
 
@@ -3171,9 +3216,11 @@ def _max_diff(xs, ys):
     return d
 
 
-def phase_graphs(seed, card, name, n=2, envs=None, profile=True, mesh=None):
+def phase_graphs(seed, card, name, n=2, envs=None, profile=True, mesh=None,
+                 T=None):
     """One path's train step graphed against its eager step, from one start
-    (``GRAPH_PATHS[name]``'s CLI config at B = ``envs`` or the path's own;
+    (``GRAPH_PATHS[name]``'s CLI config at B = ``envs`` or the path's own,
+    at T = ``T`` or the path's own;
     with a ``mesh``, the ``--shard-map`` step over it, whose env batch is
     this rank's slice, and the ``all_reduce`` calls of an eager step and of
     the capture counted):
@@ -3184,14 +3231,17 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True, mesh=None):
     raises); ``jit=True`` ``n`` calls (eager, then the capture) and two more
     replays for its rate; ``ppo.multi_step`` (``multi_step_rnn``,
     ``multi_step_overlap``) of the raw step with k = 2, ``n // 2`` calls and
-    one more for its rate. Every call's launch counts equal
+    one more for its rate. Every call's launch
+    counts equal
     :func:`hetero_counts` times its steps. Bar: after the ``n`` steps each
     graphed run's env state, key, weights, Adam's moments and step counts,
     the rest of its carry and the last step's metrics are bit-equal to the
     eager run's.
     Prints train env-steps/s of each run (median of its steps after the
     first; a multi-step call's time over its 2 steps), the capture's
-    seconds, peak device memory and, with ``profile``, the device busy and
+    seconds, peak device memory (and the allocation's rise above the run's
+    start, what the run itself holds) and, with ``profile``, the device
+    busy and
     idle time of one profiled replay."""
     import copy
 
@@ -3201,6 +3251,8 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True, mesh=None):
 
     flags, plane_major, B = GRAPH_PATHS[name]
     B = envs or B
+    if T:
+        flags = flags + ("--rollout", str(T))
     ep, cfg = cli_config(*flags, "--envs", str(B))
     T = cfg.rollout_len
     dev = torch.device("cuda")
@@ -3229,7 +3281,8 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True, mesh=None):
         if overlap:
             return ppo.make_train_step(ep, cfg, net, opt, device=dev,
                                        overlap=True, jit=jit)[0]
-        return train_mod.make_step(ep, cfg, net, opt, dev, jit=jit, mesh=mesh)
+        return train_mod.make_step(ep, cfg, net, opt, dev, jit=jit,
+                                   **({} if mesh is None else {"axis": mesh}))
 
     collectives = {}
 
@@ -3244,13 +3297,14 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True, mesh=None):
             step = make(True)
         else:
             k = 2
-            multi = ppo_rnn.multi_step_rnn if h is not None else (
+            wrap = ppo_rnn.multi_step_rnn if h is not None else (
                 ppo.multi_step_overlap if overlap else ppo.multi_step)
-            step = multi(make(False), k)
+            step = wrap(make(False), k)
         want = {kn: k * v for kn, v in per_step.items()}
         secs = []
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated() / 1e9
         for i in range(n // k):
             sync()
             zero_counts()
@@ -3284,7 +3338,7 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True, mesh=None):
             moments=[t.clone() for st in opt.state.values()
                      for t in (st["exp_avg"], st["exp_avg_sq"], st["step"])],
             metrics={kn: float(v) for kn, v in m.items()},
-            secs=secs, peak_gb=peak, profile=None,
+            secs=secs, peak_gb=peak, rise_gb=peak[0] - start, profile=None,
             capture_s=getattr(gs, "capture_s", None))
         # a graphed run's rate: replays after the compared calls
         for _ in range({"graphed": 2, "multi": 1}.get(mode, 0)):
@@ -3323,7 +3377,7 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True, mesh=None):
 
     e1 = runs["eager"]
     report = dict(B=B, T=T)
-    for mode in ("graphed", "multi"):
+    for mode in list(runs)[1:]:
         g = runs[mode]
         if not all(torch.equal(x, y) for x, y in zip(
                 g["env_key"], e1["env_key"], strict=True)):
@@ -3341,6 +3395,7 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True, mesh=None):
         rates[mode] = B * T / steady
         report[mode] = dict(report.get(mode, {}), seconds=r["secs"],
                             env_steps_per_s=rates[mode], peak_gb=r["peak_gb"],
+                            rise_gb=r["rise_gb"],
                             capture_s=r["capture_s"], profile=r["profile"])
     if mesh:
         # the eager step's all_reduce calls, and those the capture recorded
@@ -3362,15 +3417,18 @@ def phase_graphs(seed, card, name, n=2, envs=None, profile=True, mesh=None):
     print(f"[graphs] {label}: train env-steps/s eager "
           f"{rates['eager']:,.0f}, graphed "
           f"{rates['graphed']:,.0f}, multi_step(k=2) {rates['multi']:,.0f} "
-          f"({rates['graphed'] / rates['eager']:.2f}x eager); step seconds "
-          f"eager {', '.join(f'{t:.3f}' for t in e1['secs'])}, graphed "
+          f"({rates['graphed'] / rates['eager']:.2f}x eager); step "
+          f"seconds eager {', '.join(f'{t:.3f}' for t in e1['secs'])}, "
+          f"graphed "
           f"{', '.join(f'{t:.3f}' for t in runs['graphed']['secs'])}; "
           f"capture {runs['graphed']['capture_s']} s (multi_step "
           f"{runs['multi']['capture_s']} s); peak device memory "
           f"allocated / reserved eager {e1['peak_gb'][0]:.2f} / "
           f"{e1['peak_gb'][1]:.2f} GB, graphed "
           f"{runs['graphed']['peak_gb'][0]:.2f} / "
-          f"{runs['graphed']['peak_gb'][1]:.2f} GB [{card}]")
+          f"{runs['graphed']['peak_gb'][1]:.2f} GB (allocated "
+          f"{runs['graphed']['rise_gb']:.3f} GB above the run's start) "
+          f"[{card}]")
     del net, opt, h, carry0, w0, o0, runs
     torch.cuda.empty_cache()
     return report
@@ -3382,10 +3440,12 @@ def phase_shard_map(seed, card):
     destroyed at the end): ``phase_graphs``' runs of the feedforward and
     the recurrent (GRU, plane-major embed) step over its mesh, at full
     width: every collective runs on NCCL, and the graphed step captures
-    them. Bars as ``phase_graphs``': launches per step equal to the
-    unsharded step's, replays bit-equal to the eager steps. The
-    feedforward replay is profiled, beside the unsharded
-    one's."""
+    them. At T = 32 (depth; the paths' own is 64), no profiled replay.
+    Bars as ``phase_graphs``': launches per step equal to the unsharded
+    step's, the graphed and ``multi_step`` (k = 2) runs bit-equal to the
+    eager steps, every ``all_reduce`` captured. Then, on the same group,
+    :func:`phase_gspmd` of both paths (the sharded default path, ``"gspmd
+    encode"`` and ``"gspmd rnn"``)."""
     import torch.distributed as dist
 
     from marlgrid_tpu_torch.parallel import mesh as mesh_mod
@@ -3398,59 +3458,342 @@ def phase_shard_map(seed, card):
         try:
             mesh = mesh_mod.make_mesh(device="cuda")
             for name in ("encode", "rnn"):
-                out[name] = phase_graphs(seed, card, name,
-                                         profile=name == "encode", mesh=mesh)
+                out[name] = phase_graphs(seed, card, name, profile=False,
+                                         mesh=mesh, T=32)
+            for name in ("encode", "rnn"):
+                out[f"gspmd {name}"] = phase_gspmd(seed, card, name, mesh)
         finally:
             dist.destroy_process_group()
     return out
 
 
+def phase_gspmd(seed, card, name, mesh):
+    """The sharded default path's step (``ppo.make_train_step(mesh=...)``,
+    ``ppo_rnn.make_train_step_rnn(mesh=...)``; the JAX CLI's training step
+    without ``--shard-map``) of ``GRAPH_PATHS[name]`` at full width over
+    ``mesh`` (one NCCL rank), graphed, beside the unsharded step from the
+    same start. Runs: the unsharded step's eager call; the mesh step's
+    eager call (its first: the communicator), then, from the same start
+    again (the weights copied back and Adam's state zeroed in place, so
+    the capture holds their addresses), its capture and replay, two more
+    replays for its wall time and one profiled replay; then from the start
+    two eager steps of the raw mesh step (``jit=False``), and
+    ``ppo.multi_step`` (``ppo_rnn.multi_step_rnn``) of it with k = 2, one
+    call (an eager step, then the capture of the second) and one more call
+    of two replays. Bars: launches per step the
+    unsharded step's (:func:`path_counts`); the mesh step's env state and
+    key after one step bit-equal to the unsharded step's, eager and
+    graphed; its weights within rtol 2e-4, atol 2e-5 of the unsharded
+    step's, and its graphed weights bit-equal to its eager ones; the
+    ``multi_step`` call's env state, key, carry, weights and metrics
+    bit-equal to the two eager steps'; the collectives of the eager call
+    (``all_gather``, ``all_reduce``) all captured, by the graphed step and
+    by ``multi_step``'s, none called from the host on a replay. Prints
+    busy ms and device ops of the profiled replay, the collectives per
+    step, the replays' wall and peak memory (and its rise above the
+    allocation at the start of the eager call, capture and replays, as
+    ``phase_graphs`` reports its runs')."""
+    from marlgrid_tpu_torch.core import rng
+    from marlgrid_tpu_torch.parallel import graph, ppo, ppo_rnn
+    from marlgrid_tpu_torch.parallel import train as train_mod
+
+    flags, plane_major, B = GRAPH_PATHS[name]
+    ep, cfg = cli_config(*flags, "--envs", str(B))
+    dev = torch.device("cuda")
+    with embed_v2(plane_major):
+        net, opt, h = train_mod.init(ep, cfg,
+                                     torch.Generator().manual_seed(seed), dev)
+    key = rng.PRNGKey(seed, device=dev)
+    env = ppo.init_env_batch(ep, B, rng.fold_in(key, 1), stagger=True,
+                             device=dev, mesh=mesh)
+    carry0 = _clone_tree((env, rng.fold_in(key, 2)) if h is None
+                         else (env, h, rng.fold_in(key, 2)))
+    del env
+    w0 = {k: v.clone() for k, v in net.state_dict().items()}
+    per_step = path_counts(ep, cfg, plane_major)
+    label = f"{name} mesh= (D={mesh.D})"
+
+    def restart():
+        """The weights back to ``w0`` and Adam's state to zero, in place."""
+        with torch.no_grad():
+            for k, v in net.state_dict().items():
+                v.copy_(w0[k])
+        for st in opt.state.values():
+            for t in st.values():
+                if torch.is_tensor(t):
+                    t.zero_()
+
+    def call(step, what, carry=None, steps=1):
+        """One call of ``step`` (``steps`` train steps) from the start, or
+        from ``carry`` and the weights as they are: its env state and key,
+        the rest of its carry, weights, metrics and collectives, cloned."""
+        if carry is None:
+            restart()
+            carry = _clone_tree(carry0)
+        sync()
+        zero_counts()
+        n0 = (mesh.all_gathers, mesh.all_reduces)
+        t0 = time.perf_counter()
+        *carry, m = step(*carry)
+        sync()
+        secs = time.perf_counter() - t0
+        want = {k: steps * v for k, v in per_step.items()}
+        if read_counts() != want:
+            raise AssertionError(f"gspmd {label} {what}: launches "
+                                 f"{read_counts()}, want {want}")
+        return dict(
+            env_key=[x.clone() for x in graph.flatten(carry[0])[0]]
+            + [carry[-1].clone()],
+            h=[x.clone() for x in graph.flatten(tuple(carry[1:-1]))[0]],
+            weights=[v.clone() for v in net.state_dict().values()],
+            metrics={k: float(v) for k, v in m.items()}, secs=secs,
+            collectives=(mesh.all_gathers - n0[0], mesh.all_reduces - n0[1]),
+            carry=carry)
+
+    base = call(train_mod.make_step(ep, cfg, net, opt, dev, jit=False),
+                "unsharded eager")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated() / 1e9
+    step = train_mod.make_step(ep, cfg, net, opt, dev, jit=True, mesh=mesh)
+    eager = call(step, "eager")
+    del eager["carry"]
+    graphed = call(step, "capture")
+    carry = graphed.pop("carry")
+    secs = []
+    for _ in range(2):
+        sync()
+        zero_counts()
+        n0 = (mesh.all_gathers, mesh.all_reduces)
+        t0 = time.perf_counter()
+        *carry, m = step(*carry)
+        sync()
+        secs.append(time.perf_counter() - t0)
+        if read_counts() != per_step or \
+                (mesh.all_gathers, mesh.all_reduces) != n0:
+            raise AssertionError(f"gspmd {label} replay: launches "
+                                 f"{read_counts()}, or a collective called "
+                                 f"from the host")
+    peak = (torch.cuda.max_memory_allocated() / 1e9,
+            torch.cuda.max_memory_reserved() / 1e9)
+    rise = peak[0] - start
+    prof = profile_stages(lambda: step(*carry), ("rollout.", "update."),
+                          card, f"gspmd {label}: one graphed step (a "
+                          f"replay; B={B}, T={cfg.rollout_len})")
+    for run, what in ((eager, "eager"), (graphed, "graphed")):
+        if not all(torch.equal(x, y) for x, y in zip(
+                run["env_key"], base["env_key"], strict=True)):
+            raise AssertionError(f"gspmd {label} {what}: env state or key "
+                                 f"differs from the unsharded step's")
+        for x, y in zip(run["weights"], base["weights"], strict=True):
+            x, y = x.double(), y.double()
+            off = ~torch.isclose(x, y, rtol=2e-4, atol=2e-5)
+            if off.any():
+                raise AssertionError(
+                    f"gspmd {label} {what}: {int(off.sum())} of {x.numel()} "
+                    f"weights of a {tuple(x.shape)} tensor off the unsharded "
+                    f"step's beyond rtol 2e-4, atol 2e-5 (max |diff| "
+                    f"{float((x - y).abs().max()):.3e})")
+    if _max_diff(graphed["weights"], eager["weights"]) != 0:
+        raise AssertionError(f"gspmd {label}: graphed weights differ from "
+                             f"the eager call's")
+    if graphed["collectives"] != eager["collectives"] or \
+            eager["collectives"][0] != 1:
+        raise AssertionError(f"gspmd {label}: collectives eager "
+                             f"{eager['collectives']}, captured "
+                             f"{graphed['collectives']}")
+    del carry, m
+    # two eager steps of the raw mesh step from the start, then
+    # multi_step(k=2) of it: its first call runs the first step eagerly
+    # and captures the second
+    raw = train_mod.make_step(ep, cfg, net, opt, dev, jit=False, mesh=mesh)
+    eager1 = call(raw, "raw eager step 1")
+    eager2 = call(raw, "raw eager step 2", carry=eager1.pop("carry"))
+    del eager2["carry"]
+    wrap = ppo.multi_step if h is None else ppo_rnn.multi_step_rnn
+    multi = wrap(raw, 2)
+    mres = call(multi, "multi_step(k=2) call", steps=2)
+    carry = mres.pop("carry")
+    mcoll = mres["collectives"]
+    want_coll = tuple(2 * c for c in eager["collectives"])
+    mrep = call(multi, "multi_step(k=2) replays", carry=carry, steps=2)
+    for what in ("env_key", "h", "weights"):
+        if not all(torch.equal(x, y) for x, y in zip(
+                mres[what], eager2[what], strict=True)):
+            raise AssertionError(f"gspmd {label} multi_step(k=2): {what} "
+                                 f"differs from two eager steps'")
+    if mres["metrics"] != eager2["metrics"]:
+        raise AssertionError(f"gspmd {label} multi_step(k=2): metrics "
+                             f"{mres['metrics']} vs two eager steps' "
+                             f"{eager2['metrics']}")
+    if mcoll != want_coll or mrep["collectives"] != (0, 0):
+        raise AssertionError(f"gspmd {label} multi_step(k=2): collectives "
+                             f"of its first call {mcoll} (want {want_coll}: "
+                             f"an eager step's and the capture's), of a "
+                             f"replay call {mrep['collectives']} (want none "
+                             f"from the host)")
+    wdiff = _max_diff(eager["weights"], base["weights"])
+    out = dict(B=B, T=cfg.rollout_len, replay_s=secs, peak_gb=peak,
+               rise_gb=rise,
+               capture_s=getattr(step, "capture_s", None), profile=prof,
+               weights_vs_unsharded=wdiff,
+               all_gathers=eager["collectives"][0],
+               all_reduces=eager["collectives"][1],
+               loss=[base["metrics"]["loss"], eager["metrics"]["loss"]],
+               eager_s=[base["secs"], eager["secs"], eager1["secs"],
+                        eager2["secs"]],
+               multi_s=[mres["secs"], mrep["secs"]],
+               multi_capture_s=multi.step.capture_s)
+    print(f"[gspmd] {label} ({' '.join(flags) or 'defaults'}, B={B}, "
+          f"T={cfg.rollout_len}): launches per step {per_step}; after one "
+          f"step env state and key bit-equal to the unsharded step's "
+          f"(eager and graphed), weights max |mesh - unsharded| "
+          f"{wdiff:.3e} (bound rtol 2e-4, atol 2e-5), loss "
+          f"{eager['metrics']['loss']:.6f} vs {base['metrics']['loss']:.6f};"
+          f" {eager['collectives'][0]} all_gather and "
+          f"{eager['collectives'][1]} all_reduce calls a step, all captured "
+          f"(graph nodes), none from the host on a replay; replays "
+          f"{', '.join(f'{t:.3f}' for t in secs)} s; capture "
+          f"{out['capture_s']} s; peak device memory allocated / reserved "
+          f"{peak[0]:.2f} / {peak[1]:.2f} GB (allocated {rise:.3f} GB above "
+          f"the run's start) [{card}]")
+    print(f"[gspmd] {label}: multi_step(k=2) of the raw mesh step, from the "
+          f"start: env state, key, carry, weights and metrics bit-equal to "
+          f"two eager steps'; its first call {mcoll[0]} all_gather and "
+          f"{mcoll[1]} all_reduce calls (an eager step's, then the "
+          f"capture's), none from the host on a call of two replays; calls "
+          f"{mres['secs']:.3f}, {mrep['secs']:.3f} s, capture "
+          f"{multi.step.capture_s} s [{card}]")
+    del net, opt, h, carry0, w0, step, raw, multi, carry, base, eager
+    del eager1, eager2, graphed, mres, mrep
+    torch.cuda.empty_cache()
+    return out
+
+
 #: the JAX package's shard-count equivalence case (tests/test_shard_map.py)
-#: at B = 64: (EnvParams fields, PPOConfig fields)
+#: at B = 64: (EnvParams fields, PPOConfig fields, stagger)
 RANKS_CASE = (dict(width=9, height=9, n_agents=2, scenario="cluttered",
                    n_clutter=6, max_steps=100, view_size=5,
                    observation_style="encode"),
               dict(n_envs=64, rollout_len=4, n_epochs=1, n_minibatches=1,
-                   dtype=torch.float32))
+                   dtype=torch.float32), False)
+#: the sharded default path's case, with resets inside the rollout (the
+#: CPU tests' ``resets`` case at B = 64): empty 9x9, max_steps 10 with the
+#: stagger, T = 8, 2 epochs x 2 minibatches of 8 blocks, 4 a rank
+GSPMD_RANKS_CASE = (dict(width=9, height=9, n_agents=2, scenario="empty",
+                         max_steps=10, view_size=5,
+                         observation_style="encode"),
+                    dict(n_envs=64, rollout_len=8, n_epochs=2,
+                         n_minibatches=2, dtype=torch.float32), True)
 
 
-def _ranks_run(seed, mesh, steps=2):
-    """Two eager ``--shard-map`` steps of :data:`RANKS_CASE` on the card over
-    ``mesh`` from the weights of ``seed`` (rank 0's, broadcast) and no
-    stagger: the weights, the last loss, the launch counts, and the env
-    state gathered in global env order with the key (on the CPU)."""
+#: the bounds of the sharded default path's two ranks against one on the
+#: card (:func:`phase_shard_map_ranks`), as ``TRAIN_TOL``'s: each tensor's
+#: first gradient within ``grad`` of its norm, its weights after the two
+#: steps within ``weights`` of their change in L2 norm. K2b reads dout in
+#: bf16, and two ranks sum each minibatch's advantage statistics and loss
+#: terms in two parts where one rank sums them in one, so a dout entry a
+#: float32 ulp apart now and then rounds to the other bf16 value; over 8
+#: Adam steps such a difference moves a few hundred of the 152,000 weights
+#: by up to the learning rate. On an H100 the gradients read 3.5e-5 and
+#: the weights 8.5e-3 (the --shard-map step, one Adam step a train step:
+#: 1.0e-5 and 1.0e-5); the bounds sit 30x and 6x above. The witness runs
+#: beside it: the same pair with the embed in float32, forward and
+#: backward by K2f's and K2b's plain versions (:func:`float32_embed`), as
+#: the CPU tests run it, holds rtol 2e-4 / atol 2e-5 elementwise.
+GSPMD_RANKS_TOL = dict(grad=1e-3, weights=5e-2)
+
+#: the two-rank phase's runs: (label, :func:`_ranks_run` keywords)
+RANKS_RUNS = (("shard_map", {}),
+              ("mesh= (resets)", dict(gspmd=True)),
+              ("mesh= (resets), float32 embed",
+               dict(gspmd=True, f32_embed=True)))
+
+
+@contextlib.contextmanager
+def float32_embed():
+    """The one-hot embed in float32 on the card while the block runs, in
+    this process: forward and table gradient by K2f's and K2b's plain
+    versions (``embed.onehot_embed_plain``, ``onehot_embed_bwd_plain``),
+    where the card runs K2f, which rounds its output to bf16 (so autograd
+    hands K2b a bf16 dout). The two-rank phase's witness that the bf16
+    embed is what parts its D = 2 and D = 1 weights."""
+    from marlgrid_tpu_torch.ops import embed
+
+    fn = embed._OneHotEmbedFn
+    saved = fn.__dict__["backward"], embed._forward
+
+    def forward(x, w, widths, values, dtype):
+        return embed.onehot_embed_plain(x, w, widths, values, torch.float32)
+
+    def backward(ctx, dout):
+        (x,) = ctx.saved_tensors
+        widths, values, _, w_dtype = ctx.spec
+        dw = embed.onehot_embed_bwd_plain(x, dout.float(), widths, values)
+        return None, dw.to(w_dtype), None, None, None
+
+    fn.backward, embed._forward = staticmethod(backward), forward
+    try:
+        yield
+    finally:
+        fn.backward, embed._forward = saved
+
+
+def _ranks_run(seed, mesh, steps=2, gspmd=False, f32_embed=False):
+    """Two eager steps on the card over ``mesh`` from the weights of
+    ``seed`` (rank 0's, broadcast): ``--shard-map`` steps of
+    :data:`RANKS_CASE`, or with ``gspmd`` the sharded default path's of
+    :data:`GSPMD_RANKS_CASE`; with ``f32_embed`` under
+    :func:`float32_embed`. The weights, the last loss and episode count,
+    the launch counts (and the path's, K2f's and K2b's 0 with
+    ``f32_embed``), and the env state gathered in global env order with
+    the key (on the CPU)."""
     from marlgrid_tpu_torch.core import rng
     from marlgrid_tpu_torch.core.state import (EnvParams, FIELDS,
                                                default_agent_colors)
     from marlgrid_tpu_torch.parallel import mesh as mesh_mod
     from marlgrid_tpu_torch.parallel import ppo
 
-    ep = EnvParams(agent_colors=default_agent_colors(2), **RANKS_CASE[0])
-    cfg = ppo.PPOConfig(**RANKS_CASE[1])
+    ep_kw, cfg_kw, stagger = GSPMD_RANKS_CASE if gspmd else RANKS_CASE
+    ep = EnvParams(agent_colors=default_agent_colors(2), **ep_kw)
+    cfg = ppo.PPOConfig(**cfg_kw)
     dev = mesh.device
     net, opt = ppo.init_state(ep, cfg, torch.Generator().manual_seed(seed),
                               device=dev)
     mesh_mod.broadcast_from(mesh, list(net.state_dict().values()))
     key = rng.PRNGKey(seed, device=dev)
     env = ppo.init_env_batch(ep, cfg.n_envs, rng.fold_in(key, 1),
-                             stagger=False, device=dev, mesh=mesh)
-    step = ppo.make_train_step_shard_map(ep, cfg, net, opt, mesh, jit=False,
-                                         device=dev)
+                             stagger=stagger, device=dev, mesh=mesh)
+    if gspmd:
+        step = ppo.make_train_step(ep, cfg, net, opt, jit=False, device=dev,
+                                   mesh=mesh)
+    else:
+        step = ppo.make_train_step_shard_map(ep, cfg, net, opt, mesh,
+                                             jit=False, device=dev)
+    w0 = {k: v.cpu().clone() for k, v in net.state_dict().items()}
+    first = {}
+    _record_first_grads(net, opt, first)
     zero_counts()
-    for _ in range(steps):
-        env, key, m = step(env, key)
+    with float32_embed() if f32_embed else contextlib.nullcontext():
+        for _ in range(steps):
+            env, key, m = step(env, key)
     counts = read_counts()
+    path = path_counts(ep, cfg, False)
+    if f32_embed:
+        path.update(onehot_embed_fwd=0, onehot_embed_bwd=0)
     return dict(
+        w0=w0, grad0=first,
         weights={k: v.cpu() for k, v in net.state_dict().items()},
-        loss=float(m["loss"]), counts=counts, key=key.cpu(),
+        loss=float(m["loss"]), n_episodes=float(m["n_episodes"]),
+        counts=counts, key=key.cpu(),
         env={f: mesh_mod.gather(mesh, getattr(env, f)).cpu() for f in FIELDS},
-        path=path_counts(ep, cfg, False))
+        path=path)
 
 
 def _ranks_worker(rank, world, store, seed, out):
     """One rank of :func:`phase_shard_map_ranks` (a spawned process):
-    a gloo group over the card's tensors, then :func:`_ranks_run`; rank 0
-    saves its result to ``out``."""
+    a gloo group over the card's tensors, then :func:`_ranks_run` of each of
+    :data:`RANKS_RUNS`; rank 0 saves the results to ``out``."""
     import torch.distributed as dist
 
     from marlgrid_tpu_torch.parallel import mesh as mesh_mod
@@ -3459,7 +3802,8 @@ def _ranks_worker(rank, world, store, seed, out):
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             world_size=world, rank=rank)
     try:
-        res = _ranks_run(seed, mesh_mod.make_mesh(device="cuda"))
+        mesh = mesh_mod.make_mesh(device="cuda")
+        res = {what: _ranks_run(seed, mesh, **kw) for what, kw in RANKS_RUNS}
         if rank == 0:
             torch.save(res, out)
     finally:
@@ -3470,10 +3814,16 @@ def phase_shard_map_ranks(seed, card):
     """Two ranks on the one card (``torch.multiprocessing`` spawn; NCCL
     refuses two ranks on one GPU, so a gloo group, its collectives over the
     card's tensors; eager steps, since gloo cannot be captured) against
-    one rank with no group (D = 1), :data:`RANKS_CASE`: the weights after
-    two steps within the JAX test's bound (rtol 2e-4, atol 2e-5), the loss
-    within rtol 2e-3, the env state and the key bit-equal; each rank's
-    launches are those of the unsharded step at its B."""
+    one rank with no group (D = 1), :data:`RANKS_RUNS`: the
+    ``--shard-map`` step on :data:`RANKS_CASE`, and in the same spawn the
+    sharded default path's step on :data:`GSPMD_RANKS_CASE`, with resets,
+    once as the card runs it and once with the embed in float32
+    (:func:`float32_embed`, the witness). Each: the loss within
+    rtol 2e-3, the env state and the key bit-equal, each rank's launches
+    those of the unsharded step; the weights after two steps within the
+    JAX test's bound (rtol 2e-4, atol 2e-5) for ``--shard-map`` and the
+    witness, and within :data:`GSPMD_RANKS_TOL` in norm for the sharded
+    default path with the bf16 embed."""
     import torch.multiprocessing as mp
 
     from marlgrid_tpu_torch.parallel import mesh as mesh_mod
@@ -3483,38 +3833,72 @@ def phase_shard_map_ranks(seed, card):
         out = f"{tmp}/rank0.pt"
         mp.spawn(_ranks_worker, args=(2, f"{tmp}/store", seed, out),
                  nprocs=2, join=True)
-        d2 = torch.load(out, weights_only=False)
+        d2s = torch.load(out, weights_only=False)
     spawn_s = time.perf_counter() - t0
-    d1 = _ranks_run(seed, mesh_mod.make_mesh(device="cuda"))
-    for run in (d1, d2):
-        want = {k: 2 * v for k, v in run["path"].items()}
-        if run["counts"] != want:
-            raise AssertionError(f"shard_map ranks: launches "
-                                 f"{run['counts']}, want {want}")
-    worst = 0.0
-    for k, w in d1["weights"].items():
-        x = d2["weights"][k].double()
-        if not torch.allclose(x, w.double(), rtol=2e-4, atol=2e-5):
-            raise AssertionError(f"shard_map ranks: weight {k} of D=2 off "
-                                 f"D=1's beyond rtol 2e-4, atol 2e-5")
-        worst = max(worst, float((x - w.double()).abs().max()))
-    if not (math.isfinite(d2["loss"]) and math.isclose(
-            d2["loss"], d1["loss"], rel_tol=2e-3, abs_tol=1e-4)):
-        raise AssertionError(f"shard_map ranks: loss {d2['loss']} vs "
-                             f"{d1['loss']}")
-    for f, v in d1["env"].items():
-        if not torch.equal(v, d2["env"][f]):
-            raise AssertionError(f"shard_map ranks: env field {f} differs")
-    if not torch.equal(d1["key"], d2["key"]):
-        raise AssertionError("shard_map ranks: the key differs")
-    print(f"[shard_map] 2 ranks on one card (gloo over the card's tensors, "
-          f"spawned, {spawn_s:.1f} s) against 1 (no group): cluttered 9x9, "
-          f"B=64, T=4, float32, 2 eager steps: env state and key bit-equal, "
-          f"weights max |D2 - D1| {worst:.3e} (bound rtol 2e-4, atol 2e-5), "
-          f"loss {d2['loss']:.6f} vs {d1['loss']:.6f}; launches per rank "
-          f"{d2['counts']} [{card}]")
-    return dict(max_weight_diff=worst, loss=[d2["loss"], d1["loss"]],
-                counts=d2["counts"], spawn_s=spawn_s)
+    report = dict(spawn_s=spawn_s)
+    for what, kw in RANKS_RUNS:
+        d2 = d2s[what]
+        d1 = _ranks_run(seed, mesh_mod.make_mesh(device="cuda"), **kw)
+        gspmd = kw.get("gspmd", False)
+        in_norm = gspmd and not kw.get("f32_embed", False)
+        for run in (d1, d2):
+            want = {k: 2 * v for k, v in run["path"].items()}
+            if run["counts"] != want:
+                raise AssertionError(f"{what} ranks: launches "
+                                     f"{run['counts']}, want {want}")
+        worst, n_off, e_g, e_w = 0.0, 0, 0.0, 0.0
+        for k, w in d1["weights"].items():
+            x, w = d2["weights"][k].double(), w.double()
+            g1, g2 = d1["grad0"][k].double(), d2["grad0"][k].double()
+            off = ~torch.isclose(x, w, rtol=2e-4, atol=2e-5)
+            n_off += int(off.sum())
+
+            worst = max(worst, float((x - w).abs().max()))
+            e_g = max(e_g, float((g2 - g1).norm() / g1.norm()))
+            e_w = max(e_w, float((x - w).norm()
+                                 / (w - d1["w0"][k].double()).norm()))
+            if not in_norm and off.any():
+                raise AssertionError(f"{what} ranks: {int(off.sum())} "
+                                     f"weights of {k} of D=2 off D=1's "
+                                     f"beyond rtol 2e-4, atol 2e-5 (max "
+                                     f"|diff| {worst:.3e})")
+        if in_norm and not (e_g <= GSPMD_RANKS_TOL["grad"]
+                            and e_w <= GSPMD_RANKS_TOL["weights"]):
+            raise AssertionError(f"{what} ranks: first gradients {e_g:.3e} "
+                                 f"of their norm apart, weights {e_w:.3e} "
+                                 f"of the steps' change apart, beyond "
+                                 f"{GSPMD_RANKS_TOL}")
+        if not (math.isfinite(d2["loss"]) and math.isclose(
+                d2["loss"], d1["loss"], rel_tol=2e-3, abs_tol=1e-4)):
+            raise AssertionError(f"{what} ranks: loss {d2['loss']} vs "
+                                 f"{d1['loss']}")
+        for f, v in d1["env"].items():
+            if not torch.equal(v, d2["env"][f]):
+                raise AssertionError(f"{what} ranks: env field {f} differs")
+        if not torch.equal(d1["key"], d2["key"]):
+            raise AssertionError(f"{what} ranks: the key differs")
+        if gspmd and not d2["n_episodes"] > 0:
+            raise AssertionError("mesh= ranks: no env reset")
+        ep_kw, cfg_kw, _ = GSPMD_RANKS_CASE if gspmd else RANKS_CASE
+        print(f"[shard_map] {what}: 2 ranks on one card (gloo over the "
+              f"card's tensors, spawned, {spawn_s:.1f} s for both steps) "
+              f"against 1 (no group): {ep_kw['scenario']} 9x9, "
+              f"B={cfg_kw['n_envs']}, T={cfg_kw['rollout_len']}, float32, 2 "
+              f"eager steps ({d2['n_episodes']:.0f} episodes ended in the "
+              f"last): env state and key bit-equal, weights max |D2 - D1| "
+              f"{worst:.3e}, {n_off} beyond rtol 2e-4, atol 2e-5 (bound: "
+              + ("each tensor's first gradient and weights within "
+                 f"{GSPMD_RANKS_TOL['grad']} / {GSPMD_RANKS_TOL['weights']} "
+                 f"of its norm / of the steps' change: {e_g:.3e} / "
+                 f"{e_w:.3e}" if in_norm else "none; first gradients "
+                 f"{e_g:.3e} of their norm, weights {e_w:.3e} of the steps' "
+                 f"change") + f"), loss "
+              f"{d2['loss']:.6f} vs {d1['loss']:.6f}; launches per rank "
+              f"{d2['counts']} [{card}]")
+        report[what] = dict(
+            max_weight_diff=worst, n_off=n_off, grad_err=e_g, weight_err=e_w,
+            loss=[d2["loss"], d1["loss"]], counts=d2["counts"])
+    return report
 
 
 def phase_cli_distributed(card, keep):
@@ -3523,54 +3907,99 @@ def phase_cli_distributed(card, keep):
     defaults (one NCCL rank, graphed): two iterations with a checkpoint,
     written to ``keep`` (for the evaluate phase); then one iteration
     resumed from it in this process, ``--shard-map`` without
-    ``--distributed``, with the unsharded step's launches."""
+    ``--distributed``, with the unsharded step's launches. Beside it, in a
+    process of its own on the same card started at the same time, the same
+    torchrun without ``--shard-map`` (the sharded default path, graphed),
+    two iterations. The two runs share the card, so their times and rates
+    are printed as measured on a shared card, not as a single run's. Both
+    processes are killed if anything in the phase fails."""
     from marlgrid_tpu_torch.parallel import train
     from marlgrid_tpu_torch.utils import checkpoint
 
     root = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory() as tmp:
-        log = f"{tmp}/m.jsonl"
+
+    procs = []
+
+    def torchrun(*flags):
+        """Start the train CLI under torchrun on one NCCL rank; returns
+        ``wait()`` -> (its seconds with process start, its JSONL
+        records)."""
+        log = f"{tmp}/{len(flags)}.jsonl"
         t0 = time.perf_counter()
-        proc = subprocess.run(
+        procs.append(subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc-per-node", "1", "-m",
              "marlgrid_tpu_torch.parallel.train", "--distributed",
-             "--shard-map", "--iters", "2", "--metrics", log,
-             "--checkpoint-dir", keep, "--checkpoint-every", "2"],
-            cwd=root, capture_output=True, text=True, timeout=600,
-            env=dict(os.environ, PYTHONPATH=root))
-        first = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"torchrun --distributed --shard-map exited "
-                                 f"{proc.returncode}:\n{proc.stdout[-3000:]}"
-                                 f"\n{proc.stderr[-3000:]}")
-        recs = [json.loads(line) for line in open(log)]
-        tree = checkpoint.restore(keep, map_location="cpu")
-        if checkpoint.steps(keep) != [2] or \
-                tree["env_state"]["step_count"].shape != (4096,):
-            raise AssertionError("torchrun --shard-map wrote no global "
-                                 "checkpoint")
-        zero_counts()
-        train.main(["--shard-map", "--resume", keep, "--iters", "1",
-                    "--metrics", log])
-        counts = read_counts()
-        recs += [json.loads(line) for line in open(log)]
+             "--iters", "2", "--metrics", log, *flags],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=dict(os.environ, PYTHONPATH=root)))
+        proc = procs[-1]
+
+        def wait():
+            out, err = proc.communicate(timeout=600)
+            secs = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"torchrun --distributed "
+                                     f"{' '.join(flags)} exited "
+                                     f"{proc.returncode}:\n{out[-3000:]}\n"
+                                     f"{err[-3000:]}")
+            return secs, [json.loads(line) for line in open(log)]
+
+        return wait
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log = f"{tmp}/m.jsonl"
+        try:
+            shard_run = torchrun("--shard-map", "--checkpoint-dir", keep,
+                                 "--checkpoint-every", "2")
+            mesh_run = torchrun()
+            first, recs = shard_run()
+            tree = checkpoint.restore(keep, map_location="cpu")
+            if checkpoint.steps(keep) != [2] or \
+                    tree["env_state"]["step_count"].shape != (4096,):
+                raise AssertionError("torchrun --shard-map wrote no global "
+                                     "checkpoint")
+            zero_counts()
+            train.main(["--shard-map", "--resume", keep, "--iters", "1",
+                        "--metrics", log])
+            counts = read_counts()
+            recs += [json.loads(line) for line in open(log)]
+            mesh_s, mesh_recs = mesh_run()
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
     want = path_counts(*cli_config(), plane_major=False)
     if counts != want:
         raise AssertionError(f"resumed --shard-map: launches {counts}, want "
                              f"{want}")
-    for r in recs:
+    for r in recs + mesh_recs:
         if not (math.isfinite(r["loss"]) and r["n_episodes"] > 0):
-            raise AssertionError(f"--shard-map CLI metrics {r}")
+            raise AssertionError(f"--distributed CLI metrics {r}")
+    if len(mesh_recs) != 2:
+        raise AssertionError(f"torchrun --distributed logged {mesh_recs}")
     print(f"[cli] torchrun --nproc-per-node 1 ... train --distributed "
-          f"--shard-map (defaults, NCCL, graphed): 2 iterations + checkpoint "
-          f"in {first:.2f} s (process start included), then 1 resumed "
-          f"without --distributed; launches {counts}; env_steps_per_s "
+          f"--shard-map (defaults, NCCL, graphed; on a card shared with the "
+          f"next run): 2 iterations + checkpoint in {first:.2f} s (process "
+          f"start included), then 1 resumed without --distributed; launches "
+          f"{counts}; env_steps_per_s on the shared card "
           f"{', '.join(format(r['env_steps_per_s'], ',.0f') for r in recs)}"
           f" [{card}]")
+    mesh_rates = ", ".join(format(r["env_steps_per_s"], ",.0f")
+                           for r in mesh_recs)
+    print(f"[cli] torchrun --nproc-per-node 1 ... train --distributed "
+          f"(the sharded default path, defaults, NCCL, graphed; on a card "
+          f"shared with the --shard-map run): 2 iterations in {mesh_s:.2f} "
+          f"s (process start included); losses "
+          f"{', '.join(format(r['loss'], '.6f') for r in mesh_recs)}; "
+          f"env_steps_per_s on the shared card {mesh_rates} [{card}]")
     return dict(env_steps_per_s=[r["env_steps_per_s"] for r in recs],
                 losses=[r["loss"] for r in recs], counts=counts,
-                first_s=first)
+                first_s=first, mesh_s=mesh_s,
+                mesh_losses=[r["loss"] for r in mesh_recs],
+                mesh_env_steps_per_s=[r["env_steps_per_s"]
+                                      for r in mesh_recs])
 
 
 def _to(tree, dev):
@@ -3769,25 +4198,36 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
         g, e = graphs[name]["graphed"]["profile"], prof[eager]
         if g["device_busy_s"] <= 0:
             continue                  # profile_stages said: not measured
-        print(f"[graphs] {name} step (B=4096, T=64), profiled: eager wall "
-              f"{e['wall_s'] * 1e3:.1f} ms, busy "
+        print(f"[graphs] {name} step (B=4096), profiled: eager (T="
+              f"{e['T']}) wall {e['wall_s'] * 1e3:.1f} ms, busy "
               f"{e['device_busy_s'] * 1e3:.1f} ms, idle share "
               f"{1 - e['device_busy_s'] / e['wall_s']:.3f}, {e['device_ops']} "
-              f"device ops; graphed wall {g['wall_s'] * 1e3:.1f} ms, busy "
+              f"device ops; graphed (T={graphs[name]['T']}) wall "
+              f"{g['wall_s'] * 1e3:.1f} ms, "
+              f"busy "
               f"{g['device_busy_s'] * 1e3:.1f} ms, idle "
               f"{(g['wall_s'] - g['device_busy_s']) * 1e3:.1f} ms, idle share "
               f"{1 - g['device_busy_s'] / g['wall_s']:.3f}, "
               f"{g['device_ops']} device ops [{card}]")
     stamp("graphs")
     shard = phase_shard_map(args.seed, card)
-    for name, v in shard.items():
-        u = graphs[name]["graphed"]["env_steps_per_s"]
-        r = v["graphed"]["env_steps_per_s"]
-        print(f"[shard_map] {name}: graphed --shard-map step (D=1, NCCL) "
-              f"{r:,.0f} env-steps/s beside the unsharded graphed step's "
-              f"{u:,.0f} in this run ({r / u:.3f}x); "
-              f"{v['all_reduces']['eager call 0']} all_reduce nodes per "
-              f"step [{card}]")
+    for name in ("encode", "rnn"):
+        g, m = graphs[name]["graphed"], shard[f"gspmd {name}"]
+        gp, mp_ = g["profile"], m["profile"]
+        if gp and gp["device_busy_s"] > 0 and mp_["device_busy_s"] > 0:
+            print(f"[gspmd] {name}: graphed mesh= step (D=1, NCCL) busy "
+                  f"{mp_['device_busy_s'] * 1e3:.1f} ms in "
+                  f"{mp_['device_ops']} device ops, replays "
+                  f"{', '.join(f'{t:.3f}' for t in m['replay_s'])} s, "
+                  f"allocated {m['rise_gb']:.3f} GB above its run's start "
+                  f"(eager call, capture, replays); the unsharded graphed "
+                  f"step's "
+                  f"(graphs phase) busy {gp['device_busy_s'] * 1e3:.1f} ms "
+                  f"in {gp['device_ops']} ops "
+                  f"({mp_['device_busy_s'] / gp['device_busy_s']:.4f}x busy),"
+                  f" replays {', '.join(f'{t:.3f}' for t in g['seconds'][2:])}"
+                  f" s, {g['rise_gb']:.3f} GB above its run's start "
+                  f"[{card}]")
     stamp("shard_map")
     env = phase_env_only(args.seed, card)
     env_img = phase_env_only(args.seed, card, "image")

@@ -70,10 +70,45 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
 
 
-def random_bits(keys: torch.Tensor, shape) -> torch.Tensor:
-    """32 random bits per element: ``(..., 2) -> (..., *shape)`` int64."""
+#: (shape, part, device) -> the (hi, lo) counts of a part of a draw and the
+#: part's shape: static, so made once per shape and not once per step
+_PART_COUNTS = {}
+
+
+def part_counts(shape, part, device):
+    """``(hi, lo, part_shape)``: the flat indices of the elements of a draw
+    of the global ``shape`` that lie in ``part = (axis, start, stop)``
+    (``start <= i < stop`` along ``axis``), split into uint32 halves as
+    ``_counts`` splits the whole iota, flattened; and that part's shape.
+    In partitionable threefry element i of a draw is the hash of its flat
+    index i alone, so the hash of these indices is the part of the global
+    draw. Cached per (shape, part, device)."""
     shape = tuple(shape)
-    hi, lo = _counts(math.prod(shape), keys.device)
+    axis, start, stop = part
+    axis %= len(shape)
+    if not 0 <= start <= stop <= shape[axis]:
+        raise ValueError(f"part {part} outside the draw's shape {shape}")
+    ck = (shape, (axis, start, stop), str(device))
+    if ck not in _PART_COUNTS:
+        idx = torch.arange(math.prod(shape), dtype=torch.int64,
+                           device=device).reshape(shape)
+        idx = idx.narrow(axis, start, stop - start).reshape(-1)
+        sub = shape[:axis] + (stop - start,) + shape[axis + 1:]
+        _PART_COUNTS[ck] = (idx >> 32, idx & MASK32, sub)
+    return _PART_COUNTS[ck]
+
+
+def random_bits(keys: torch.Tensor, shape, part=None) -> torch.Tensor:
+    """32 random bits per element: ``(..., 2) -> (..., *shape)`` int64.
+    ``part = (axis, start, stop)``: only the elements of the draw of
+    ``shape`` at ``start <= i < stop`` along ``axis`` (a rank's columns of
+    a global draw, :func:`part_counts`), bit-equal to that slice of the
+    whole draw."""
+    shape = tuple(shape)
+    if part is None:
+        hi, lo = _counts(math.prod(shape), keys.device)
+    else:
+        hi, lo, shape = part_counts(shape, part, keys.device)
     b1, b2 = threefry2x32(keys[..., 0:1], keys[..., 1:2], hi, lo)
     return (b1 ^ b2).reshape(keys.shape[:-1] + shape)
 
@@ -95,9 +130,10 @@ def randint(keys: torch.Tensor, shape, minval, maxval) -> torch.Tensor:
 
 
 def uniform(keys: torch.Tensor, shape, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32, minval, maxval)`` per key."""
-    bits = random_bits(keys, shape)
+            maxval: float = 1.0, part=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` per key
+    (``part``: a slice of it, as :func:`random_bits` takes)."""
+    bits = random_bits(keys, shape, part)
     fbits = (bits >> 9) | 0x3F800000           # mantissa bits, exponent 0
     floats = fbits.to(torch.int32).view(torch.float32) - 1.0
     # the bounds and their difference rounded to float32, as JAX has them
@@ -106,9 +142,10 @@ def uniform(keys: torch.Tensor, shape, minval: float = 0.0,
     return torch.clamp(floats * span + lo, min=lo)
 
 
-def gumbel(keys: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.gumbel(key, shape, float32)`` in its default low mode."""
-    return -torch.log(-torch.log(uniform(keys, shape, _F32_TINY, 1.0)))
+def gumbel(keys: torch.Tensor, shape, part=None) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in its default low mode
+    (``part``: a slice of it, as :func:`random_bits` takes)."""
+    return -torch.log(-torch.log(uniform(keys, shape, _F32_TINY, 1.0, part)))
 
 
 def categorical(key: torch.Tensor, logits: torch.Tensor,
@@ -117,6 +154,23 @@ def categorical(key: torch.Tensor, logits: torch.Tensor,
     the Gumbel-max over ``axis`` of float32 logits, int64 indices."""
     noise = gumbel(key, logits.shape)
     return torch.argmax(noise + logits, dim=axis)
+
+
+def categorical_slice(key: torch.Tensor, local_logits: torch.Tensor,
+                      global_size: int, offset: int,
+                      env_axis: int) -> torch.Tensor:
+    """Rows ``offset .. offset + B`` along ``env_axis`` of
+    ``categorical(key, global_logits)`` (the draw over the last axis), from
+    this rank's ``local_logits``, whose ``env_axis`` holds those B rows of
+    a global axis of ``global_size``: the Gumbel noise of the global draw
+    at this rank's flat indices (strided for feature-major (N, B, A)
+    logits, ``env_axis=1``; one contiguous range for (B, N, A),
+    ``env_axis=0``), bit-equal to the slice of the global draw."""
+    shape = list(local_logits.shape)
+    B = shape[env_axis]
+    shape[env_axis] = global_size
+    noise = gumbel(key, shape, (env_axis, offset, offset + B))
+    return torch.argmax(noise + local_logits, dim=-1)
 
 
 def categorical_per_key(keys: torch.Tensor, logits: torch.Tensor,

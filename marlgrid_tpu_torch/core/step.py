@@ -303,22 +303,24 @@ def step_autoreset_with_fresh(params: EnvParams, state: EnvState, actions,
     return _select_fresh(stepped, rew, done, fresh, env_offset)
 
 
-def fresh_pool_tiled(params: EnvParams, key, n_pool: int, batch: int):
-    """Batched fresh boards from a K-layout pool: a batch-``batch`` state
-    where env i carries layout ``i % n_pool`` (see the JAX docstring:
-    layout diversity at K resets per rollout)."""
-    if batch % n_pool:
-        raise ValueError(f"batch {batch} is not a multiple of the pool "
-                         f"size {n_pool}")
-    pool = reset(params, rng.split(key, n_pool))
-    reps = batch // n_pool
-    return pool.map(lambda x: x.repeat((reps,) + (1,) * (x.dim() - 1)))
+def fresh_pool(params: EnvParams, key, n_pool: int) -> EnvState:
+    """A K-layout pool of fresh boards (K = ``n_pool``): a batch-K state,
+    layout k from ``split(key, n_pool)[k]`` (see the JAX
+    ``fresh_pool_tiled``: layout diversity at K resets per rollout)."""
+    return reset(params, rng.split(key, n_pool))
 
 
-def rotate_fresh_batch(fresh_b: EnvState, t: int) -> EnvState:
-    """Rotate the pool->env assignment by ``t``: env i sees layout
-    (i + t) % n_pool."""
-    return fresh_b.map(lambda x: torch.roll(x, t, dims=0))
+def fresh_pool_rows(pool: EnvState, t: int, offset: int,
+                    batch: int) -> EnvState:
+    """The fresh boards of step ``t`` for envs ``offset .. offset + batch``
+    of a global batch that the pool size K divides: global env i takes
+    layout ``(i - t) mod K`` of :func:`fresh_pool`'s ``pool``, the rows of
+    the JAX ``rotate_fresh_batch(fresh_pool_tiled(...), t)``. A rank of a
+    sharded batch gets its envs' rows whether or not K divides its own
+    share (K may exceed it); one device takes ``offset=0``."""
+    K = pool.batch_size
+    idx = (offset - t + torch.arange(batch, device=pool.key.device)) % K
+    return pool.map(lambda x: x[idx])
 
 
 def step_autoreset_with_fresh_batch(params: EnvParams, state: EnvState,

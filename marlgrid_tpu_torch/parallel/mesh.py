@@ -1,12 +1,14 @@
 """The 'data' axis over ranks of ``torch.distributed``.
 
-Counterpart of ``marlgrid_tpu/parallel/mesh.py`` for the explicit-collective
-(``shard_map``) train steps. One rank is one process on one device; D, the
-size of the 'data' axis, is the world size of the process group. Each rank
-runs the single-device algorithm on its own slice of the env batch, and the
-ranks meet only at the collectives a step calls by hand: :meth:`Mesh.pmean`
-and :meth:`Mesh.psum`, each one ``all_reduce`` over a flat bucket of its
-tensors.
+Counterpart of ``marlgrid_tpu/parallel/mesh.py`` for the sharded train
+steps. One rank is one process on one device; D, the size of the 'data'
+axis, is the world size of the process group. Each rank holds its slice of
+the env batch, and the ranks meet only at the collectives a step calls by
+hand: :meth:`Mesh.pmean` and :meth:`Mesh.psum`, each one ``all_reduce``
+over a flat bucket of its tensors (the explicit-collective ``shard_map``
+steps, and the gradients of the default path), and :meth:`Mesh.all_gather`,
+one in-place ``all_gather_into_tensor`` over a flat byte buffer (the default
+path's trajectory, gathered in global env order for the update).
 
 Without a process group the mesh has D = 1 and rank 0, and its collectives
 return their inputs, as a ``psum`` over an axis of size 1 does: there is no
@@ -15,7 +17,7 @@ runs on it.
 
 The backend follows the device (NCCL on ``cuda``, gloo on ``cpu``) unless
 the caller names one; nothing swaps one backend for another. The 'model'
-axis (``n_model > 1``) comes with ROADMAP Slice G2.
+axis (``n_model > 1``) comes with ROADMAP Slice G2b.
 """
 from __future__ import annotations
 
@@ -26,14 +28,15 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve
+from .graph import flatten, unflatten
 
 
 class Mesh:
     """This rank's view of the ('data', 'model') mesh: ``D`` ranks on the
     data axis, this process's ``rank`` among them, ``n_model`` (1), the
     process ``group`` (None: no group, D = 1) and the ``device`` the rank
-    computes on. ``all_reduces`` counts the ``all_reduce`` calls made, so
-    a caller can count the collectives of a step."""
+    computes on. ``all_reduces`` and ``all_gathers`` count the calls
+    made, so a caller can count the collectives of a step."""
 
     def __init__(self, D: int, rank: int, group, device: torch.device,
                  n_model: int = 1):
@@ -42,6 +45,7 @@ class Mesh:
         self.D, self.rank, self.n_model = D, rank, n_model
         self.group, self.device = group, device
         self.all_reduces = 0
+        self.all_gathers = 0
 
     def psum(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The sum over the data axis of each tensor: one ``all_reduce(SUM)``
@@ -63,6 +67,44 @@ class Mesh:
         return [t / self.D for t in self.psum(tensors)]
 
 
+    def all_gather(self, tensors: Sequence[torch.Tensor],
+                   dims: Sequence[int]) -> List[torch.Tensor]:
+        """Every rank's ``tensors[i]`` concatenated along ``dims[i]`` in
+        rank order: this rank's slices of the env batch become the global
+        batch, in global env order. One in-place
+        ``all_gather_into_tensor`` over a flat uint8 buffer of D rows: the
+        tensors' bytes are packed into this rank's row (each tensor at an
+        8-byte-aligned offset), so the call is one node of a captured CUDA
+        graph and its buffer is the capture's own. At D = 1 the results
+        are views of that buffer (the store held once more); at D > 1 each
+        is one copy into global order, and the buffer goes when the call
+        returns. Without a group, the inputs themselves; with one, even of
+        size 1, the collective runs (as :meth:`psum`'s)."""
+        tensors = list(tensors)
+        if self.group is None:
+            return tensors
+        sizes = [t.numel() * t.element_size() for t in tensors]
+        starts, at = [], 0
+        for n in sizes:
+            starts.append(at)
+            at += -(-n // 8) * 8
+        out = torch.empty(self.D * at, dtype=torch.uint8,
+                          device=tensors[0].device)
+        rows = out.view(self.D, at)
+        mine = rows[self.rank]
+        for t, o, n in zip(tensors, starts, sizes):
+            mine[o:o + n].copy_(t.contiguous().reshape(-1).view(torch.uint8))
+        dist.all_gather_into_tensor(out, mine, group=self.group)
+        self.all_gathers += 1
+        res = []
+        for t, o, n, dim in zip(tensors, starts, sizes, dims):
+            part = rows[:, o:o + n].view(t.dtype).reshape(
+                (self.D,) + t.shape).movedim(0, dim)
+            res.append(part.reshape(t.shape[:dim] + (-1,)
+                                    + t.shape[dim + 1:]))
+        return res
+
+
 def _split(flat: torch.Tensor, like: Sequence[torch.Tensor]):
     out, i = [], 0
     for t in like:
@@ -81,7 +123,7 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, group=None,
     if n_model != 1:
         raise NotImplementedError(
             f"a 'model' axis of {n_model}: not in the PyTorch port yet; it "
-            f"comes with ROADMAP Slice G2")
+            f"comes with ROADMAP Slice G2b")
     if group is None and dist.is_initialized():
         group = dist.group.WORLD
     world = 1 if group is None else dist.get_world_size(group)
@@ -107,13 +149,25 @@ def shard(mesh: Mesh, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
 
 def gather(mesh: Mesh, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order (the
-    global batch from the ranks' slices); the inverse of :func:`shard`. A
-    collective: every rank calls it."""
-    if mesh.group is None:
-        return x
-    parts = [torch.empty_like(x) for _ in range(mesh.D)]
-    dist.all_gather(parts, x.contiguous(), group=mesh.group)
-    return torch.cat(parts, dim)
+    global batch from the ranks' slices, :meth:`Mesh.all_gather`); the
+    inverse of :func:`shard`. A collective: every rank calls it."""
+    return mesh.all_gather([x], [dim])[0]
+
+
+def gather_env(mesh: Mesh, pairs):
+    """``[(tree, env dim)] -> [tree]``: each tree (a tensor, an EnvState,
+    or tuples and dicts of them) with every leaf gathered along its env dim
+    from every rank, in global env order; one :meth:`Mesh.all_gather` for
+    all of them. Without a group, the trees themselves."""
+    flat, specs, dims = [], [], []
+    for tree, dim in pairs:
+        leaves, spec = flatten(tree)
+        flat += leaves
+        dims += [dim] * len(leaves)
+        specs.append((spec, len(leaves)))
+    out = iter(mesh.all_gather(flat, dims))
+    return [unflatten(spec, [next(out) for _ in range(n)])
+            for spec, n in specs]
 
 
 def broadcast_from(mesh: Mesh, tensors: Sequence[torch.Tensor],

@@ -32,6 +32,12 @@ steps per call, the graph replayed k times). The network and the optimizer
 are stateful torch objects: the step functions update them in place and
 take and return the env state and the key, where the JAX step functions
 take and return params and opt_state.
+
+Over the ranks of a ``parallel/mesh.py`` Mesh, ``make_train_step`` takes
+the JAX step's two sharded forms: ``axis=`` (the explicit-collective
+``shard_map`` recipe, :func:`make_train_step_shard_map`) and ``mesh=``
+(the GSPMD step: each rank computes its part of the unsharded step of the
+global batch, :class:`Share`).
 """
 from __future__ import annotations
 
@@ -48,7 +54,7 @@ from ..core.state import FIELDS, EnvParams, EnvState
 from ..device import const, resolve
 from ..models import ActorCritic
 from .graph import GraphedStep
-from .mesh import Mesh, host_local_slice
+from .mesh import Mesh, gather_env, host_local_slice
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,12 +317,35 @@ def local_batch(cfg: PPOConfig, axis: Mesh = None) -> int:
     return cfg.n_envs // D
 
 
-def sample_actions(ak, logits, axis: Mesh, B: int, key_axis: int):
+def data_axis(axis: Mesh = None, mesh: Mesh = None):
+    """The one data axis a step is sharded over: ``axis`` (the shard_map
+    recipe), ``mesh`` (the GSPMD-equivalent default path) or neither (one
+    device). Raises if both are given."""
+    if axis is not None and mesh is not None:
+        raise ValueError("axis= (the explicit-collective shard_map step) and "
+                         "mesh= (the sharded default path) exclude each "
+                         "other")
+    return mesh if axis is None else axis
+
+
+def pool_size(cfg: PPOConfig, B: int) -> int:
+    """The fresh-board pool's size K: the largest divisor of the batch B
+    (the global batch under a mesh) not above ``cfg.board_pool``."""
+    return max(k for k in range(1, min(cfg.board_pool, B) + 1) if B % k == 0)
+
+
+def sample_actions(ak, logits, axis: Mesh, B: int, key_axis: int,
+                   mesh: Mesh = None):
     """Actions from the step's key ``ak``: one ``categorical`` draw over
     the whole logits without ``axis``; with it, the JAX shard_map recipe:
     env b draws from ``fold_in(ak, rank * B + b)``, its global index, so
-    the actions do not depend on how the batch is split. ``key_axis``: the
-    logits' env axis (1 feature-major, 0 env-leading)."""
+    the actions do not depend on how the batch is split. With ``mesh``
+    (the GSPMD path): this rank's B rows of the one draw over the global
+    logits (``rng.categorical_slice``). ``key_axis``: the logits' env axis
+    (1 feature-major, 0 env-leading)."""
+    if mesh is not None:
+        return rng.categorical_slice(ak, logits, mesh.D * B, mesh.rank * B,
+                                     key_axis)
     if axis is None:
         return rng.categorical(ak, logits)
     ids = axis.rank * B + torch.arange(B, device=logits.device)
@@ -324,7 +353,7 @@ def sample_actions(ak, logits, axis: Mesh, B: int, key_axis: int):
 
 
 def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda",
-                 axis: Mesh = None):
+                 axis: Mesh = None, mesh: Mesh = None):
     """Build ``rollout(env_state, key) -> (env_state, key, traj,
     last_value)``, the JAX ``rollout`` of ``make_train_step``.
 
@@ -332,7 +361,12 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda",
     this rank's B = n_envs / D envs: the fresh-board key folded with the
     rank, per-env action keys from the global env index
     (:func:`sample_actions`) and ``env_offset = rank * B`` into the
-    autoreset. None: one device, no shards.
+    autoreset. ``mesh``: the JAX ``mesh=`` (GSPMD) step's rollout, on this
+    rank's B envs: this rank's rows of what the unsharded rollout of the
+    global batch computes (the pool size K from the global batch, the
+    pool's rows of this rank's envs, its rows of the one global action
+    draw, ``env_offset = rank * B``); no collective. None: one device, no
+    shards.
 
     Per step t: the policy acts on the observation, actions come from
     ``categorical`` under the step's key, the envs step with the pool
@@ -362,11 +396,14 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda",
     pov_params = (env_params.replace(observation_style="image") if rich
                   else env_params)
     s2d = cfg.torso == "cnn_s2d"
-    B, T, N = local_batch(cfg, axis), cfg.rollout_len, env_params.n_agents
+    shards = data_axis(axis, mesh)
+    B, T, N = local_batch(cfg, shards), cfg.rollout_len, env_params.n_agents
     Fd = 3 * env_params.view_size ** 2
-    # board-pool size: the largest divisor of B not above cfg.board_pool
-    K = max(k for k in range(1, min(cfg.board_pool, B) + 1) if B % k == 0)
-    offset = 0 if axis is None else axis.rank * B
+    K = pool_size(cfg, cfg.n_envs if mesh is not None else B)
+    offset = 0 if shards is None else shards.rank * B
+    # the pool rows of this rank's envs: under ``axis`` each rank tiles its
+    # own pool over its own envs
+    pool_offset = offset if mesh is not None else 0
 
     def obs_of(state):
         """The policy's inputs: feature-major codes, or the (B, N, ...)
@@ -389,7 +426,7 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda",
             # distinct fresh-board layouts per rank (the key is replicated)
             fk = rng.fold_in(fk, axis.rank)
         with record_function("rollout.fresh_pool"):
-            fresh_b = step_mod.fresh_pool_tiled(env_params, fk, K, B)
+            pool = step_mod.fresh_pool(env_params, fk, K)
         names = ("act", "logp", "val", "rew", "done", "ep_ret", "ep_len",
                  "ep_cyc")
         steps = {k: [] for k in names}
@@ -407,11 +444,11 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda",
                 ks = rng.split(key)
                 key, ak = ks[0], ks[1]
                 a = sample_actions(ak, logits, axis, B,
-                                   1 if store == FEATURES else 0)
+                                   1 if store == FEATURES else 0, mesh)
                 logp_a = F.log_softmax(logits, -1).gather(
                     -1, a[..., None])[..., 0]
             with record_function("rollout.env_step"):
-                fresh_t = step_mod.rotate_fresh_batch(fresh_b, t)
+                fresh_t = step_mod.fresh_pool_rows(pool, t, pool_offset, B)
                 stepped, rew, done, info = \
                     step_mod.step_autoreset_with_fresh_batch(
                         env_params, env_state,
@@ -494,22 +531,39 @@ def ppo_terms(logits, value, lab, adv, cfg: PPOConfig):
     return pg, vf, ent, (ratio - 1.0).abs()
 
 
-def ppo_loss(logits, value, lab, cfg: PPOConfig, axis: Mesh = None):
+def ppo_loss(logits, value, lab, cfg: PPOConfig, axis: Mesh = None,
+             share: "Share" = None):
     """The clipped PPO objective of the JAX ``loss_fn``: :func:`ppo_terms`
     averaged over the minibatch -> ``(total, {pg_loss, vf_loss, entropy,
     ratio_dev})``. The advantages ``lab['adv']`` are normalized over the
     minibatch (population std, as ``jnp.std``); with ``axis``, over the
     global minibatch, from the ``pmean`` of the ranks' means and then of
-    their mean squared deviations, as the JAX shard_map step does."""
+    their mean squared deviations, as the JAX shard_map step does.
+
+    ``share`` (the mesh path): the samples are this rank's share of a
+    global minibatch, weighted by ``share.w`` (1, or 0 on a padding
+    block), and every mean is over the global minibatch's
+    ``share.count`` samples: the advantages' mean and variance are each a
+    ``psum`` of this rank's weighted sums over that count, and the
+    returned loss and metrics are this rank's part of the global ones,
+    which :func:`run_epochs` sums over the ranks with the gradients."""
     adv = lab["adv"]
-    if axis is None:
+    mean = torch.mean
+    if share is not None:
+        def mean(x):
+            return (share.w * x).sum() / share.count
+
+        m, = share.mesh.psum([mean(adv)])
+        var, = share.mesh.psum([mean((adv - m) ** 2)])
+        adv = (adv - m) / (torch.sqrt(var) + 1e-8)
+    elif axis is None:
         adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
     else:
         m, = axis.pmean([adv.mean()])
         var, = axis.pmean([((adv - m) ** 2).mean()])
         adv = (adv - m) / (torch.sqrt(var) + 1e-8)
-    pg, vf, ent, dev = (x.mean() for x in ppo_terms(logits, value, lab, adv,
-                                                     cfg))
+    pg, vf, ent, dev = (mean(x) for x in ppo_terms(logits, value, lab, adv,
+                                                    cfg))
     total = pg + cfg.vf_coef * vf - cfg.ent_coef * ent
     return total, dict(pg_loss=pg, vf_loss=vf, entropy=ent, ratio_dev=dev)
 
@@ -524,31 +578,57 @@ def _take(v, idx):
     return v[idx]
 
 
-def shuffled_blocks(blocked, G: int, used: int, cfg: PPOConfig):
+class Share:
+    """This rank's share of every minibatch on the mesh path: of a
+    minibatch's ``mb`` block indices, rank r takes positions ``[r*mb//D,
+    (r+1)*mb//D)``, padded to ``ceil(mb/D)`` positions with others at
+    weight 0, so the ranks split each minibatch's compute (none
+    replicated, none dropped or counted twice) in tensors of one shape.
+
+    ``pos`` (ceil(mb/D),) are the positions taken; ``w`` their float32
+    weights (1, or 0 on padding) as ``align`` lays them against the loss
+    terms of a share; ``count`` the global minibatch's samples, ``mb``
+    blocks of ``per_block`` (:func:`ppo_loss`)."""
+
+    def __init__(self, mesh: Mesh, mb: int, per_block: int, align, device):
+        lo, hi = mesh.rank * mb // mesh.D, (mesh.rank + 1) * mb // mesh.D
+        pos = lo + torch.arange(-(-mb // mesh.D), device=device)
+        self.mesh = mesh
+        self.pos = pos.clamp(max=mb - 1)     # any real block, weighed 0
+        self.w = align((pos < hi).to(torch.float32))
+        self.count = float(mb * per_block)
+
+
+def shuffled_blocks(blocked, G: int, used: int, cfg: PPOConfig,
+                    share: Share = None):
     """``minibatches(pk)`` for :func:`run_epochs` over ``blocked``
     ({name: (G, ...)} blocks): a ``permutation(pk, G)``, its first ``used``
-    blocks cut into ``n_minibatches`` gathers of whole blocks."""
+    blocks cut into ``n_minibatches`` gathers of whole blocks (with a
+    ``share``, of this rank's :class:`Share` of each)."""
     mb = used // cfg.n_minibatches
 
     def minibatches(pk):
         perm = rng.permutation(pk, G)
         for idx in perm[:used].reshape(cfg.n_minibatches, mb):
+            if share is not None:
+                idx = idx[share.pos]
             yield {k: _take(v, idx) for k, v in blocked.items()}
 
     return minibatches
 
 
 def run_epochs(minibatches, loss_fn, params, optimizer, key, cfg: PPOConfig,
-               dev, axis: Mesh = None):
+               dev, reduce=None):
     """The epochs of a PPO update: per epoch the minibatches of
     ``minibatches(split(key)[1])`` (:func:`shuffled_blocks`), and for each
     ``loss_fn(batch) -> (total, aux)``, a backward pass, the global-norm
-    clip and an Adam step on ``params`` (in place). With ``axis``, the
-    gradients, ``total`` and ``aux`` are ``pmean``'d over the data axis
-    (one bucket) between the backward pass and the clip: the data-parallel
-    gradient all-reduce, written out as the JAX shard_map step writes it.
-    Returns the means over every minibatch of ``loss`` and of each ``aux``
-    entry, as 0-d device tensors."""
+    clip and an Adam step on ``params`` (in place). With ``reduce`` (a
+    Mesh's ``pmean``, the shard_map step; its ``psum``, the mesh path,
+    whose ranks hold parts of one global loss), the gradients, ``total``
+    and ``aux`` go through it (one bucket) between the backward pass and
+    the clip: the data-parallel gradient all-reduce, written out as the JAX
+    shard_map step writes it. Returns the means over every minibatch of
+    ``loss`` and of each ``aux`` entry, as 0-d device tensors."""
     losses, auxs = [], []
     key = key.to(dev)
     for _ in range(cfg.n_epochs):
@@ -558,9 +638,9 @@ def run_epochs(minibatches, loss_fn, params, optimizer, key, cfg: PPOConfig,
             total, aux = loss_fn(batch)
             with record_function("update.backward"):
                 grads = torch.autograd.grad(total, params)
-            if axis is not None:
+            if reduce is not None:
                 with record_function("update.all_reduce"):
-                    *grads, total, av = axis.pmean(
+                    *grads, total, av = reduce(
                         [*grads, total.detach(),
                          torch.stack(list(aux.values())).detach()])
                     aux = dict(zip(aux, av))
@@ -590,7 +670,7 @@ def row_blocks(n: int, n_minibatches: int) -> int:
 
 
 def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
-                device="cuda", axis: Mesh = None):
+                device="cuda", axis: Mesh = None, mesh: Mesh = None):
     """Build ``update(traj, last_value, key) -> metrics``, the update half of
     the JAX ``make_train_step``: GAE on (T, N*B) (encode/mlp) or (T, B*N)
     (the other stores), the block layout, and per epoch a
@@ -619,13 +699,23 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     ``axis``: the JAX ``axis`` variant on this rank's B = n_envs / D envs
     (blocks cut from the local trajectory, the advantage statistics and the
     gradients over the data axis: :func:`ppo_loss`, :func:`run_epochs`).
+    ``mesh``: the JAX ``mesh=`` (GSPMD) step's update, which computes the
+    unsharded update of the global batch: GAE on this rank's trajectory,
+    then its store and labels gathered from every rank in global env order
+    (``mesh.gather_env``: one all-gather), the blocks of the global
+    trajectory (c and G from the global B), the same permutation on every
+    rank, and each minibatch's blocks split over the ranks
+    (:class:`Share`, :func:`ppo_loss`), its gradients ``psum``'d.
     """
     dev = resolve(device)
     store = storage(env_params, cfg)
     rich = env_params.observation_style == "rich"
     pov_params = env_params.replace(observation_style="image")
     s2d = cfg.torso == "cnn_s2d"
-    B, T, N = local_batch(cfg, axis), cfg.rollout_len, env_params.n_agents
+    shards = data_axis(axis, mesh)
+    # the blocks are cut from the global trajectory under a mesh
+    B = cfg.n_envs if mesh is not None else local_batch(cfg, shards)
+    T, N = cfg.rollout_len, env_params.n_agents
     params = [p for p in net.parameters() if p.requires_grad]
     if store == STATES:
         c = state_block_size(B, T)
@@ -642,6 +732,15 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     used = (G // cfg.n_minibatches) * cfg.n_minibatches
     labels = ("act", "logp", "val", "adv", "ret")
     shape, dtype = obs_spec(env_params, cfg)
+    share, reduce = None, None if axis is None else axis.pmean
+    if mesh is not None:
+        # a block's samples, and the weights against the loss terms:
+        # (mb, c) features, (mb*c,) rows, (N, mb*c) rendered states
+        share = Share(mesh, used // cfg.n_minibatches,
+                      c * (N if store == STATES else 1),
+                      lambda w: (w[:, None] if store == FEATURES
+                                 else w.repeat_interleave(c)), dev)
+        reduce = mesh.psum
 
     def policy(batch):
         """logits, values and labels of a minibatch, aligned sample for
@@ -678,29 +777,40 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     def loss_fn(batch):
         logits, value, batch = policy(batch)
         with record_function("update.forward"):
-            return ppo_loss(logits, value, batch, cfg, axis)
+            return ppo_loss(logits, value, batch, cfg, axis, share)
 
     def blocks(traj, last_value):
         """GAE, then the trajectory cut into G blocks: {name: (G, ...)},
-        with ``obs`` an EnvState on the states path."""
-        per_step = step_labels(traj, last_value, cfg, store != FEATURES)
+        with ``obs`` an EnvState on the states path. Under a mesh, the
+        global trajectory's blocks: this rank's labels and store gathered
+        from every rank first."""
+        env_leading = store != FEATURES
+        per_step = step_labels(traj, last_value, cfg, env_leading)
+        obs = traj["obs"]
+        if mesh is not None:
+            with record_function("update.all_gather"):
+                if store == ROWS:               # (T, B*N, F) -> (T, B, N*F)
+                    obs = obs.reshape(T, obs.shape[1] // N, -1)
+                per_step, obs = gather_env(mesh, [
+                    (per_step, 1 if env_leading else 2),
+                    (obs, 3 if store == FEATURES else 1)])
         if store == ROWS:
             out = {k: v.reshape(G, c) for k, v in per_step.items()}
-            out["obs"] = traj["obs"].reshape(G, c, -1)
+            out["obs"] = obs.reshape(G, c, -1)
             return out
         if store == STATES:
             def blk(x):                       # (T, B, ...) -> (G, c, ...)
                 return x.reshape((G, c) + x.shape[2:])
 
             out = {k: blk(v) for k, v in per_step.items()}
-            out["obs"] = traj["obs"].map(blk)
+            out["obs"] = obs.map(blk)
             return out
 
         def blk(x):                           # (T, N, B) -> (G, c)
             return x.permute(1, 0, 2).reshape(G, c)
 
         out = {k: blk(v) for k, v in per_step.items()}
-        out["obs"] = obs_blocks(traj["obs"], c)
+        out["obs"] = obs_blocks(obs, c)
         return out
 
     def update(traj, last_value, key):
@@ -713,14 +823,15 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
                 f"block(s) (~{100 * (G - used) / G:.1f}% of each epoch's "
                 f"data). Pick n_minibatches dividing {G} to use all of it.",
                 stacklevel=3)
-        return run_epochs(shuffled_blocks(blocked, G, used, cfg), loss_fn,
-                          params, optimizer, key, cfg, dev, axis)
+        return run_epochs(shuffled_blocks(blocked, G, used, cfg, share),
+                          loss_fn, params, optimizer, key, cfg, dev, reduce)
 
     return update
 
 
 def make_train_step(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
-                    device="cuda", overlap=False, jit=True, axis: Mesh = None):
+                    device="cuda", overlap=False, jit=True, axis: Mesh = None,
+                    mesh: Mesh = None):
     """Build the rollout + update step, the JAX ``make_train_step`` on one
     device (any of the three stores of :func:`storage`):
     :func:`make_rollout` then :func:`make_update`, with the JAX step's key
@@ -750,17 +861,30 @@ def make_train_step(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
 
     ``axis``: the JAX ``axis`` variant, the per-rank step of
     :func:`make_train_step_shard_map` (not with ``overlap``, as in JAX).
+
+    ``mesh`` (a ``parallel/mesh.py`` Mesh; the JAX ``mesh=``, the GSPMD
+    step): this rank's part of the step over the global batch of
+    ``cfg.n_envs`` envs, every rank with the same key, weights and
+    optimizer state and B = n_envs / D envs of its own
+    (``init_env_batch(..., mesh=mesh)``). What the ranks compute together
+    is what the unsharded step computes over the global batch, up to the
+    order of float sums (:func:`make_rollout`, :func:`make_update`); the
+    episode tallies are ``psum``'d. With ``overlap`` too, as in JAX. Its
+    collectives are captured in the graph with ``jit=True``.
     """
+    shards = data_axis(axis, mesh)
     if overlap and axis is not None:
         raise ValueError("--overlap + --shard-map not supported")
     dev = resolve(device)
-    rollout = make_rollout(env_params, cfg, net, device=dev, axis=axis)
+    rollout = make_rollout(env_params, cfg, net, device=dev, axis=axis,
+                           mesh=mesh)
     update = make_update(env_params, cfg, net, optimizer, device=dev,
-                         axis=axis)
+                         axis=axis, mesh=mesh)
 
     def train_step(env_state, key):
         env_state, key, traj, last_value = rollout(env_state, key)
-        metrics = episode_metrics(update(traj, last_value, key), traj, axis)
+        metrics = episode_metrics(update(traj, last_value, key), traj,
+                                  shards)
         return env_state, rng.fold_in(key, 1), metrics
 
     def rollout_only(env_state, key):
@@ -777,31 +901,28 @@ def make_train_step(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
         ks = rng.split(key.to(dev))
         key, rk = ks[0], ks[1]
         env_state, _, traj, last_value = rollout(env_state, rk)
-        metrics = episode_metrics(update(prev_traj, prev_last, key), traj)
+        metrics = episode_metrics(update(prev_traj, prev_last, key), traj,
+                                  shards)
         return env_state, (traj, last_value), rng.fold_in(key, 1), metrics
 
-    if overlap:
-        if jit:
-            train_step_overlap = GraphedStep(
-                train_step_overlap, "ppo.make_train_step(overlap=True)")
-        return train_step_overlap, rollout_only
-    if axis is not None:
-        train_step.capture_error_mode = capture_error_mode(axis)
-        if jit:
-            return GraphedStep(train_step, "ppo.make_train_step_shard_map",
-                               train_step.capture_error_mode)
-        return train_step
+    step = train_step_overlap if overlap else train_step
+    step.capture_error_mode = capture_error_mode(shards)
     if jit:
-        return GraphedStep(train_step, "ppo.make_train_step")
-    return train_step
+        name = ("ppo.make_train_step_shard_map" if axis is not None
+                else "ppo.make_train_step" + (
+                    "(overlap=True)" if overlap else "")
+                + ("(mesh=...)" if mesh is not None else ""))
+        step = GraphedStep(step, name, step.capture_error_mode)
+    return (step, rollout_only) if overlap else step
 
 
-def capture_error_mode(axis: Mesh) -> str:
+def capture_error_mode(axis: Mesh = None) -> str:
     """How a step with collectives over ``axis`` is captured: on a process
     group, ``"thread_local"``: the group's own threads (its watchdog) may
     query CUDA while the main thread captures, which the default
-    ``"global"`` mode makes an error in every thread; else ``"global"``."""
-    return "global" if axis.group is None else "thread_local"
+    ``"global"`` mode makes an error in every thread; else (no group, or
+    no axis) ``"global"``."""
+    return "global" if axis is None or axis.group is None else "thread_local"
 
 
 def make_train_step_shard_map(env_params: EnvParams, cfg: PPOConfig, net,

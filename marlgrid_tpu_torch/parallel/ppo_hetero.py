@@ -43,7 +43,7 @@ from ..models import ActorCritic
 from ..vector import obs_groups
 from .graph import GraphedStep
 from .ppo import (PPOConfig, _stack_states, block_size, episode_metrics,
-                  make_optimizer, obs_blocks, ppo_terms, rich_aux,
+                  make_optimizer, obs_blocks, pool_size, ppo_terms, rich_aux,
                   run_epochs, step_labels)
 
 _LABELS = ("act", "logp", "val", "adv", "ret")
@@ -174,7 +174,7 @@ def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
     if torsos is None:
         torsos = ["mlp"] * len(groups)
     B, T = cfg.n_envs, cfg.rollout_len
-    K = max(k for k in range(1, min(cfg.board_pool, B) + 1) if B % k == 0)
+    K = pool_size(cfg, B)
     perm = [i for idxs, _ in groups for i in idxs]
     inv = const(sorted(range(len(perm)), key=perm.__getitem__), torch.int64,
                 dev)
@@ -206,7 +206,7 @@ def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
         ks = rng.split(key)
         key, fk = ks[0], ks[1]
         with record_function("rollout.fresh_pool"):
-            fresh_b = step_mod.fresh_pool_tiled(env_params, fk, K, B)
+            pool = step_mod.fresh_pool(env_params, fk, K)
         names = ("act", "logp", "val", "rew", "done", "ep_ret", "ep_len",
                  "ep_cyc")
         steps = {k: [] for k in names}
@@ -225,7 +225,7 @@ def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
                         -1, a[..., None])[..., 0])
                 act = rows(acts)
             with record_function("rollout.env_step"):
-                fresh_t = step_mod.rotate_fresh_batch(fresh_b, t)
+                fresh_t = step_mod.fresh_pool_rows(pool, t, 0, B)
                 stepped, rew, done, info = \
                     step_mod.step_autoreset_with_fresh_batch(
                         env_params, env_state, act.T, fresh_t, salt=t)

@@ -32,6 +32,9 @@ changes nothing: the cell loop is a Python loop.
 ``make_train_step_rnn_shard_map`` is the explicit-collective variant over
 the ranks of a ``parallel/mesh.py`` Mesh (encode only, as in JAX): each rank
 trains on its envs and its slice of the carry, which no collective touches.
+``make_train_step_rnn(..., mesh=...)`` is the JAX GSPMD step on both paths:
+the ranks compute the unsharded step of the global batch together, each
+keeping its slice of the carry through the rollout.
 """
 from __future__ import annotations
 
@@ -46,11 +49,11 @@ from ..core.state import EnvParams
 from ..device import resolve
 from ..models import RecurrentActorCritic
 from .graph import GraphedStep
-from .mesh import Mesh
-from .ppo import (PPOConfig, _stack_states, aux_dim, capture_error_mode,
-                  episode_metrics, local_batch, make_optimizer, multi_step,
-                  ppo_loss, rich_aux, run_epochs, sample_actions,
-                  shuffled_blocks, step_labels)
+from .mesh import Mesh, gather_env
+from .ppo import (PPOConfig, Share, _stack_states, aux_dim,
+                  capture_error_mode, data_axis, episode_metrics, local_batch,
+                  make_optimizer, multi_step, pool_size, ppo_loss, rich_aux,
+                  run_epochs, sample_actions, shuffled_blocks, step_labels)
 
 _LABELS = ("act", "logp", "val", "adv", "ret")
 
@@ -161,7 +164,7 @@ def init_state_rnn(env_params: EnvParams, cfg: PPOConfig, generator=None,
 
 
 def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
-                     device="cuda", axis: Mesh = None):
+                     device="cuda", axis: Mesh = None, mesh: Mesh = None):
     """Build ``rollout(env_state, h, key) -> (env_state, h, key, traj, h0s,
     last_value)``, the JAX ``rollout`` of ``make_train_step_rnn`` (one
     device).
@@ -177,19 +180,23 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
     ``record_function`` labels. ``axis``: on this rank's B = n_envs / D
     envs and carry, with ``ppo.make_rollout``'s three changes (the rank
     folded into the fresh-board key, per-env action keys from the global
-    env index, the global env offset).
+    env index, the global env offset). ``mesh``: on this rank's B envs and
+    carry, with ``ppo.make_rollout``'s mesh changes (this rank's rows of
+    the unsharded rollout of the global batch); the carry never leaves
+    the rank.
     """
     dev = resolve(device)
     image = _image_path(env_params, cfg, axis)
     rich = env_params.observation_style == "rich"
     pov_params = env_params.replace(observation_style="image")
     s2d = cfg.torso == "cnn_s2d"
-    B, T, N = local_batch(cfg, axis), cfg.rollout_len, env_params.n_agents
+    shards = data_axis(axis, mesh)
+    B, T, N = local_batch(cfg, shards), cfg.rollout_len, env_params.n_agents
     Fd = 3 * env_params.view_size ** 2
     L, _ = _windows(cfg)
-    # board-pool size: the largest divisor of B not above cfg.board_pool
-    K = max(k for k in range(1, min(cfg.board_pool, B) + 1) if B % k == 0)
-    offset = 0 if axis is None else axis.rank * B
+    K = pool_size(cfg, cfg.n_envs if mesh is not None else B)
+    offset = 0 if shards is None else shards.rank * B
+    pool_offset = offset if mesh is not None else 0
     mask = _mask_carry_env0 if image else mask_carry_env1
 
     def obs_of(state):
@@ -211,7 +218,7 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
         if axis is not None:
             fk = rng.fold_in(fk, axis.rank)
         with record_function("rollout.fresh_pool"):
-            fresh_b = step_mod.fresh_pool_tiled(env_params, fk, K, B)
+            pool = step_mod.fresh_pool(env_params, fk, K)
         names = ("obs", "act", "logp", "val", "rew", "done", "ep_ret",
                  "ep_len", "ep_cyc")
         steps = {k: [] for k in names}
@@ -224,11 +231,12 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
             with record_function("rollout.sample"):
                 ks = rng.split(key)
                 key, ak = ks[0], ks[1]
-                a = sample_actions(ak, logits, axis, B, 0 if image else 1)
+                a = sample_actions(ak, logits, axis, B, 0 if image else 1,
+                                   mesh)
                 logp_a = F.log_softmax(logits, -1).gather(
                     -1, a[..., None])[..., 0]
             with record_function("rollout.env_step"):
-                fresh_t = step_mod.rotate_fresh_batch(fresh_b, t)
+                fresh_t = step_mod.fresh_pool_rows(pool, t, pool_offset, B)
                 stepped, rew, done, info = \
                     step_mod.step_autoreset_with_fresh_batch(
                         env_params, env_state, a if image else a.T,
@@ -254,7 +262,7 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
 
 
 def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
-                    device="cuda", axis: Mesh = None):
+                    device="cuda", axis: Mesh = None, mesh: Mesh = None):
     """Build ``update(traj, h0s, last_value, key) -> metrics``, the update
     half of the JAX ``make_train_step_rnn``: GAE on (T, N*B) (encode) or
     (T, B*N) (images), the trajectory cut into G = W * (B // c) sequence
@@ -273,14 +281,22 @@ def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     ``update.forward``, ``update.cell`` (the cell loop), ``update.backward``,
     ``update.all_reduce`` and ``update.optimizer``. ``axis``: on this
     rank's blocks, with the advantage statistics and the gradients over the
-    data axis (``ppo.ppo_loss``, ``ppo.run_epochs``).
+    data axis (``ppo.ppo_loss``, ``ppo.run_epochs``). ``mesh``: the
+    unsharded update of the global batch, as ``ppo.make_update``'s mesh
+    path computes it: the rank's trajectory, labels and window-entry
+    carries gathered in global env order (``update.all_gather``), the
+    global sequence blocks (c from the global B), and each minibatch's
+    blocks split over the ranks (``ppo.Share``), its gradients ``psum``'d.
     """
     dev = resolve(device)
     image = _image_path(env_params, cfg, axis)
     rich = env_params.observation_style == "rich"
     pov_params = env_params.replace(observation_style="image")
     s2d = cfg.torso == "cnn_s2d"
-    B, N = local_batch(cfg, axis), env_params.n_agents
+    shards = data_axis(axis, mesh)
+    # the blocks are cut from the global trajectory under a mesh
+    B = cfg.n_envs if mesh is not None else local_batch(cfg, shards)
+    N = env_params.n_agents
     Fd = 3 * env_params.view_size ** 2
     L, W = _windows(cfg)
     c = sequence_block_size(B, W, cfg.n_minibatches, image)
@@ -292,10 +308,23 @@ def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     used = (G // cfg.n_minibatches) * cfg.n_minibatches
     params = [p for p in net.parameters() if p.requires_grad]
     dtype = cfg.dtype
+    share, reduce = None, None if axis is None else axis.pmean
+    if mesh is not None:
+        # loss terms (L, mb, N, c) on encode, (L, mb, c, N) on images
+        share = Share(mesh, used // cfg.n_minibatches, L * c * N,
+                      lambda w: w[None, :, None, None], dev)
+        reduce = mesh.psum
 
     def blocks(traj, h0s, last_value):
-        """GAE, then {name: (G, ...)} sequence blocks."""
+        """GAE, then {name: (G, ...)} sequence blocks (under a mesh, of the
+        global trajectory, gathered from every rank first)."""
         per_step = step_labels(traj, last_value, cfg, image)
+        obs, done = traj["obs"], traj["done"]
+        if mesh is not None:
+            with record_function("update.all_gather"):
+                per_step, obs, done, h0s = gather_env(mesh, [
+                    (per_step, 1 if image else 2), (obs, 1 if image else 3),
+                    (done, 1), (h0s, 1 if image else 2)])
         if image:
             def state_blk(x):                 # (T, B, ...) -> (G, L, c, ...)
                 r = x.reshape((W, L, Gc, c) + x.shape[2:])
@@ -303,19 +332,19 @@ def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
                 return r.permute(perm).reshape((G, L, c) + x.shape[2:])
 
             out = {k: state_blk(v) for k, v in per_step.items()}
-            out["obs"] = traj["obs"].map(state_blk)
+            out["obs"] = obs.map(state_blk)
             # h0s leaves (W, B, N, H): W and Gc adjacent
             out["h0"] = map_carry(
                 lambda x: x.reshape((G, c) + x.shape[2:]), h0s)
         else:
             out = {k: v.reshape(W, L, N, Gc, c).permute(0, 3, 1, 2, 4)
                    .reshape(G, L, N, c) for k, v in per_step.items()}
-            out["obs"] = traj["obs"].reshape(W, L, N, Fd, Gc, c).permute(
+            out["obs"] = obs.reshape(W, L, N, Fd, Gc, c).permute(
                 0, 4, 1, 2, 3, 5).reshape(G, L, N, Fd, c)
             out["h0"] = map_carry(lambda x: x.reshape(
                 W, N, Gc, c, -1).permute(0, 2, 1, 3, 4).reshape(G, N, c, -1),
                 h0s)
-        out["done"] = traj["done"].reshape(W, L, Gc, c).permute(
+        out["done"] = done.reshape(W, L, Gc, c).permute(
             0, 2, 1, 3).reshape(G, L, c)
         return out
 
@@ -354,7 +383,7 @@ def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
             logits, value = net.heads(torch.stack(ys))
             # labels arrive (mb, L, ...): to the logits' (L, mb, ...)
             lab = {k: batch[k].transpose(0, 1) for k in _LABELS}
-            return ppo_loss(logits, value, lab, cfg, axis)
+            return ppo_loss(logits, value, lab, cfg, axis, share)
 
     def update(traj, h0s, last_value, key):
         with record_function("update.gae"):
@@ -366,14 +395,15 @@ def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
                 f"{G - used} block(s) (~{100 * (G - used) / G:.1f}% of each "
                 f"epoch's data). Pick n_minibatches dividing {G} to use all "
                 f"of it.", stacklevel=3)
-        return run_epochs(shuffled_blocks(blocked, G, used, cfg), loss_fn,
-                          params, optimizer, key, cfg, dev, axis)
+        return run_epochs(shuffled_blocks(blocked, G, used, cfg, share),
+                          loss_fn, params, optimizer, key, cfg, dev, reduce)
 
     return update
 
 
 def make_train_step_rnn(env_params: EnvParams, cfg: PPOConfig, net,
-                        optimizer, device="cuda", jit=True, axis: Mesh = None):
+                        optimizer, device="cuda", jit=True, axis: Mesh = None,
+                        mesh: Mesh = None):
     """Build ``train_step(env_state, h, key) -> (env_state, h, key,
     metrics)``, the JAX ``make_train_step_rnn`` on one device (encode/mlp,
     or image/rich with a pixels torso): :func:`make_rollout_rnn` then
@@ -385,28 +415,38 @@ def make_train_step_rnn(env_params: EnvParams, cfg: PPOConfig, net,
     ``ppo.make_train_step``: True (the default) gives one CUDA graph of the
     whole step on the card, its returned tensors donated; False the raw
     eager step. ``axis``: the per-rank step of
-    :func:`make_train_step_rnn_shard_map`."""
+    :func:`make_train_step_rnn_shard_map`. ``mesh``: the JAX ``mesh=``
+    (GSPMD) step, on the encode and the image/rich paths alike: this
+    rank's part of the step over the global batch, as in
+    ``ppo.make_train_step``, on its envs (``init_env_batch(...,
+    mesh=mesh)``) and its slice of the carry (:func:`carry_env_dim`),
+    which stays on the rank; truncated BPTT works under it."""
+    shards = data_axis(axis, mesh)
     dev = resolve(device)
-    rollout = make_rollout_rnn(env_params, cfg, net, device=dev, axis=axis)
+    rollout = make_rollout_rnn(env_params, cfg, net, device=dev, axis=axis,
+                               mesh=mesh)
     update = make_update_rnn(env_params, cfg, net, optimizer, device=dev,
-                             axis=axis)
+                             axis=axis, mesh=mesh)
 
     def train_step(env_state, h, key):
         env_state, h, key, traj, h0s, last_value = rollout(env_state, h, key)
         metrics = episode_metrics(update(traj, h0s, last_value, key), traj,
-                                  axis)
+                                  shards)
         return env_state, h, rng.fold_in(key, 1), metrics
 
-    if axis is not None:
-        train_step.capture_error_mode = capture_error_mode(axis)
-        if jit:
-            return GraphedStep(train_step,
-                               "ppo_rnn.make_train_step_rnn_shard_map",
-                               train_step.capture_error_mode)
-        return train_step
+    train_step.capture_error_mode = capture_error_mode(shards)
     if jit:
-        return GraphedStep(train_step, "ppo_rnn.make_train_step_rnn")
+        name = ("ppo_rnn.make_train_step_rnn_shard_map" if axis is not None
+                else "ppo_rnn.make_train_step_rnn"
+                + ("(mesh=...)" if mesh is not None else ""))
+        return GraphedStep(train_step, name, train_step.capture_error_mode)
     return train_step
+
+
+def carry_env_dim(env_params: EnvParams, cfg: PPOConfig) -> int:
+    """The env axis of a carry leaf: 1 for the encode path's (N, B, H), 0
+    for the image path's (B, N, H); a rank holds its envs' slice of it."""
+    return 0 if _image_path(env_params, cfg) else 1
 
 
 def make_train_step_rnn_shard_map(env_params: EnvParams, cfg: PPOConfig,

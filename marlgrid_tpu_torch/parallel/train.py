@@ -15,9 +15,10 @@ Usage:
         [--rnn gru|lstm [--bptt-window L]] \
         [--agent-config '[{"view_size":7},{"view_size":5}]'] [--device cpu]
 
-    # data-parallel over ranks (explicit collectives), one process a card:
+    # data-parallel over ranks, one process a card (the sharded default
+    # path; --shard-map for the explicit-collective step):
     torchrun --nproc-per-node K -m marlgrid_tpu_torch.parallel.train \
-        --distributed --shard-map [--rnn gru] ...
+        --distributed [--shard-map] [--rnn gru] ...
 
 ``MARLGRID_TPU_EMBED_V2=1`` in the environment routes the mlp torso's embed
 through the plane-major kernels (K5f, K5b), as it does for the JAX CLI.
@@ -38,17 +39,24 @@ JAX CLI's key plumbing. Metrics go out as JSONL, one line per logged
 iteration, with the JAX CLI's fields; checkpoints are ``utils/checkpoint.py``
 directories with the run's ``config.json``.
 
+``--distributed`` makes one rank per process (``mesh.init_distributed``:
+NCCL on the card, gloo on the CPU; ``--coordinator host:port`` with
+``--num-processes`` and ``--process-id``, or torchrun's variables), and a
+run trains over ``parallel/mesh.py``'s data axis of all of them, as the
+JAX CLI trains over its mesh: feedforward (``--overlap`` too) and
+recurrent (image and rich obs too) on the sharded default path,
+``ppo.make_train_step(mesh=...)`` and ``ppo_rnn.make_train_step_rnn(
+mesh=...)``, which computes the unsharded step of the global batch.
 ``--shard-map`` trains with ``ppo.make_train_step_shard_map`` (with
-``--rnn``, ``ppo_rnn.make_train_step_rnn_shard_map``) over
-``parallel/mesh.py``'s data axis: D = 1 in one process, or one rank per
-process under ``--distributed`` (``mesh.init_distributed``: NCCL on the
-card, gloo on the CPU; ``--coordinator host:port`` with ``--num-processes``
-and ``--process-id``, or torchrun's variables). Every rank draws the
-weights from ``--seed`` and takes rank 0's, with its optimizer state,
-through ``mesh.broadcast_from``; each rank logs the same metrics to its own
-``--metrics``; rank 0 writes the checkpoints, the env state (and ``h``)
-gathered in global env order, so a checkpoint holds the global batch and
-``--resume`` slices it for any D that divides ``--envs``.
+``--rnn``, ``ppo_rnn.make_train_step_rnn_shard_map``) instead: D = 1 in
+one process, or one rank per process under ``--distributed``. On either,
+every rank draws the weights from ``--seed`` and takes rank 0's, with its
+optimizer state, through ``mesh.broadcast_from`` (the counterpart of the
+JAX CLI's replicated ``device_put``); each rank logs the same metrics to
+its own ``--metrics``; rank 0 writes the checkpoints, the env state (and
+``h``) gathered in global env order, so a checkpoint holds the global
+batch and ``--resume`` slices it for any D that divides ``--envs``. A
+hetero population (``--agent-config``) trains in one process.
 """
 from __future__ import annotations
 
@@ -90,10 +98,10 @@ def world_size(args) -> int:
 #: with no path in the port yet
 LATER = (
     (lambda a: a.model_shards != 1, "--model-shards > 1",
-     "Slice G2 (the 'model' axis)"),
-    (lambda a: world_size(a) > 1 and not a.shard_map,
-     "more than one process without --shard-map",
-     "Slice G2 (the sharded default path)"),
+     "Slice G2b (the 'model' axis)"),
+    (lambda a: world_size(a) > 1 and a.agent_config and not a.shard_map,
+     "--agent-config with more than one process",
+     "Slice G2b (the hetero trainers' sharded path)"),
 )
 
 #: the calls that --profile-dir traces (0-based), as the JAX CLI does
@@ -352,15 +360,13 @@ def init(ep: EnvParams, cfg, generator, dev):
     return ppo.init_state(ep, cfg, generator, device=dev) + (None,)
 
 
-def make_step(ep: EnvParams, cfg, net, opt, dev, jit=True, mesh=None):
+def make_step(ep: EnvParams, cfg, net, opt, dev, jit=True, **shards):
     """The train step of the trainer that ``ep`` and ``cfg`` select
     (without ``--overlap``): graphed on the card with ``jit=True``, the raw
-    eager step with ``jit=False``; with a ``mesh`` (``--shard-map``), the
-    explicit-collective step on this rank's envs."""
-    if mesh is not None:
-        make = (ppo_rnn.make_train_step_rnn_shard_map if cfg.rnn
-                else ppo.make_train_step_shard_map)
-        return make(ep, cfg, net, opt, mesh, jit=jit, device=dev)
+    eager step with ``jit=False``. ``shards``: this rank's step on its envs
+    over a Mesh, ``mesh=`` for the sharded default path or ``axis=`` for
+    ``--shard-map``'s explicit-collective step (``make_train_step``'s
+    keywords)."""
     if ep.has_hetero_obs and cfg.rnn:
         return ppo_hetero_rnn.make_train_step_hetero_rnn(ep, cfg, net, opt,
                                                          device=dev, jit=jit)
@@ -370,40 +376,42 @@ def make_step(ep: EnvParams, cfg, net, opt, dev, jit=True, mesh=None):
         return make(ep, cfg, net, opt, device=dev, jit=jit)
     if cfg.rnn:
         return ppo_rnn.make_train_step_rnn(ep, cfg, net, opt, device=dev,
-                                           jit=jit)
-    return ppo.make_train_step(ep, cfg, net, opt, device=dev, jit=jit)
+                                           jit=jit, **shards)
+    return ppo.make_train_step(ep, cfg, net, opt, device=dev, jit=jit,
+                               **shards)
 
 
 def make_call(ep: EnvParams, cfg, net, opt, dev, spc: int, overlap=False,
-              mesh=None):
+              **shards):
     """``(step, prime)``: what one train call runs, wired as the JAX CLI
     wires it. ``spc`` steps per call: the graphed step (``jit=True``) for
     one, ``ppo.multi_step`` (``ppo_rnn.multi_step_rnn`` for the recurrent
     trainers, ``ppo.multi_step_overlap`` with ``overlap``) of the raw step
     for more. ``prime`` is the overlap step's priming rollout, else
-    None."""
+    None. ``shards``: :func:`make_step`'s."""
     if overlap:
         raw, prime = ppo.make_train_step(ep, cfg, net, opt, device=dev,
-                                         overlap=True, jit=spc == 1)
+                                         overlap=True, jit=spc == 1,
+                                         **shards)
         return (ppo.multi_step_overlap(raw, spc) if spc > 1 else raw), prime
     if spc == 1:
-        return make_step(ep, cfg, net, opt, dev, mesh=mesh), None
+        return make_step(ep, cfg, net, opt, dev, **shards), None
     multi = ppo_rnn.multi_step_rnn if cfg.rnn else ppo.multi_step
-    return multi(make_step(ep, cfg, net, opt, dev, jit=False, mesh=mesh),
+    return multi(make_step(ep, cfg, net, opt, dev, jit=False, **shards),
                  spc), None
 
 
 def make_raw_call(ep: EnvParams, cfg, net, opt, dev, spc: int,
-                  overlap=False, mesh=None):
+                  overlap=False, **shards):
     """The eager counterpart of :func:`make_call`'s step: ``spc`` raw steps
     (``jit=False``) per call, what ``--profile-dir`` traces. A graph replay
     runs the same kernels but carries no ``record_function`` stage labels,
     so a trace of it could not attribute them to stages."""
     if overlap:
         raw = ppo.make_train_step(ep, cfg, net, opt, device=dev, overlap=True,
-                                  jit=False)[0]
+                                  jit=False, **shards)[0]
     else:
-        raw = make_step(ep, cfg, net, opt, dev, jit=False, mesh=mesh)
+        raw = make_step(ep, cfg, net, opt, dev, jit=False, **shards)
 
     def call(*carry):
         for _ in range(spc):
@@ -464,12 +472,21 @@ def _carry_map(fn, h):
     return ppo_rnn.map_carry(fn, h)
 
 
-def local_carry(mesh, h):
-    """This rank's slice of a global carry (env axis 1: the encode path's
-    (N, B, H) leaves, the only recurrent carry ``--shard-map`` takes)."""
+def carry_dim(ep: EnvParams, cfg) -> int:
+    """The env axis of the run's carry leaves: 0 for the recurrent image
+    path's (B, N, H), 1 for the encode path's (N, B, H) and for a hetero
+    population's (n_g, B, H)."""
+    if cfg.rnn and not ep.has_hetero_obs:
+        return ppo_rnn.carry_env_dim(ep, cfg)
+    return 1
+
+
+def local_carry(mesh, h, dim: int = 1):
+    """This rank's slice of a global carry along its env axis ``dim``
+    (:func:`carry_dim`)."""
     if mesh is None or h is None:
         return h
-    return _carry_map(lambda t: mesh_mod.shard(mesh, t, 1), h)
+    return _carry_map(lambda t: mesh_mod.shard(mesh, t, dim), h)
 
 
 def main(argv=None):
@@ -490,11 +507,16 @@ def main(argv=None):
 
 def train(args, dev):
     ep, cfg = build(args)
-    mesh = mesh_mod.make_mesh(device=dev) if args.shard_map else None
+    # the data axis: --shard-map's, or every rank of --distributed (the
+    # sharded default path; a hetero population trains in one process)
+    sharded = args.shard_map or (args.distributed
+                                 and not ep.has_hetero_obs)
+    mesh = mesh_mod.make_mesh(device=dev) if sharded else None
     key = rng.PRNGKey(args.seed, device=dev)
     gen = torch.Generator().manual_seed(args.seed)
     net, opt, h = init(ep, cfg, gen, dev)
-    h = local_carry(mesh, h)
+    hdim = carry_dim(ep, cfg)
+    h = local_carry(mesh, h, hdim)
     env_state = ppo.init_env_batch(ep, cfg.n_envs, rng.fold_in(key, 1),
                                    stagger=not args.no_stagger, device=dev,
                                    mesh=mesh)
@@ -516,7 +538,7 @@ def train(args, dev):
             key = tree["key"].to(dev)
             if h is not None and "h" in tree:
                 h = local_carry(mesh, _carry_map(lambda t: t.to(dev),
-                                                 tree["h"]))
+                                                 tree["h"]), hdim)
         else:
             print("warning: the checkpoint holds no env state and key"
                   + (" or carry" if h is not None else "")
@@ -529,10 +551,15 @@ def train(args, dev):
 
     spc = max(1, args.steps_per_call)
     prev = None
-    step, prime = make_call(ep, cfg, net, opt, dev, spc, args.overlap, mesh)
+    # make_train_step's keyword picks the path: axis= for --shard-map's
+    # explicit collectives, mesh= for the sharded default path
+    shards = {} if mesh is None else {
+        "axis" if args.shard_map else "mesh": mesh}
+    step, prime = make_call(ep, cfg, net, opt, dev, spc, args.overlap,
+                            **shards)
     if prime is not None:
         env_state, prev, key = prime(env_state, key)
-    raw = (make_raw_call(ep, cfg, net, opt, dev, spc, args.overlap, mesh)
+    raw = (make_raw_call(ep, cfg, net, opt, dev, spc, args.overlap, **shards)
            if args.profile_dir else None)
     prof = None
     log = MetricsLogger(args.metrics)
@@ -587,7 +614,7 @@ def train(args, dev):
                                       for f in FIELDS},
                            key=key.clone())
             if h is not None:
-                payload["h"] = _carry_map(lambda t: whole(t, 1), h)
+                payload["h"] = _carry_map(lambda t: whole(t, hdim), h)
             if mesh is None or mesh.rank == 0:
                 ckpt_mod.save(args.checkpoint_dir, payload, step=it + 1,
                               config=run_config)

@@ -95,7 +95,8 @@ def test_select_tie_rule():
 @pytest.mark.parametrize("jparams", [LADDER[4], LADDER[5]])  # goal_cycle,
 def test_autoreset_variants(jparams):                          # respawn
     """step_autoreset_batch, step_autoreset_with_fresh (one given board,
-    env_offset), step_autoreset_with_fresh_batch (pool K=4, env_offset,
+    env_offset), step_autoreset_with_fresh_batch (pool K=4, the port's
+    ``fresh_pool`` rows against JAX's tiled and rotated pool, env_offset,
     salt) and stagger_step_counts over a run long enough for every env to
     finish at least once."""
     params = _ported(jparams)
@@ -112,14 +113,15 @@ def test_autoreset_variants(jparams):                          # respawn
     ts0 = step_mod.stagger_step_counts(grid_gen.reset(params, _t(jkeys)),
                                        params.max_steps)
     assert_state_equal(js0, ts0, "stagger")
-    tfresh = step_mod.fresh_pool_tiled(params, _t(fk), 4, B)
-    assert_state_equal(jfresh, tfresh, "pool")
+    tpool = step_mod.fresh_pool(params, _t(fk), 4)
+    assert_state_equal(jfresh, step_mod.fresh_pool_rows(tpool, 0, 0, B),
+                       "pool")
     acts = np.random.default_rng(1).integers(
         0, 7, size=(jparams.max_steps + 2, B, jparams.n_agents),
         dtype=np.int32)
 
     jone = jax.tree.map(lambda x: x[1], jfresh)       # one given board
-    tone = tfresh.map(lambda x: x[1:2])
+    tone = tpool.map(lambda x: x[1:2])
 
     @jax.jit
     def jall(s1, s2, s3, a, t):
@@ -139,7 +141,7 @@ def test_autoreset_variants(jparams):                          # respawn
         a = torch.as_tensor(acts[t])
         t1, *tr1 = step_mod.step_autoreset_batch(params, t1, a)
         t2, *tr2 = step_mod.step_autoreset_with_fresh_batch(
-            params, t2, a, step_mod.rotate_fresh_batch(tfresh, t),
+            params, t2, a, step_mod.fresh_pool_rows(tpool, t, 0, B),
             env_offset=16, salt=t)
         t3, *tr3 = step_mod.step_autoreset_with_fresh(params, t3, a, tone,
                                                       env_offset=3)
@@ -177,3 +179,27 @@ def test_vector_env_and_state_round_trip():
         lambda s, a: jstep.step_autoreset_batch(jparams, s, a))(
             js, jnp.asarray(acts))
     assert_state_equal(js2, state2, "VectorEnv.step")
+
+
+@pytest.mark.parametrize("K,D", [(4, 2), (32, 2), (16, 4)],
+                         ids=["K-divides-share", "K-over-share",
+                              "K-over-share-4"])
+def test_fresh_pool_rows_of_a_rank(K, D):
+    """A rank's rows of the global fresh pool (``fresh_pool`` +
+    ``fresh_pool_rows``) are bit-equal to the same rows of JAX's
+    ``rotate_fresh_batch(fresh_pool_tiled(..., K, B), t)`` over the global
+    batch B = 32, at every rank of D and several t, whether K divides a
+    rank's B / D envs or exceeds them."""
+    jparams = LADDER[-1].values[0]
+    params = _ported(jparams)
+    Bg, fk = 32, jax.random.PRNGKey(5)
+    jtiled = jax.jit(lambda k: jstep.fresh_pool_tiled(jparams, k, K, Bg))(fk)
+    pool = step_mod.fresh_pool(params, _t(fk), K)
+    assert pool.batch_size == K
+    B = Bg // D
+    for t in (0, 1, 7, 40):
+        jrot = jstep.rotate_fresh_batch(jtiled, t)
+        for r in range(D):
+            assert_state_equal(
+                jax.tree.map(lambda x: x[r * B:(r + 1) * B], jrot),
+                step_mod.fresh_pool_rows(pool, t, r * B, B), f"t={t} r={r}")

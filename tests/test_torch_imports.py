@@ -79,6 +79,20 @@ def test_entry_points_default_to_cuda(monkeypatch):
         lambda: ppo.make_train_step_shard_map(ep, cfg, None, None, cpu_mesh),
         lambda: ppo_rnn.make_train_step_rnn_shard_map(ep, rcfg, None, None,
                                                       cpu_mesh),
+        lambda: ppo.make_train_step(ep, cfg, None, None, mesh=cpu_mesh),
+        lambda: ppo.make_train_step(ep, cfg, None, None, overlap=True,
+                                    mesh=cpu_mesh),
+        lambda: ppo.make_rollout(ep, cfg, None, mesh=cpu_mesh),
+        lambda: ppo.make_update(ep, cfg, None, None, mesh=cpu_mesh),
+        lambda: ppo_rnn.make_train_step_rnn(ep, rcfg, None, None,
+                                            mesh=cpu_mesh),
+        lambda: ppo_rnn.make_rollout_rnn(ep, rcfg, None, mesh=cpu_mesh),
+        lambda: ppo_rnn.make_update_rnn(ep, rcfg, None, None,
+                                        mesh=cpu_mesh),
+        lambda: train.main(["--scenario", "empty", "--agents", "1", "--envs",
+                            "4", "--iters", "1", "--distributed",
+                            "--num-processes", "1", "--process-id", "0",
+                            "--coordinator", "localhost:1"]),
         lambda: train.main(["--scenario", "empty", "--agents", "1", "--envs",
                             "4", "--iters", "1", "--shard-map"]),
         lambda: train.main(["--scenario", "empty", "--agents", "1", "--envs",

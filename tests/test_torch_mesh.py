@@ -2,7 +2,8 @@
 
 Two gloo ranks (``tests/torch_dist_worker.py``, which imports no JAX):
 ``make_mesh``, ``host_local_slice``, ``psum``/``pmean`` (numpy's sum and
-sum / D), ``broadcast_from``, ``gather`` of ``shard``, and each rank's
+sum / D), ``broadcast_from``, ``gather`` of ``shard``, ``Mesh.all_gather``
+(one call for tensors of four dtypes on three env axes), and each rank's
 slice of ``ppo.init_env_batch`` bit-equal to the rows of the whole batch,
 the stagger included. In one process: the identity collectives at D = 1
 and the JAX package's assert text. And the batched-key ``categorical``
@@ -54,6 +55,14 @@ def test_mesh_and_collectives_on_two_ranks(ranks):
         np.testing.assert_array_equal(r["broadcast"].numpy(), np.zeros(4))
         np.testing.assert_array_equal(r["gathered"].numpy(),
                                       np.arange(12).reshape(2, 6))
+        parts, dims = zip(*[torch_dist_worker.gather_parts(q)
+                            for q in range(2)])
+        # one all_gather call each: gather's and all_gather's
+        assert r["all_gathers"] == 2
+        for i, got in enumerate(r["all_gathered"]):
+            want = np.concatenate([p[i].numpy() for p in parts], dims[0][i])
+            assert got.dtype == parts[0][i].dtype
+            np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_init_env_batch_slices_are_rows_of_the_whole_batch(ranks):
@@ -81,13 +90,15 @@ def test_identity_collectives_without_a_group():
     assert mesh_mod.gather(mesh, x) is x
     assert mesh_mod.host_local_slice(mesh, 8) == slice(0, 8)
     assert torch.equal(mesh_mod.shard(mesh, y), y)
-    assert mesh.all_reduces == 0
+    assert all(a is b for a, b in zip(mesh.all_gather([x, y], [0, 0]),
+                                      (x, y)))
+    assert mesh.all_reduces == mesh.all_gathers == 0
 
 
 def test_make_mesh_refusals():
     with pytest.raises(AssertionError, match=r"^2x1 mesh != 1 devices$"):
         mesh_mod.make_mesh(n_data=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice G2"):
+    with pytest.raises(NotImplementedError, match="Slice G2b"):
         mesh_mod.make_mesh(n_model=2, device="cpu")
     with pytest.raises(ValueError, match="process group"):
         mesh_mod.Mesh(2, 0, None, torch.device("cpu"))

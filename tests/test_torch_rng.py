@@ -110,3 +110,49 @@ def test_categorical(seed):
         rng.gumbel(rng.PRNGKey(seed, device="cpu"), logits.shape).numpy(),
         np.asarray(jax.random.gumbel(jk, logits.shape)), rtol=1e-6,
         atol=1e-6)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("env_axis", [0, 1])
+def test_sliced_draws(D, env_axis):
+    """A rank's part of a global draw, for both logits layouts (env axis 1
+    of feature-major (N, B, A) logits: the rank's flat indices strided;
+    env axis 0 of (B, N, A): one contiguous range), at every offset of D
+    ranks: ``random_bits``, ``uniform`` and ``gumbel`` with ``part`` are
+    the slices of JAX's draws over the global shape (bits and uniforms
+    bit-equal, gumbel to float32 rounding of its two logs), and
+    ``categorical_slice`` is bit-equal to the same rows of the port's
+    global ``categorical`` and of ``jax.random.categorical`` (no sample
+    near a tie)."""
+    shape = [4, 7]
+    shape.insert(env_axis, 64)
+    shape = tuple(shape)
+    jk = jax.random.PRNGKey(D * 10 + env_axis)
+    k = _t(jk)
+    logits = np.random.default_rng(D).normal(size=shape).astype(np.float32)
+    whole = rng.categorical(k, torch.as_tensor(logits)).numpy()
+    jwhole = np.asarray(jax.random.categorical(jk, jnp.asarray(logits)))
+    bits = np.asarray(jax.random.bits(jk, shape, jnp.uint32))
+    unif = np.asarray(jax.random.uniform(jk, shape))
+    gum = np.asarray(jax.random.gumbel(jk, shape))
+    B = shape[env_axis] // D
+    for r in range(D):
+        sl = [slice(None)] * 3
+        sl[env_axis] = slice(r * B, (r + 1) * B)
+        sl = tuple(sl)
+        part = (env_axis, r * B, (r + 1) * B)
+        np.testing.assert_array_equal(rng.random_bits(k, shape, part),
+                                      bits[sl])
+        np.testing.assert_array_equal(rng.uniform(k, shape, part=part),
+                                      unif[sl])
+        np.testing.assert_allclose(rng.gumbel(k, shape, part), gum[sl],
+                                   rtol=1e-6, atol=1e-6)
+        a = rng.categorical_slice(k, torch.as_tensor(logits[sl]), shape[
+            env_axis], r * B, env_axis).numpy()
+        np.testing.assert_array_equal(a, whole[sl[:2]])
+        np.testing.assert_array_equal(a, jwhole[sl[:2]])
+    # the index of a part is made once per shape
+    assert rng.part_counts(shape, part, k.device) is rng.part_counts(
+        shape, part, k.device)
+    with pytest.raises(ValueError, match="outside"):
+        rng.random_bits(k, shape, (env_axis, 0, shape[env_axis] + 1))

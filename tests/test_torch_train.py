@@ -2,9 +2,11 @@
 on the CPU, tiny: its JSONL carries the JAX CLI's fields, its checkpoint's
 config.json holds the PPOConfig the JAX CLI builds from the same flags
 (palettes included), and a flag whose path the port lacks exits with the
-ROADMAP slice that brings it. ``--distributed --shard-map`` trains on two
-gloo ranks, checkpoints the global batch and resumes in one process; the
-JAX CLI's ``--shard-map`` exits are reproduced. ``--torso cnn`` trains
+ROADMAP slice that brings it. ``--distributed`` trains on two gloo ranks,
+on the sharded default path (feedforward, ``--overlap``, recurrent encode
+and image) and with ``--shard-map``, checkpoints the global batch and
+resumes in one process; the JAX CLI's ``--shard-map`` exits are
+reproduced. ``--torso cnn`` trains
 from the row store and evaluates; ``--profile-dir`` writes a trace;
 ``--debug-nans`` raises.
 ``--agent-config`` trains each of the three hetero trainers, checkpoints
@@ -107,7 +109,8 @@ def test_cli_image(tmp_path):
     (["--rnn", "gru", "--agent-config", "[{}]", "--distributed",
       "--num-processes", "2"], "Slice G"),
     (["--agent-config", "[{}]", "--model-shards", "2"], "Slice G"),
-    (["--distributed", "--num-processes", "2"], "Slice G"),
+    (["--overlap", "--agent-config", "[{}]", "--distributed",
+      "--num-processes", "2"], "Slice G"),
     (["--model-shards", "2"], "Slice G"),
     # not a missing slice: the JAX CLI stops at init_state_rnn's assert
     (["--rnn", "gru", "--torso", "cnn"], "mlp feature-major path"),
@@ -119,20 +122,89 @@ def test_unsupported_flag_names_its_slice(flag, slice_):
 
 @pytest.mark.parametrize("flag", [
     ["--model-shards", "2", "--shard-map"],
-    ["--distributed", "--num-processes", "3"],
+    ["--model-shards", "2", "--distributed", "--num-processes", "3"],
     ["--agent-config", '[{"view_size":5},{"view_size":3}]', "--distributed",
      "--num-processes", "2"],
 ], ids=["model-shards", "multi-rank", "multi-rank-hetero"])
 def test_later_refusals_name_slice_g2(flag, monkeypatch):
-    """What stays refused after --shard-map and --distributed came: the
-    'model' axis, and more than one process without --shard-map (the
-    sharded default path, hetero populations included), before any process
-    group is made; torchrun's WORLD_SIZE counts as --num-processes."""
-    with pytest.raises(SystemExit, match="Slice G2"):
+    """What stays refused after the sharded default path came, naming Slice
+    G2b: the 'model' axis, and a hetero population (``--agent-config``)
+    in more than one process, before any process group is made;
+    torchrun's WORLD_SIZE counts as --num-processes."""
+    with pytest.raises(SystemExit, match="Slice G2b"):
         train.main(TINY + flag)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="Slice G2"):
-        train.main(TINY + ["--distributed"])
+    with pytest.raises(SystemExit, match="Slice G2b"):
+        train.main(TINY + ["--distributed", "--agent-config", "[{}]"])
+
+
+#: the JAX CLI's multi-process test config (tests/test_shard_map.py::
+#: _run_train_procs), narrowed
+DIST = ["--device", "cpu", "--scenario", "empty", "--grid-size", "9",
+        "--agents", "2", "--envs", "16", "--rollout", "8", "--max-steps",
+        "20", "--hidden", "16"]
+
+
+def _two_ranks(tmp_path, flags, tag):
+    """Two gloo ranks of the CLI (a ``file://`` coordinator) with
+    ``flags``; each rank's JSONL records."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "marlgrid_tpu_torch.parallel.train"] + flags
+        + ["--distributed", "--coordinator", f"file://{tmp_path}/{tag}store",
+           "--num-processes", "2", "--process-id", str(i), "--metrics",
+           str(tmp_path / f"{tag}{i}.jsonl")],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(2)]
+    for i, p in enumerate(procs):
+        out = p.communicate(timeout=300)[0]
+        assert p.returncode == 0, f"rank {i}:\n{out[-3000:]}"
+    return [[json.loads(line) for line in
+             (tmp_path / f"{tag}{i}.jsonl").read_text().splitlines()]
+            for i in range(2)]
+
+
+@pytest.mark.parametrize("flags,h_shape", [
+    ([], None),
+    (["--overlap"], None),
+    (["--rnn", "gru", "--bptt-window", "4"], (2, 16, 16)),
+    (["--rnn", "gru", "--obs", "image", "--grid-size", "7", "--view-size",
+      "3"], (16, 2, 16)),
+], ids=["feedforward", "overlap", "gru", "gru-image"])
+def test_cli_distributed_default_path(tmp_path, flags, h_shape):
+    """``--distributed`` without ``--shard-map`` in two CPU processes trains
+    on the sharded default path, as the JAX CLI's multi-process run does:
+    both ranks log the same finite metrics over the global batch's
+    env-steps, rank 0's checkpoint holds the global batch (the carry in
+    global env order on its env axis), and ``--resume`` trains on in one
+    process."""
+    from marlgrid_tpu_torch.utils import checkpoint
+
+    ck = tmp_path / "ck"
+    recs = _two_ranks(tmp_path, DIST + flags + [
+        "--iters", "2", "--checkpoint-dir", str(ck), "--checkpoint-every",
+        "2"], "m")
+    assert [r["step"] for r in recs[0]] == [0, 1]
+    for a, b in zip(*recs):
+        assert set(a) == FIELDS and np.isfinite(a["loss"])
+        for k in FIELDS - {"time", "env_steps_per_s", "agent_steps_per_s"}:
+            assert a[k] == b[k], k
+    assert recs[0][-1]["env_steps"] == 2 * 16 * 8
+    tree = checkpoint.restore(ck, map_location="cpu")
+    assert all(v.shape[0] == 16 for v in tree["env_state"].values())
+    assert ("h" in tree) == (h_shape is not None)
+    if h_shape:
+        assert tree["h"].shape == h_shape
+    log = tmp_path / "r.jsonl"
+    train.main(DIST + flags + ["--resume", str(ck), "--iters", "1",
+                               "--metrics", str(log)])
+    rec = json.loads(log.read_text().splitlines()[-1])
+    assert np.isfinite(rec["loss"]) and rec["entropy"] > 0
 
 
 @pytest.mark.parametrize("flag,match", [

@@ -9,14 +9,19 @@ it returns to OUTPUT (every rank writes its own file).
 
 - ``mesh``: ``parallel/mesh.py`` on the group: the mesh's D and rank,
   ``host_local_slice``, ``psum``/``pmean`` of rank-seeded float32 data,
-  ``broadcast_from`` rank 0, ``gather`` of ``shard``, and the rank's slice of
+  ``broadcast_from`` rank 0, ``gather`` of ``shard``, ``Mesh.all_gather`` of
+  :func:`gather_parts` (four dtypes, three env axes), and the rank's slice of
   ``ppo.init_env_batch``.
-- ``train``: for each run of ``runs``, a feedforward
-  (``ppo.make_train_step_shard_map``) or recurrent
-  (``ppo_rnn.make_train_step_rnn_shard_map``) run from the weights and keys
-  given (rank 0's, through ``broadcast_from``: the other ranks start from
-  other weights), with the first minibatch's gradients as the optimizer
-  sees them (after the all-reduce and the clip) and a snapshot after every
+- ``train``: for each run of ``runs``, a feedforward or recurrent run from
+  the weights and keys given (rank 0's, through ``broadcast_from``: the
+  other ranks start from other weights), on the run's ``path``:
+  ``"shard_map"`` (``ppo.make_train_step_shard_map``,
+  ``ppo_rnn.make_train_step_rnn_shard_map``), or ``"mesh"``, the sharded
+  default path (``ppo.make_train_step(mesh=...)``, with ``overlap`` too,
+  and ``ppo_rnn.make_train_step_rnn(mesh=...)``). It returns the first
+  minibatch's gradients as the optimizer sees them (after the all-reduce
+  and the clip), the sample count of every loss call (the logits' leading
+  shape), the collectives the steps called, and a snapshot after every
   step: the weights, the env state and carry gathered in global env order,
   the key and the metrics.
 """
@@ -31,6 +36,17 @@ import torch.distributed as dist
 from marlgrid_tpu_torch.core.state import EnvParams, FIELDS, state_to_numpy
 from marlgrid_tpu_torch.parallel import mesh as mesh_mod
 from marlgrid_tpu_torch.parallel import ppo, ppo_rnn
+
+
+def gather_parts(rank):
+    """Rank ``rank``'s tensors for ``Mesh.all_gather`` and their env axes:
+    int64 on axis 1, bool on 0, uint8 on 2, float32 on 0 (byte sizes off
+    the 8-byte grid)."""
+    return ([torch.arange(6, dtype=torch.int64).reshape(2, 3) + 100 * rank,
+             torch.tensor([True, rank == 1, False]),
+             torch.full((1, 2, 5), rank + 1, dtype=torch.uint8),
+             torch.tensor([0.5 + rank, -rank], dtype=torch.float32)],
+            [1, 0, 2, 0])
 
 
 def job_mesh(args):
@@ -52,11 +68,26 @@ def job_mesh(args):
                 broadcast=mine,
                 gathered=mesh_mod.gather(mesh, mesh_mod.shard(mesh, rows, 1),
                                          1),
+                all_gathered=mesh.all_gather(*gather_parts(mesh.rank)),
+                all_gathers=mesh.all_gathers,
                 env=state_to_numpy(state))
 
 
 def job_train(args):
     return [train_run(run) for run in args["runs"]]
+
+
+def count_loss_samples(seen):
+    """Wrap ``ppo_loss`` where both trainers call it, appending the sample
+    count of each call's logits to ``seen``."""
+    loss = getattr(ppo.ppo_loss, "original", ppo.ppo_loss)
+
+    def counted(logits, *a, **k):
+        seen.append(logits.shape[:-1].numel())
+        return loss(logits, *a, **k)
+
+    counted.original = loss
+    ppo.ppo_loss = ppo_rnn.ppo_loss = counted
 
 
 def train_run(args):
@@ -65,16 +96,32 @@ def train_run(args):
     cfg = ppo.PPOConfig(**{**ppo.ppo_config_from_dict(args["cfg"]).__dict__,
                            "dtype": args.get("dtype", torch.float32)})
     gen = torch.Generator().manual_seed(mesh.rank + 1)
+    on_mesh = args.get("path", "shard_map") == "mesh"
+    prev = None
     if cfg.rnn:
         net, opt, h = ppo_rnn.init_state_rnn(ep, cfg, gen, device="cpu")
-        h = ppo_rnn.map_carry(lambda x: mesh_mod.shard(mesh, x, 1), h)
-        step = ppo_rnn.make_train_step_rnn_shard_map(ep, cfg, net, opt, mesh,
-                                                     device="cpu")
+        hdim = ppo_rnn.carry_env_dim(ep, cfg)
+        h = ppo_rnn.map_carry(lambda x: mesh_mod.shard(mesh, x, hdim), h)
+        if on_mesh:
+            step = ppo_rnn.make_train_step_rnn(ep, cfg, net, opt,
+                                               device="cpu", mesh=mesh)
+        else:
+            step = ppo_rnn.make_train_step_rnn_shard_map(ep, cfg, net, opt,
+                                                         mesh, device="cpu")
     else:
         net, opt = ppo.init_state(ep, cfg, gen, device="cpu")
         h = None
-        step = ppo.make_train_step_shard_map(ep, cfg, net, opt, mesh,
-                                             device="cpu")
+        if args.get("overlap"):
+            step, prime = ppo.make_train_step(ep, cfg, net, opt, device="cpu",
+                                              overlap=True, mesh=mesh)
+        elif on_mesh:
+            step = ppo.make_train_step(ep, cfg, net, opt, device="cpu",
+                                       mesh=mesh)
+        else:
+            step = ppo.make_train_step_shard_map(ep, cfg, net, opt, mesh,
+                                                 device="cpu")
+    seen = []
+    count_loss_samples(seen)
     if mesh.rank == 0:
         net.load_state_dict(args["state_dict"])
     mesh_mod.broadcast_from(mesh, list(net.state_dict().values()))
@@ -85,20 +132,27 @@ def train_run(args):
     env = ppo.init_env_batch(ep, cfg.n_envs, args["env_key"],
                              stagger=args["stagger"], device="cpu", mesh=mesh)
     key = args["key"]
-    snaps = []
+    if args.get("overlap"):
+        env, prev, key = prime(env, key)
+    snaps, gathers = [], 0
     for _ in range(args["steps"]):
-        if h is None:
-            env, key, m = step(env, key)
-        else:
+        before = mesh.all_gathers
+        if h is not None:
             env, h, key, m = step(env, h, key)
+        elif prev is not None:
+            env, prev, key, m = step(env, prev, key)
+        else:
+            env, key, m = step(env, key)
+        gathers += mesh.all_gathers - before
         snaps.append(dict(
             weights={k: v.clone() for k, v in net.state_dict().items()},
             env={f: mesh_mod.gather(mesh, getattr(env, f)).numpy()
                  for f in FIELDS},
             h=None if h is None else ppo_rnn.map_carry(
-                lambda x: mesh_mod.gather(mesh, x, 1), h),
+                lambda x: mesh_mod.gather(mesh, x, hdim), h),
             key=key.clone(), metrics={k: float(v) for k, v in m.items()}))
-    return dict(snaps=snaps, grad0=grads[0], all_reduces=mesh.all_reduces)
+    return dict(snaps=snaps, grad0=grads[0], all_reduces=mesh.all_reduces,
+                all_gathers=gathers, loss_samples=seen)
 
 
 JOBS = dict(mesh=job_mesh, train=job_train)
