@@ -57,9 +57,10 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
 6. the train path: the eager ``make_train_step(..., jit=False)`` at the
    same width (2 epochs x 4 minibatches), two train steps, with the
    launch counts of K1, K2f, K2b and K3 read around each (65 / 73 / 8 / 0)
-   and train env-steps/s; then the training CLI at its defaults with
-   ``--steps-per-call 2`` (graphed: ``ppo.multi_step``), two calls with a
-   checkpoint and one resumed from it (its 2 steps: 130 / 146 / 16), and a
+   and train env-steps/s; then the training CLI at its defaults but
+   T = 32 (depth, as every CLI phase) with ``--steps-per-call 2``
+   (graphed: ``ppo.multi_step``), two calls with a checkpoint and one
+   resumed from it (its 2 steps: 66 / 82 / 16), and a
    checkpoint the CLI wrote on the CPU (tiny) resumed on the card;
 7. the image train path at the same width (``--obs image``: 7x7 views of
    8-pixel tiles, the cnn_s2d torso, re-rendered minibatches): one rollout
@@ -100,7 +101,8 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    env state and key bit-equal, weights within rtol 2e-4 / atol 2e-5, the
    loss within rtol 2e-3, launches per rank the unsharded step's; then
    ``torchrun --standalone --nproc-per-node 1 ... train --distributed
-   --shard-map`` at the CLI defaults (one NCCL rank, graphed) with a
+   --shard-map`` at the CLI defaults but T = 32 (one NCCL rank, graphed)
+   with a
    checkpoint of the global batch, one iteration resumed from it without
    ``--distributed`` (the unsharded step's launches), and the checkpoint
    kept for 8d. In the same spawn the sharded default path's step
@@ -108,18 +110,26 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    resets inside the rollout (empty 9x9, max_steps 10 with the stagger,
    B = 64, T = 8, 2 epochs x 2 minibatches: each rank takes half of every
    minibatch), with the same bars but for the weights, held in norm
-   (``GSPMD_RANKS_TOL``), and the same pair again with the embed's
-   gradient by K2b's plain version on float32 dout, its weights held
-   within rtol 2e-4 / atol 2e-5 (the witness that K2b's bf16 dout is what
-   parts them); after the spawn, ``torchrun ... train
-   --distributed`` without ``--shard-map`` (the sharded default path, one
-   NCCL rank, graphed), two iterations, on the card beside the first
-   torchrun run (their rates marked as measured on a shared card);
+   (``GSPMD_RANKS_TOL``), and the same pair again with the embed in
+   float32 by K2f's and K2b's plain versions, its weights held within
+   rtol 2e-4 / atol 2e-5 (the witness that the bf16 embed is what parts
+   them); the same two pairs for the all-encode hetero trainer
+   (``make_train_step_hetero(mesh=...)``, views 7/5/7/5 on goal_cycle
+   9x9, the same B, T and minibatches); after the spawn, ``torchrun ...
+   train --distributed`` without ``--shard-map`` (the sharded default
+   path, one NCCL rank, graphed), two iterations, and the same with
+   ``--agent-config`` (views 7/5/7/5, T = 32), on the card beside the
+   first torchrun run (their rates marked as measured on a shared card),
+   and ``torchrun --nproc-per-node 2 ... --agent-config --device cpu``
+   (two gloo ranks on the host, B = 64: NCCL refuses two ranks on one
+   card), both ranks logging the same metrics;
 8c. the host API (``wrapper.MultiGridEnv`` through ``envs.make`` and
    ``envs.env_from_config``): a cluttered 15x15 image env, a goal-cycle
    encode env and a doorkey image env, one episode each to done bit-equal
    card vs CPU (obs, rewards, done, ``encode()``, ``render()`` and the
-   agent views at 16-pixel tiles), and the card's wall per step;
+   agent views at 16-pixel tiles), and the card's wall per step; then the
+   port's four examples (``examples/torch_*.py``) at a short depth, in
+   four processes on the card at once;
 8d. evaluation: ``parallel/evaluate.py --episodes 1 --max-steps 100`` on
    the checkpoints of the encode, ``--rnn gru`` (plane-major),
    ``--agent-config``, ``--torso cnn`` and ``--distributed --shard-map``
@@ -133,8 +143,7 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    against its eager step from one start, at full width for encode, the
    encode row store (``--torso cnn``), recurrent encode and hetero
    recurrent, at B = 1024 for image, the mixed
-   population and ``--overlap`` (T = 64 on encode and recurrent encode,
-   beside 9c's mesh steps; 32 on the others): an
+   population and ``--overlap`` (T = 32, depth): an
    eager run of two steps (its second under
    ``torch.cuda.set_sync_debug_mode('error')``), ``jit=True`` two calls
    and ``multi_step`` with k = 2 once (then replays for the rates);
@@ -146,12 +155,12 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
 9c. the ``--shard-map`` steps (feedforward, and GRU on the plane-major
    embed) at full width on an NCCL group of world size 1 (every
    collective runs on NCCL), through 9b's eager, graphed and
-   ``multi_step`` runs over the group's mesh at T = 32 (no profiled
+   ``multi_step`` runs over the group's mesh at T = 16 (no profiled
    replay): launches per step equal to the unsharded step's, replays
    bit-equal to the eager steps, the ``all_reduce`` calls of an eager
    step and of the capture counted (one graph node each, none from the
    host on a replay); then on the same group the sharded default path's
-   steps (``mesh=``, the same two paths, full width, T = 64): the
+   steps (``mesh=``, the same two paths, full width, T = 32): the
    unsharded eager step and the mesh step's eager call and capture from
    one start, env state and key bit-equal to the unsharded step's after
    one step, weights within rtol 2e-4 / atol 2e-5, one ``all_gather``
@@ -159,6 +168,11 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    memory, and the busy time and device ops of one profiled replay beside
    9b's unsharded graphed replay; and ``multi_step`` (k = 2) of the raw
    mesh step, bit-equal to two eager steps, its collectives captured;
+   then the same for the three hetero populations' ``mesh=`` steps
+   (``make_train_step_hetero*``, 8b's populations at B = 4096, T = 16),
+   each beside its own unsharded graphed step from the same start (its
+   replay's busy time and memory rise), ``multi_step`` on the all-encode
+   one;
 10. the env-only phase at bench.py's config (cluttered 15x15, 3 agents,
    25 clutter, B = 32768, T = 16 random actions, board pool 256), with
    encode and with image observations;
@@ -1493,11 +1507,16 @@ def phase_image(seed, card, steps=2):
                 traj=traj, ep=ep, cfg=cfg, net=net, opt=opt)
 
 
+#: the CLI phases' depth (the paths' own is 64)
+T32 = ("--rollout", "32")
+
+
 def phase_cli(card, flags=(), want=None, plane_major=False, spc=1,
               keep=None):
     """The training CLI at its defaults plus ``flags`` (the train path's
     config, the image train path's with ``--obs image``, the recurrent
-    one's with ``--rnn gru``) on the card, graphed (``make_train_step*(...,
+    one's with ``--rnn gru``; the callers add :data:`T32`) on the card,
+    graphed (``make_train_step*(...,
     jit=True)``, or with ``spc`` > 1 ``--steps-per-call spc``: one captured
     step replayed ``spc`` times a call): two calls with a checkpoint after
     the second, then one call resumed from it, the launch counts read
@@ -3182,18 +3201,29 @@ def phase_hetero(seed, card, name, steps=2):
 #: the graphs phase's paths: (train CLI flags, plane-major embed, B). The
 #: three largest host shares and the encode row store ('cnn') at full
 #: width; image, the mixed population and --overlap at B = 1024 (an eager
-#: step's host time does not depend on B). Depth: T = 64 (the CLI's) on
-#: encode and rnn, whose profiled replays the gspmd phase's mesh steps
-#: stand beside; 32 on the others
+#: step's host time does not depend on B). Depth: T = 32 (the CLI's is
+#: 64); the gspmd phase's encode and rnn mesh steps, at the same T, stand
+#: beside the profiled replays of encode and rnn
 GRAPH_PATHS = {
-    "encode": ((), False, 4096),
+    "encode": (("--rollout", "32"), False, 4096),
     "cnn": (ROW_PATHS["cnn"][0] + ("--rollout", "32"), False, 4096),
-    "rnn": (("--rnn", "gru"), True, 4096),
+    "rnn": (("--rnn", "gru", "--rollout", "32"), True, 4096),
     "hetero-rnn": (HETERO_PATHS["hetero-rnn"][0] + ("--rollout", "32"), True,
                    4096),
     "image": (("--obs", "image", "--rollout", "32"), False, 1024),
     "hetero-mixed": (HETERO_PATHS["hetero-mixed"][0], False, 1024),
     "overlap": (("--overlap", "--rollout", "32"), False, 1024),
+}
+
+
+#: the sharded default path's steps (:func:`phase_gspmd`): the encode and
+#: recurrent graphs paths, and the three hetero populations at full width
+#: with T = 16 (depth)
+GSPMD_PATHS = {
+    "encode": GRAPH_PATHS["encode"],
+    "rnn": GRAPH_PATHS["rnn"],
+    **{name: (flags + ("--rollout", "16"), plane_major, 4096)
+       for name, (flags, plane_major) in HETERO_PATHS.items()},
 }
 
 
@@ -3440,12 +3470,14 @@ def phase_shard_map(seed, card):
     destroyed at the end): ``phase_graphs``' runs of the feedforward and
     the recurrent (GRU, plane-major embed) step over its mesh, at full
     width: every collective runs on NCCL, and the graphed step captures
-    them. At T = 32 (depth; the paths' own is 64), no profiled replay.
+    them. At T = 16 (depth; the paths' own is 64), no profiled replay.
     Bars as ``phase_graphs``': launches per step equal to the unsharded
     step's, the graphed and ``multi_step`` (k = 2) runs bit-equal to the
     eager steps, every ``all_reduce`` captured. Then, on the same group,
     :func:`phase_gspmd` of both paths (the sharded default path, ``"gspmd
-    encode"`` and ``"gspmd rnn"``)."""
+    encode"`` and ``"gspmd rnn"``) and of the three hetero populations at
+    T = 16, each beside its own unsharded graphed step (``multi_step`` on
+    the all-encode one)."""
     import torch.distributed as dist
 
     from marlgrid_tpu_torch.parallel import mesh as mesh_mod
@@ -3459,45 +3491,55 @@ def phase_shard_map(seed, card):
             mesh = mesh_mod.make_mesh(device="cuda")
             for name in ("encode", "rnn"):
                 out[name] = phase_graphs(seed, card, name, profile=False,
-                                         mesh=mesh, T=32)
+                                         mesh=mesh, T=16)
             for name in ("encode", "rnn"):
                 out[f"gspmd {name}"] = phase_gspmd(seed, card, name, mesh)
+            for name in HETERO_PATHS:
+                out[f"gspmd {name}"] = phase_gspmd(
+                    seed, card, name, mesh, multi=name == "hetero",
+                    own_baseline=True)
         finally:
             dist.destroy_process_group()
     return out
 
 
-def phase_gspmd(seed, card, name, mesh):
+def phase_gspmd(seed, card, name, mesh, multi=True, own_baseline=False):
     """The sharded default path's step (``ppo.make_train_step(mesh=...)``,
-    ``ppo_rnn.make_train_step_rnn(mesh=...)``; the JAX CLI's training step
-    without ``--shard-map``) of ``GRAPH_PATHS[name]`` at full width over
+    ``ppo_rnn.make_train_step_rnn(mesh=...)``, the hetero trainers'
+    ``make_train_step_hetero*(mesh=...)``; the JAX CLI's training step
+    without ``--shard-map``) of ``GSPMD_PATHS[name]`` at full width over
     ``mesh`` (one NCCL rank), graphed, beside the unsharded step from the
-    same start. Runs: the unsharded step's eager call; the mesh step's
-    eager call (its first: the communicator), then, from the same start
-    again (the weights copied back and Adam's state zeroed in place, so
-    the capture holds their addresses), its capture and replay, two more
-    replays for its wall time and one profiled replay; then from the start
-    two eager steps of the raw mesh step (``jit=False``), and
+    same start. Runs: the unsharded step's eager call (with
+    ``own_baseline``, the first call of its graphed step, then from the
+    start its capture and replay, and one profiled replay: the unsharded
+    graphed step's busy time and memory rise, which the encode and GRU
+    paths take from the graphs phase instead); the mesh step's eager call
+    (its first: the communicator), then, from the same start again (the
+    weights copied back and Adam's state zeroed in place, so the capture
+    holds their addresses), its capture and replay, two more replays for
+    its wall time and one profiled replay; then, with ``multi``, from the
+    start two eager steps of the raw mesh step (``jit=False``), and
     ``ppo.multi_step`` (``ppo_rnn.multi_step_rnn``) of it with k = 2, one
     call (an eager step, then the capture of the second) and one more call
-    of two replays. Bars: launches per step the
-    unsharded step's (:func:`path_counts`); the mesh step's env state and
-    key after one step bit-equal to the unsharded step's, eager and
-    graphed; its weights within rtol 2e-4, atol 2e-5 of the unsharded
-    step's, and its graphed weights bit-equal to its eager ones; the
-    ``multi_step`` call's env state, key, carry, weights and metrics
-    bit-equal to the two eager steps'; the collectives of the eager call
-    (``all_gather``, ``all_reduce``) all captured, by the graphed step and
-    by ``multi_step``'s, none called from the host on a replay. Prints
-    busy ms and device ops of the profiled replay, the collectives per
-    step, the replays' wall and peak memory (and its rise above the
-    allocation at the start of the eager call, capture and replays, as
-    ``phase_graphs`` reports its runs')."""
+    of two replays. Bars: launches per step the unsharded step's
+    (:func:`path_counts`); the mesh step's env state and key after one
+    step bit-equal to the unsharded step's, eager and graphed (and, with
+    ``own_baseline``, the unsharded graphed step's to its eager call's);
+    its weights within rtol 2e-4, atol 2e-5 of the unsharded step's, and
+    its graphed weights bit-equal to its eager ones; the ``multi_step``
+    call's env state, key, carry, weights and metrics bit-equal to the two
+    eager steps'; the collectives of the eager call (``all_gather``,
+    ``all_reduce``) all captured, by the graphed step and by
+    ``multi_step``'s, none called from the host on a replay. Prints busy ms
+    and device ops of the profiled replay, the collectives per step, the
+    replays' wall and peak memory (and its rise above the allocation at
+    the start of the eager call, capture and replays, as ``phase_graphs``
+    reports its runs')."""
     from marlgrid_tpu_torch.core import rng
     from marlgrid_tpu_torch.parallel import graph, ppo, ppo_rnn
     from marlgrid_tpu_torch.parallel import train as train_mod
 
-    flags, plane_major, B = GRAPH_PATHS[name]
+    flags, plane_major, B = GSPMD_PATHS[name]
     ep, cfg = cli_config(*flags, "--envs", str(B))
     dev = torch.device("cuda")
     with embed_v2(plane_major):
@@ -3550,8 +3592,60 @@ def phase_gspmd(seed, card, name, mesh):
             collectives=(mesh.all_gathers - n0[0], mesh.all_reduces - n0[1]),
             carry=carry)
 
-    base = call(train_mod.make_step(ep, cfg, net, opt, dev, jit=False),
-                "unsharded eager")
+    def replays(step, carry, what):
+        """Two replays of a captured ``step`` from ``carry`` (their wall
+        seconds), the peak memory since the last reset, and one profiled
+        replay."""
+        secs = []
+        for _ in range(2):
+            sync()
+            zero_counts()
+            n0 = (mesh.all_gathers, mesh.all_reduces)
+            t0 = time.perf_counter()
+            *carry, m = step(*carry)
+            sync()
+            secs.append(time.perf_counter() - t0)
+            if read_counts() != per_step or \
+                    (mesh.all_gathers, mesh.all_reduces) != n0:
+                raise AssertionError(f"gspmd {label} {what} replay: "
+                                     f"launches {read_counts()}, or a "
+                                     f"collective called from the host")
+        peak = (torch.cuda.max_memory_allocated() / 1e9,
+                torch.cuda.max_memory_reserved() / 1e9)
+        prof = profile_stages(lambda: step(*carry), ("rollout.", "update."),
+                              card, f"gspmd {label}: one graphed {what} "
+                              f"step (a replay; B={B}, "
+                              f"T={cfg.rollout_len})")
+        return secs, peak, prof
+
+    own = None
+    if own_baseline:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated() / 1e9
+        # thread_local: the NCCL group's watchdog queries CUDA from its own
+        # thread during the capture
+        ustep = graph.GraphedStep(
+            train_mod.make_step(ep, cfg, net, opt, dev, jit=False),
+            f"{name} unsharded", "thread_local")
+        base = call(ustep, "unsharded eager")
+        del base["carry"]
+        ugraph = call(ustep, "unsharded capture")
+        if not all(torch.equal(x, y) for x, y in zip(
+                ugraph["env_key"], base["env_key"], strict=True)):
+            raise AssertionError(f"gspmd {name}: the unsharded graphed "
+                                 f"step's env state or key differs from its "
+                                 f"eager call's")
+        usecs, upeak, uprof = replays(ustep, ugraph.pop("carry"),
+                                      "unsharded")
+        own = dict(replay_s=usecs, peak_gb=upeak,
+                   rise_gb=upeak[0] - start, profile=uprof,
+                   capture_s=ustep.capture_s)
+        del ustep, ugraph
+    else:
+        base = call(train_mod.make_step(ep, cfg, net, opt, dev, jit=False),
+                    "unsharded eager")
+        del base["carry"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated() / 1e9
@@ -3559,27 +3653,8 @@ def phase_gspmd(seed, card, name, mesh):
     eager = call(step, "eager")
     del eager["carry"]
     graphed = call(step, "capture")
-    carry = graphed.pop("carry")
-    secs = []
-    for _ in range(2):
-        sync()
-        zero_counts()
-        n0 = (mesh.all_gathers, mesh.all_reduces)
-        t0 = time.perf_counter()
-        *carry, m = step(*carry)
-        sync()
-        secs.append(time.perf_counter() - t0)
-        if read_counts() != per_step or \
-                (mesh.all_gathers, mesh.all_reduces) != n0:
-            raise AssertionError(f"gspmd {label} replay: launches "
-                                 f"{read_counts()}, or a collective called "
-                                 f"from the host")
-    peak = (torch.cuda.max_memory_allocated() / 1e9,
-            torch.cuda.max_memory_reserved() / 1e9)
+    secs, peak, prof = replays(step, graphed.pop("carry"), "mesh")
     rise = peak[0] - start
-    prof = profile_stages(lambda: step(*carry), ("rollout.", "update."),
-                          card, f"gspmd {label}: one graphed step (a "
-                          f"replay; B={B}, T={cfg.rollout_len})")
     for run, what in ((eager, "eager"), (graphed, "graphed")):
         if not all(torch.equal(x, y) for x, y in zip(
                 run["env_key"], base["env_key"], strict=True)):
@@ -3602,21 +3677,73 @@ def phase_gspmd(seed, card, name, mesh):
         raise AssertionError(f"gspmd {label}: collectives eager "
                              f"{eager['collectives']}, captured "
                              f"{graphed['collectives']}")
-    del carry, m
-    # two eager steps of the raw mesh step from the start, then
-    # multi_step(k=2) of it: its first call runs the first step eagerly
-    # and captures the second
-    raw = train_mod.make_step(ep, cfg, net, opt, dev, jit=False, mesh=mesh)
+    wdiff = _max_diff(eager["weights"], base["weights"])
+    out = dict(B=B, T=cfg.rollout_len, replay_s=secs, peak_gb=peak,
+               rise_gb=rise,
+               capture_s=getattr(step, "capture_s", None), profile=prof,
+               weights_vs_unsharded=wdiff,
+               all_gathers=eager["collectives"][0],
+               all_reduces=eager["collectives"][1],
+               loss=[base["metrics"]["loss"], eager["metrics"]["loss"]],
+               eager_s=[base["secs"], eager["secs"]], unsharded_graph=own)
+    print(f"[gspmd] {label} ({' '.join(flags) or 'defaults'}, B={B}, "
+          f"T={cfg.rollout_len}): launches per step {per_step}; after one "
+          f"step env state and key bit-equal to the unsharded step's "
+          f"(eager and graphed), weights max |mesh - unsharded| "
+          f"{wdiff:.3e} (bound rtol 2e-4, atol 2e-5), loss "
+          f"{eager['metrics']['loss']:.6f} vs {base['metrics']['loss']:.6f};"
+          f" {eager['collectives'][0]} all_gather and "
+          f"{eager['collectives'][1]} all_reduce calls a step, all captured "
+          f"(graph nodes), none from the host on a replay; replays "
+          f"{', '.join(f'{t:.3f}' for t in secs)} s; capture "
+          f"{out['capture_s']} s; peak device memory allocated / reserved "
+          f"{peak[0]:.2f} / {peak[1]:.2f} GB (allocated {rise:.3f} GB above "
+          f"the run's start) [{card}]")
+    del step, graphed
+    if own is not None:
+        up, mp_ = own["profile"], prof
+        busy = (f"busy {mp_['device_busy_s'] * 1e3:.1f} ms in "
+                f"{mp_['device_ops']} device ops against the unsharded "
+                f"graphed step's {up['device_busy_s'] * 1e3:.1f} ms in "
+                f"{up['device_ops']} ("
+                f"{mp_['device_busy_s'] / up['device_busy_s']:.4f}x busy)"
+                if up["device_busy_s"] > 0 and mp_["device_busy_s"] > 0
+                else "busy not measured (no device time in the profile)")
+        print(f"[gspmd] {label}: graphed mesh= step {busy}; replays "
+              f"{', '.join(f'{t:.3f}' for t in secs)} s against "
+              f"{', '.join(f'{t:.3f}' for t in own['replay_s'])} s; "
+              f"allocated {rise:.3f} GB above its run's start against the "
+              f"unsharded graphed step's {own['rise_gb']:.3f} GB (eager "
+              f"call, capture, replays); unsharded graphed step env state "
+              f"and key bit-equal to its eager call's [{card}]")
+    if multi:
+        out.update(_gspmd_multi(call, train_mod.make_step(
+            ep, cfg, net, opt, dev, jit=False, mesh=mesh), h is None,
+            eager["collectives"], label, card))
+    del net, opt, h, carry0, w0, base, eager
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gspmd_multi(call, raw, feedforward, per_call, label, card):
+    """:func:`phase_gspmd`'s ``multi_step`` runs: from the start two eager
+    steps of the raw mesh step, then ``ppo.multi_step``
+    (``ppo_rnn.multi_step_rnn``) of it with k = 2, one call (an eager step,
+    then the capture of the second) and one call of two replays, with
+    their bars."""
+    from marlgrid_tpu_torch.parallel import ppo, ppo_rnn
+
     eager1 = call(raw, "raw eager step 1")
     eager2 = call(raw, "raw eager step 2", carry=eager1.pop("carry"))
     del eager2["carry"]
-    wrap = ppo.multi_step if h is None else ppo_rnn.multi_step_rnn
+    wrap = ppo.multi_step if feedforward else ppo_rnn.multi_step_rnn
     multi = wrap(raw, 2)
     mres = call(multi, "multi_step(k=2) call", steps=2)
     carry = mres.pop("carry")
     mcoll = mres["collectives"]
-    want_coll = tuple(2 * c for c in eager["collectives"])
+    want_coll = tuple(2 * c for c in per_call)
     mrep = call(multi, "multi_step(k=2) replays", carry=carry, steps=2)
+    del carry, mrep["carry"]
     for what in ("env_key", "h", "weights"):
         if not all(torch.equal(x, y) for x, y in zip(
                 mres[what], eager2[what], strict=True)):
@@ -3632,31 +3759,6 @@ def phase_gspmd(seed, card, name, mesh):
                              f"an eager step's and the capture's), of a "
                              f"replay call {mrep['collectives']} (want none "
                              f"from the host)")
-    wdiff = _max_diff(eager["weights"], base["weights"])
-    out = dict(B=B, T=cfg.rollout_len, replay_s=secs, peak_gb=peak,
-               rise_gb=rise,
-               capture_s=getattr(step, "capture_s", None), profile=prof,
-               weights_vs_unsharded=wdiff,
-               all_gathers=eager["collectives"][0],
-               all_reduces=eager["collectives"][1],
-               loss=[base["metrics"]["loss"], eager["metrics"]["loss"]],
-               eager_s=[base["secs"], eager["secs"], eager1["secs"],
-                        eager2["secs"]],
-               multi_s=[mres["secs"], mrep["secs"]],
-               multi_capture_s=multi.step.capture_s)
-    print(f"[gspmd] {label} ({' '.join(flags) or 'defaults'}, B={B}, "
-          f"T={cfg.rollout_len}): launches per step {per_step}; after one "
-          f"step env state and key bit-equal to the unsharded step's "
-          f"(eager and graphed), weights max |mesh - unsharded| "
-          f"{wdiff:.3e} (bound rtol 2e-4, atol 2e-5), loss "
-          f"{eager['metrics']['loss']:.6f} vs {base['metrics']['loss']:.6f};"
-          f" {eager['collectives'][0]} all_gather and "
-          f"{eager['collectives'][1]} all_reduce calls a step, all captured "
-          f"(graph nodes), none from the host on a replay; replays "
-          f"{', '.join(f'{t:.3f}' for t in secs)} s; capture "
-          f"{out['capture_s']} s; peak device memory allocated / reserved "
-          f"{peak[0]:.2f} / {peak[1]:.2f} GB (allocated {rise:.3f} GB above "
-          f"the run's start) [{card}]")
     print(f"[gspmd] {label}: multi_step(k=2) of the raw mesh step, from the "
           f"start: env state, key, carry, weights and metrics bit-equal to "
           f"two eager steps'; its first call {mcoll[0]} all_gather and "
@@ -3664,9 +3766,10 @@ def phase_gspmd(seed, card, name, mesh):
           f"capture's), none from the host on a call of two replays; calls "
           f"{mres['secs']:.3f}, {mrep['secs']:.3f} s, capture "
           f"{multi.step.capture_s} s [{card}]")
-    del net, opt, h, carry0, w0, step, raw, multi, carry, base, eager
-    del eager1, eager2, graphed, mres, mrep
-    torch.cuda.empty_cache()
+    out = dict(multi_s=[mres["secs"], mrep["secs"]],
+               multi_capture_s=multi.step.capture_s,
+               raw_eager_s=[eager1["secs"], eager2["secs"]])
+    del multi, raw
     return out
 
 
@@ -3685,6 +3788,16 @@ GSPMD_RANKS_CASE = (dict(width=9, height=9, n_agents=2, scenario="empty",
                          observation_style="encode"),
                     dict(n_envs=64, rollout_len=8, n_epochs=2,
                          n_minibatches=2, dtype=torch.float32), True)
+#: the hetero trainers' case on the sharded default path, with resets: the
+#: perf gate's all-encode population (views 7, 5, 7, 5) on goal_cycle 9x9,
+#: max_steps 10 with the stagger, B = 64, T = 8, 2 epochs x 2 minibatches
+#: of 8 (agent, step, 64-env) blocks a group, 4 a rank
+GSPMD_HETERO_RANKS_CASE = (dict(width=9, height=9, n_agents=4,
+                                scenario="goal_cycle", max_steps=10,
+                                reward_decay=False, agent_colors=(0, 4, 5, 1),
+                                observation_style="encode",
+                                agent_view_sizes=(7, 5, 7, 5)),
+                           GSPMD_RANKS_CASE[1], True)
 
 
 #: the bounds of the sharded default path's two ranks against one on the
@@ -3707,7 +3820,10 @@ GSPMD_RANKS_TOL = dict(grad=1e-3, weights=5e-2)
 RANKS_RUNS = (("shard_map", {}),
               ("mesh= (resets)", dict(gspmd=True)),
               ("mesh= (resets), float32 embed",
-               dict(gspmd=True, f32_embed=True)))
+               dict(gspmd=True, f32_embed=True)),
+              ("hetero mesh= (resets)", dict(gspmd=True, hetero=True)),
+              ("hetero mesh= (resets), float32 embed",
+               dict(gspmd=True, hetero=True, f32_embed=True)))
 
 
 @contextlib.contextmanager
@@ -3739,11 +3855,13 @@ def float32_embed():
         fn.backward, embed._forward = saved
 
 
-def _ranks_run(seed, mesh, steps=2, gspmd=False, f32_embed=False):
+def _ranks_run(seed, mesh, steps=2, gspmd=False, f32_embed=False,
+               hetero=False):
     """Two eager steps on the card over ``mesh`` from the weights of
     ``seed`` (rank 0's, broadcast): ``--shard-map`` steps of
     :data:`RANKS_CASE`, or with ``gspmd`` the sharded default path's of
-    :data:`GSPMD_RANKS_CASE`; with ``f32_embed`` under
+    :data:`GSPMD_RANKS_CASE` (with ``hetero``, the all-encode hetero
+    trainer's of :data:`GSPMD_HETERO_RANKS_CASE`); with ``f32_embed`` under
     :func:`float32_embed`. The weights, the last loss and episode count,
     the launch counts (and the path's, K2f's and K2b's 0 with
     ``f32_embed``), and the env state gathered in global env order with
@@ -3753,19 +3871,21 @@ def _ranks_run(seed, mesh, steps=2, gspmd=False, f32_embed=False):
                                                default_agent_colors)
     from marlgrid_tpu_torch.parallel import mesh as mesh_mod
     from marlgrid_tpu_torch.parallel import ppo
+    from marlgrid_tpu_torch.parallel import train as train_mod
 
-    ep_kw, cfg_kw, stagger = GSPMD_RANKS_CASE if gspmd else RANKS_CASE
-    ep = EnvParams(agent_colors=default_agent_colors(2), **ep_kw)
+    ep_kw, cfg_kw, stagger = (GSPMD_HETERO_RANKS_CASE if hetero
+                              else GSPMD_RANKS_CASE if gspmd else RANKS_CASE)
+    ep = EnvParams(**{"agent_colors": default_agent_colors(2), **ep_kw})
     cfg = ppo.PPOConfig(**cfg_kw)
     dev = mesh.device
-    net, opt = ppo.init_state(ep, cfg, torch.Generator().manual_seed(seed),
-                              device=dev)
+    net, opt, _ = train_mod.init(ep, cfg,
+                                 torch.Generator().manual_seed(seed), dev)
     mesh_mod.broadcast_from(mesh, list(net.state_dict().values()))
     key = rng.PRNGKey(seed, device=dev)
     env = ppo.init_env_batch(ep, cfg.n_envs, rng.fold_in(key, 1),
                              stagger=stagger, device=dev, mesh=mesh)
     if gspmd:
-        step = ppo.make_train_step(ep, cfg, net, opt, jit=False, device=dev,
+        step = train_mod.make_step(ep, cfg, net, opt, dev, jit=False,
                                    mesh=mesh)
     else:
         step = ppo.make_train_step_shard_map(ep, cfg, net, opt, mesh,
@@ -3816,8 +3936,9 @@ def phase_shard_map_ranks(seed, card):
     card's tensors; eager steps, since gloo cannot be captured) against
     one rank with no group (D = 1), :data:`RANKS_RUNS`: the
     ``--shard-map`` step on :data:`RANKS_CASE`, and in the same spawn the
-    sharded default path's step on :data:`GSPMD_RANKS_CASE`, with resets,
-    once as the card runs it and once with the embed in float32
+    sharded default path's step on :data:`GSPMD_RANKS_CASE` and the hetero
+    trainer's on :data:`GSPMD_HETERO_RANKS_CASE`, with resets, each once as
+    the card runs it and once with the embed in float32
     (:func:`float32_embed`, the witness). Each: the loss within
     rtol 2e-3, the env state and the key bit-equal, each rank's launches
     those of the unsharded step; the weights after two steps within the
@@ -3878,11 +3999,14 @@ def phase_shard_map_ranks(seed, card):
         if not torch.equal(d1["key"], d2["key"]):
             raise AssertionError(f"{what} ranks: the key differs")
         if gspmd and not d2["n_episodes"] > 0:
-            raise AssertionError("mesh= ranks: no env reset")
-        ep_kw, cfg_kw, _ = GSPMD_RANKS_CASE if gspmd else RANKS_CASE
+            raise AssertionError(f"{what} ranks: no env reset")
+        ep_kw, cfg_kw, _ = (GSPMD_HETERO_RANKS_CASE if kw.get("hetero")
+                            else GSPMD_RANKS_CASE if gspmd else RANKS_CASE)
+        views = ("" if "agent_view_sizes" not in ep_kw else
+                 f" views {ep_kw['agent_view_sizes']}")
         print(f"[shard_map] {what}: 2 ranks on one card (gloo over the "
-              f"card's tensors, spawned, {spawn_s:.1f} s for both steps) "
-              f"against 1 (no group): {ep_kw['scenario']} 9x9, "
+              f"card's tensors, spawned, {spawn_s:.1f} s for all runs' "
+              f"steps) against 1 (no group): {ep_kw['scenario']} 9x9{views}, "
               f"B={cfg_kw['n_envs']}, T={cfg_kw['rollout_len']}, float32, 2 "
               f"eager steps ({d2['n_episodes']:.0f} episodes ended in the "
               f"last): env state and key bit-equal, weights max |D2 - D1| "
@@ -3904,15 +4028,22 @@ def phase_shard_map_ranks(seed, card):
 def phase_cli_distributed(card, keep):
     """``python -m torch.distributed.run --standalone --nproc-per-node 1 -m
     marlgrid_tpu_torch.parallel.train --distributed --shard-map`` at the CLI
-    defaults (one NCCL rank, graphed): two iterations with a checkpoint,
+    defaults but T = 32 (depth; one NCCL rank, graphed): two iterations
+    with a checkpoint,
     written to ``keep`` (for the evaluate phase); then one iteration
     resumed from it in this process, ``--shard-map`` without
     ``--distributed``, with the unsharded step's launches. Beside it, in a
     process of its own on the same card started at the same time, the same
     torchrun without ``--shard-map`` (the sharded default path, graphed),
-    two iterations. The two runs share the card, so their times and rates
-    are printed as measured on a shared card, not as a single run's. Both
-    processes are killed if anything in the phase fails."""
+    two iterations, and the same with ``--agent-config`` (the perf gate's
+    hetero population on ``make_train_step_hetero(mesh=...)``, T = 32).
+    The runs share the card, so their times and rates are printed as
+    measured on a shared card, not as a single run's. And at the same time
+    ``--agent-config`` in two processes, ``--nproc-per-node 2`` with
+    ``--device cpu`` (gloo, B = 64): NCCL refuses two ranks on one card,
+    and the CLI's graphed step cannot capture gloo's collectives, so two
+    ranks of the CLI run on the host; both ranks must log the same
+    metrics. Every process is killed if anything in the phase fails."""
     from marlgrid_tpu_torch.parallel import train
     from marlgrid_tpu_torch.utils import checkpoint
 
@@ -3920,17 +4051,19 @@ def phase_cli_distributed(card, keep):
 
     procs = []
 
-    def torchrun(*flags):
-        """Start the train CLI under torchrun on one NCCL rank; returns
-        ``wait()`` -> (its seconds with process start, its JSONL
-        records)."""
-        log = f"{tmp}/{len(flags)}.jsonl"
+    def torchrun(*flags, nproc=1):
+        """Start the train CLI under torchrun on ``nproc`` ranks; returns
+        ``wait()`` -> (its seconds with process start, its JSONL records:
+        one rank's ``--metrics`` file, or with more ranks every rank's
+        lines of stdout, interleaved)."""
+        log = f"{tmp}/run{len(procs)}.jsonl"
         t0 = time.perf_counter()
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             "--nproc-per-node", "1", "-m",
+             "--nproc-per-node", str(nproc), "-m",
              "marlgrid_tpu_torch.parallel.train", "--distributed",
-             "--iters", "2", "--metrics", log, *flags],
+             "--iters", "2", *(("--metrics", log) if nproc == 1 else ()),
+             *flags],
             cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True, env=dict(os.environ, PYTHONPATH=root)))
         proc = procs[-1]
@@ -3943,16 +4076,25 @@ def phase_cli_distributed(card, keep):
                                      f"{' '.join(flags)} exited "
                                      f"{proc.returncode}:\n{out[-3000:]}\n"
                                      f"{err[-3000:]}")
-            return secs, [json.loads(line) for line in open(log)]
+            lines = (open(log) if nproc == 1 else
+                     [x for x in out.splitlines() if x.startswith("{")])
+            return secs, [json.loads(line) for line in lines]
 
         return wait
 
     with tempfile.TemporaryDirectory() as tmp:
         log = f"{tmp}/m.jsonl"
         try:
-            shard_run = torchrun("--shard-map", "--checkpoint-dir", keep,
+            shard_run = torchrun("--shard-map", "--rollout", "32",
+                                 "--checkpoint-dir", keep,
                                  "--checkpoint-every", "2")
-            mesh_run = torchrun()
+            mesh_run = torchrun("--rollout", "32")
+            hetero_run = torchrun("--agent-config", HETERO_SPEC, "--rollout",
+                                  "32")
+            ranks_run = torchrun("--agent-config", HETERO_SPEC, "--device",
+                                 "cpu", "--grid-size", "9", "--envs", "64",
+                                 "--rollout", "8", "--hidden", "32",
+                                 "--max-steps", "10", nproc=2)
             first, recs = shard_run()
             tree = checkpoint.restore(keep, map_location="cpu")
             if checkpoint.steps(keep) != [2] or \
@@ -3960,27 +4102,41 @@ def phase_cli_distributed(card, keep):
                 raise AssertionError("torchrun --shard-map wrote no global "
                                      "checkpoint")
             zero_counts()
-            train.main(["--shard-map", "--resume", keep, "--iters", "1",
-                        "--metrics", log])
+            train.main(["--shard-map", "--rollout", "32", "--resume", keep,
+                        "--iters", "1", "--metrics", log])
             counts = read_counts()
             recs += [json.loads(line) for line in open(log)]
             mesh_s, mesh_recs = mesh_run()
+            hetero_s, hetero_recs = hetero_run()
+            ranks_s, ranks_recs = ranks_run()
         finally:
             for proc in procs:
                 if proc.poll() is None:
                     proc.kill()
                     proc.communicate()
-    want = path_counts(*cli_config(), plane_major=False)
+    want = path_counts(*cli_config("--rollout", "32"), plane_major=False)
     if counts != want:
         raise AssertionError(f"resumed --shard-map: launches {counts}, want "
                              f"{want}")
-    for r in recs + mesh_recs:
+    for r in recs + mesh_recs + hetero_recs + ranks_recs:
         if not (math.isfinite(r["loss"]) and r["n_episodes"] > 0):
             raise AssertionError(f"--distributed CLI metrics {r}")
-    if len(mesh_recs) != 2:
-        raise AssertionError(f"torchrun --distributed logged {mesh_recs}")
+    if len(mesh_recs) != 2 or len(hetero_recs) != 2:
+        raise AssertionError(f"torchrun --distributed logged {mesh_recs}, "
+                             f"with --agent-config {hetero_recs}")
+    # two ranks: each step logged once by each, with the same metrics
+    same = {k for k in ranks_recs[0]} - {"time", "env_steps_per_s",
+                                         "agent_steps_per_s"}
+    by_step = {}
+    for r in ranks_recs:
+        by_step.setdefault(r["step"], []).append({k: r[k] for k in same})
+    if sorted(by_step) != [0, 1] or any(
+            len(v) != 2 or v[0] != v[1] for v in by_step.values()):
+        raise AssertionError(f"torchrun --nproc-per-node 2 --agent-config: "
+                             f"the ranks logged {ranks_recs}")
     print(f"[cli] torchrun --nproc-per-node 1 ... train --distributed "
-          f"--shard-map (defaults, NCCL, graphed; on a card shared with the "
+          f"--shard-map (defaults, T=32, NCCL, graphed; on a card shared with "
+          f"the "
           f"next run): 2 iterations + checkpoint in {first:.2f} s (process "
           f"start included), then 1 resumed without --distributed; launches "
           f"{counts}; env_steps_per_s on the shared card "
@@ -3989,17 +4145,85 @@ def phase_cli_distributed(card, keep):
     mesh_rates = ", ".join(format(r["env_steps_per_s"], ",.0f")
                            for r in mesh_recs)
     print(f"[cli] torchrun --nproc-per-node 1 ... train --distributed "
-          f"(the sharded default path, defaults, NCCL, graphed; on a card "
+          f"(the sharded default path, defaults, T=32, NCCL, graphed; on a card "
           f"shared with the --shard-map run): 2 iterations in {mesh_s:.2f} "
           f"s (process start included); losses "
           f"{', '.join(format(r['loss'], '.6f') for r in mesh_recs)}; "
           f"env_steps_per_s on the shared card {mesh_rates} [{card}]")
+    hetero_rates = ", ".join(format(r["env_steps_per_s"], ",.0f")
+                             for r in hetero_recs)
+    ranks_losses = ", ".join(format(v[0]["loss"], ".6f")
+                             for _, v in sorted(by_step.items()))
+    print(f"[cli] torchrun --nproc-per-node 1 ... train --distributed "
+          f"--agent-config {HETERO_SPEC} --rollout 32 (the hetero trainer's "
+          f"sharded default path, NCCL, graphed; on a card shared with the "
+          f"runs above): 2 iterations in {hetero_s:.2f} s (process start "
+          f"included); losses "
+          f"{', '.join(format(r['loss'], '.6f') for r in hetero_recs)}; "
+          f"env_steps_per_s on the shared card {hetero_rates} [{card}]")
+    print(f"[cli] torchrun --nproc-per-node 2 ... train --distributed "
+          f"--agent-config (views 7/5/7/5) --device cpu (gloo, B=64, T=8, "
+          f"on the host): 2 iterations in {ranks_s:.2f} s, both ranks logged "
+          f"the same metrics, losses {ranks_losses}")
     return dict(env_steps_per_s=[r["env_steps_per_s"] for r in recs],
                 losses=[r["loss"] for r in recs], counts=counts,
-                first_s=first, mesh_s=mesh_s,
+                first_s=first, mesh_s=mesh_s, hetero_s=hetero_s,
+                hetero_losses=[r["loss"] for r in hetero_recs],
+                ranks_s=ranks_s,
                 mesh_losses=[r["loss"] for r in mesh_recs],
                 mesh_env_steps_per_s=[r["env_steps_per_s"]
                                       for r in mesh_recs])
+
+
+#: the port's examples and the flags of their short runs on the card
+EXAMPLES = (("torch_random_rollout.py", ("--max-steps", "30")),
+            ("torch_batched_rollout.py", ("--iters", "3")),
+            ("torch_custom_env.py", ("--max-steps", "30")),
+            ("torch_hetero_population.py", ("--iters", "1", "--rollout",
+                                            "8")))
+
+
+def phase_examples(card):
+    """Each of the port's examples (``examples/torch_*.py``, the JAX
+    package's four scripts) once on the card at a short depth, in
+    processes of their own started together (a registered env's episode
+    of 30 steps, 3 steps of 16,384 batched envs, a custom scenario's
+    episode of 30 steps, 1 train step of the mixed hetero population at
+    T = 8):
+    each must exit 0 and print its result lines. Every process is killed
+    if one fails."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    want = {"torch_random_rollout.py": "episode returns:",
+            "torch_batched_rollout.py": "iter 2:",
+            "torch_custom_env.py": "episode returns:",
+            "torch_hetero_population.py": "trained in one step"}
+    procs, t0 = [], time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for name, flags in EXAMPLES:
+                procs.append((name, flags, subprocess.Popen(
+                    [sys.executable, os.path.join(root, "examples", name),
+                     *flags], cwd=root, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True,
+                    env=dict(os.environ, PYTHONPATH=root, TMPDIR=tmp))))
+            out = {}
+            for name, flags, proc in procs:
+                log = proc.communicate(timeout=600)[0]
+                out[name] = time.perf_counter() - t0
+                if proc.returncode != 0 or want[name] not in log:
+                    raise AssertionError(f"example {name} exited "
+                                         f"{proc.returncode}:\n{log[-3000:]}")
+                last = [x for x in log.splitlines() if x.strip()][-2:]
+                print(f"[examples] {name} {' '.join(flags)}: "
+                      f"done {out[name]:.1f} s after the start (four "
+                      f"processes sharing the card); {' | '.join(last)} "
+                      f"[{card}]")
+        finally:
+            for _, _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    return out
 
 
 def _to(tree, dev):
@@ -4152,23 +4376,23 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
              "hetero 7/5/7/5": (f"{ck_root}/hetero", False),
              "--torso cnn": (f"{ck_root}/cnn", False),
              "--shard-map (torchrun)": (f"{ck_root}/shard_map", False)}
-    cli = phase_cli(card, (), want_counts(
-        transpose_bk=65, onehot_embed_fwd=73, onehot_embed_bwd=8), spc=2,
+    cli = phase_cli(card, T32, want_counts(
+        transpose_bk=33, onehot_embed_fwd=41, onehot_embed_bwd=8), spc=2,
         keep=ckpts["mlp"][0])
     phase_cli_cpu_resume(card)
     stamp("rollout, K4, train")
     image = phase_image(args.seed, card)
-    cli_image = phase_cli(card, ("--obs", "image"), want_counts(
-        transpose_bk=73, compose_image_b=73))
+    cli_image = phase_cli(card, ("--obs", "image") + T32, want_counts(
+        transpose_bk=41, compose_image_b=41))
     rnn = phase_rnn(args.seed, card)
     rnn_image = phase_rnn_image(args.seed, card)
-    cli_rnn = phase_cli(card, ("--rnn", "gru"), want_counts(
-        transpose_bk=65, onehot_embed2_fwd=73, onehot_embed2_bwd=8),
+    cli_rnn = phase_cli(card, ("--rnn", "gru") + T32, want_counts(
+        transpose_bk=33, onehot_embed2_fwd=41, onehot_embed2_bwd=8),
         plane_major=True, keep=ckpts["--rnn gru (plane-major)"][0])
     stamp("image, recurrent")
     rows = {name: phase_rows(args.seed, card, name) for name in ROW_PATHS}
-    cli_cnn = phase_cli(card, ROW_PATHS["cnn"][0], path_counts(
-        *cli_config(*ROW_PATHS["cnn"][0]), plane_major=False),
+    cli_cnn = phase_cli(card, ROW_PATHS["cnn"][0] + T32, path_counts(
+        *cli_config(*ROW_PATHS["cnn"][0], *T32), plane_major=False),
         keep=ckpts["--torso cnn"][0])
     tools = phase_cli_tools(card)
     stamp("row store, CLI tools")
@@ -4177,15 +4401,18 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
     for v in hetero.values():
         for kname, err in v["embed_errs"].items():
             errs[kname] = max(errs[kname], err)
-    cli_hetero = phase_cli(card, HETERO_PATHS["hetero"][0], hetero_counts(
-        *cli_config(*HETERO_PATHS["hetero"][0]), plane_major=False),
+    cli_hetero = phase_cli(card, HETERO_PATHS["hetero"][0] + T32,
+                           hetero_counts(*cli_config(
+                               *HETERO_PATHS["hetero"][0], *T32),
+                               plane_major=False),
         keep=ckpts["hetero 7/5/7/5"][0])
     stamp("hetero")
     shard_ranks = phase_shard_map_ranks(args.seed, card)
     cli_shard = phase_cli_distributed(card, ckpts["--shard-map (torchrun)"][0])
     stamp("shard_map ranks, torchrun CLI")
     host_api = phase_host_api(args.seed, card)
-    stamp("host API")
+    examples = phase_examples(card)
+    stamp("host API, examples")
     evaluation = phase_evaluate(ckpts, card)
     stamp("evaluate")
     prof = phase_profile(roll, train, image, rnn, hetero, card)
@@ -4340,7 +4567,7 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
                            host_shape_timings=tim_host, rounding=rounding,
                            vector=vector, host_api=host_api,
                            shard_map=shard, shard_map_ranks=shard_ranks,
-                           cli_shard_map=cli_shard,
+                           cli_shard_map=cli_shard, examples=examples,
                            evaluate=evaluation, clock_s=clock,
                            total_s=total_s), f,
                       indent=1)

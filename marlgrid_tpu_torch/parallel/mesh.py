@@ -17,7 +17,7 @@ runs on it.
 
 The backend follows the device (NCCL on ``cuda``, gloo on ``cpu``) unless
 the caller names one; nothing swaps one backend for another. The 'model'
-axis (``n_model > 1``) comes with ROADMAP Slice G2b.
+axis (``n_model > 1``) comes with ROADMAP Slice G2c.
 """
 from __future__ import annotations
 
@@ -123,7 +123,7 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, group=None,
     if n_model != 1:
         raise NotImplementedError(
             f"a 'model' axis of {n_model}: not in the PyTorch port yet; it "
-            f"comes with ROADMAP Slice G2b")
+            f"comes with ROADMAP Slice G2c")
     if group is None and dist.is_initialized():
         group = dist.group.WORLD
     world = 1 if group is None else dist.get_world_size(group)

@@ -27,6 +27,14 @@ mixed-style (``ppo_hetero_mixed.py``) trainers share: the group
 observations, the rollout and the union-normalized loss. The network and
 the optimizer are stateful torch objects, updated in place, as in
 ``ppo.py``.
+
+Each trainer's ``make_train_step_*`` takes ``mesh=`` (a
+``parallel/mesh.py`` Mesh), the JAX step's ``mesh=``: each rank steps its
+slice of the global env batch (its rows of the unsharded rollout's pool,
+draws and autoreset), the update gathers the trajectory in global env
+order, and each minibatch's blocks are split over the ranks
+(``ppo.Share``), so that the ranks compute the unsharded step of the
+global batch together, as ``ppo.make_train_step(mesh=...)`` does.
 """
 from __future__ import annotations
 
@@ -42,9 +50,11 @@ from ..device import const, resolve
 from ..models import ActorCritic
 from ..vector import obs_groups
 from .graph import GraphedStep
-from .ppo import (PPOConfig, _stack_states, block_size, episode_metrics,
+from .mesh import Mesh, gather_env
+from .ppo import (PPOConfig, Share, _stack_states, block_size,
+                  capture_error_mode, episode_metrics, local_batch,
                   make_optimizer, obs_blocks, pool_size, ppo_terms, rich_aux,
-                  run_epochs, step_labels)
+                  run_epochs, sample_actions, step_labels)
 
 _LABELS = ("act", "logp", "val", "adv", "ret")
 
@@ -117,22 +127,48 @@ def group_obs(env_params: EnvParams, groups, torsos, state,
     return out
 
 
-def group_loss(parts, cfg: PPOConfig):
+def group_loss(parts, cfg: PPOConfig, mesh: Mesh = None,
+               count: float = None):
     """The clipped PPO objective over several groups' samples: ``parts``
     is a list of ``(logits, value, lab)``, one per group, each aligned
     sample for sample (``lab`` as in ``ppo.ppo_terms``, with ``adv``). The
     advantages are normalized with the mean and population std of the union
     of the groups' samples; each term is summed over every sample of every
     group and divided by their total count -> ``(total, {pg_loss, vf_loss,
-    entropy, ratio_dev})``."""
+    entropy, ratio_dev})``.
+
+    ``mesh`` (the mesh path, as ``ppo.ppo_loss``'s ``share``): the samples
+    are this rank's share of a global minibatch of ``count`` samples, and
+    each ``lab`` holds ``w``, its samples' weights (1, or 0 on a padding
+    block) broadcast against its terms. The union's mean and variance are
+    each one ``psum`` of this rank's weighted sums over ``count``, every
+    term is a weighted sum over ``count``, and the returned loss is this
+    rank's part of the global one, which ``ppo.run_epochs`` sums."""
     advs = [lab["adv"] for _, _, lab in parts]
-    n = sum(a.numel() for a in advs)
-    mean = sum(a.sum() for a in advs) / n
-    std = torch.sqrt(sum(((a - mean) ** 2).sum() for a in advs) / n) + 1e-8
+    if mesh is None:
+        n = sum(a.numel() for a in advs)
+        mean = sum(a.sum() for a in advs) / n
+        std = torch.sqrt(sum(((a - mean) ** 2).sum() for a in advs)
+                         / n) + 1e-8
+
+        def wsum(x, lab):
+            return x.sum()
+    else:
+        n = count
+
+        def wsum(x, lab):
+            return (lab["w"] * x).sum()
+
+        labs = [lab for _, _, lab in parts]
+        mean, = mesh.psum([sum(wsum(a, lab) for a, lab in zip(advs, labs))
+                           / n])
+        var, = mesh.psum([sum(wsum((a - mean) ** 2, lab)
+                              for a, lab in zip(advs, labs)) / n])
+        std = torch.sqrt(var) + 1e-8
     sums = [0.0] * 4
     for logits, value, lab in parts:
         terms = ppo_terms(logits, value, lab, (lab["adv"] - mean) / std, cfg)
-        sums = [s + x.sum() for s, x in zip(sums, terms)]
+        sums = [s + wsum(x, lab) for s, x in zip(sums, terms)]
     pg, vf, ent, dev = (s / n for s in sums)
     total = pg + cfg.vf_coef * vf - cfg.ent_coef * ent
     return total, dict(pg_loss=pg, vf_loss=vf, entropy=ent, ratio_dev=dev)
@@ -145,7 +181,7 @@ def label_rows(x, idxs):
 
 def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
                         device="cuda", groups=None, torsos=None,
-                        store_states=False):
+                        store_states=False, mesh: Mesh = None):
     """Build ``rollout(env_state, key, h=None) -> (env_state, key, traj,
     last_value, h)``, the JAX hetero trainers' ``rollout`` on one device.
     ``groups`` and ``torsos`` (per group) default to the all-encode
@@ -165,6 +201,13 @@ def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
     EnvStates with (T, B, ...) leaves, which the update re-renders.
     ``last_value`` is (N, B). The stages run under the homogeneous
     rollout's ``record_function`` labels.
+
+    ``mesh``: on this rank's B = n_envs / D envs (and its slice of the
+    carry), this rank's rows of the unsharded rollout of the global batch,
+    as ``ppo.make_rollout``'s mesh path: the pool size K from the global
+    batch and the pool's rows of this rank's envs, its rows of each
+    group's global draw (``ppo.sample_actions``), ``env_offset = rank * B``;
+    no collective.
     """
     from .ppo_rnn import mask_carry_env1
 
@@ -173,8 +216,9 @@ def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
         groups = hetero_groups(env_params)
     if torsos is None:
         torsos = ["mlp"] * len(groups)
-    B, T = cfg.n_envs, cfg.rollout_len
-    K = pool_size(cfg, B)
+    B, T = local_batch(cfg, mesh), cfg.rollout_len
+    K = pool_size(cfg, cfg.n_envs)
+    offset = 0 if mesh is None else mesh.rank * B
     perm = [i for idxs, _ in groups for i in idxs]
     inv = const(sorted(range(len(perm)), key=perm.__getitem__), torch.int64,
                 dev)
@@ -219,16 +263,18 @@ def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
                 key, ak = ks[0], ks[1]
                 acts, logps = [], []
                 for g, lg in enumerate(logits):
-                    a = rng.categorical(rng.fold_in(ak, g), lg)   # (n_g, B)
+                    a = sample_actions(rng.fold_in(ak, g), lg, None, B, 1,
+                                       mesh)                      # (n_g, B)
                     acts.append(a)
                     logps.append(F.log_softmax(lg, -1).gather(
                         -1, a[..., None])[..., 0])
                 act = rows(acts)
             with record_function("rollout.env_step"):
-                fresh_t = step_mod.fresh_pool_rows(pool, t, 0, B)
+                fresh_t = step_mod.fresh_pool_rows(pool, t, offset, B)
                 stepped, rew, done, info = \
                     step_mod.step_autoreset_with_fresh_batch(
-                        env_params, env_state, act.T, fresh_t, salt=t)
+                        env_params, env_state, act.T, fresh_t,
+                        env_offset=offset, salt=t)
                 if h is not None:
                     h = {g: mask_carry_env1(hg, done, cfg.dtype)
                          for g, hg in h_new.items()}
@@ -263,7 +309,7 @@ def warn_dropped(what: str, G: int, used: int):
 
 
 def make_update_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
-                       optimizer, device="cuda"):
+                       optimizer, device="cuda", mesh: Mesh = None):
     """Build ``update(traj, last_value, key) -> metrics``, the update half
     of the JAX ``make_train_step_hetero``: GAE on (T, N*B), then per group
     the feature-major blocks ``(G_g, F_g, c)`` with G_g = n_g*T*(B//c)
@@ -273,7 +319,16 @@ def make_update_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
     ``n_minibatches`` equal shares; each minibatch is every group's share,
     one :func:`group_loss`, a backward pass, the global-norm clip over all
     groups' gradients and one Adam step. A group whose blocks do not divide
-    into the minibatches drops the rest, with a warning."""
+    into the minibatches drops the rest, with a warning.
+
+    ``mesh``: the unsharded update of the global batch, as
+    ``ppo.make_update``'s mesh path computes it: GAE on this rank's
+    trajectory, then its labels and every group's codes gathered in global
+    env order (one all-gather), the global trajectory's blocks (c and G_g
+    from the global B), the same permutations on every rank, and each
+    group's share of a minibatch split over the ranks (one ``ppo.Share``
+    per group, padded at weight 0 where D does not divide it), the union's
+    statistics and the gradients ``psum``'d."""
     dev = resolve(device)
     groups = hetero_groups(env_params)
     B, T, N = cfg.n_envs, cfg.rollout_len, env_params.n_agents
@@ -287,6 +342,13 @@ def make_update_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
                 f"{cfg.n_minibatches}")
     used_gs = [G_g // cfg.n_minibatches * cfg.n_minibatches for G_g in G_gs]
     params = [p for p in nets.parameters() if p.requires_grad]
+    shares = [None] * len(groups)
+    count = reduce = None
+    if mesh is not None:
+        shares = [Share(mesh, used // cfg.n_minibatches, c,
+                        lambda w: w[:, None], dev) for used in used_gs]
+        count = sum(sh.count for sh in shares)
+        reduce = mesh.psum
 
     def minibatches(blocked):
         def gen(pk):
@@ -294,35 +356,47 @@ def make_update_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
                 cfg.n_minibatches, -1)
                 for g, (G_g, used) in enumerate(zip(G_gs, used_gs))]
             for i in range(cfg.n_minibatches):
-                yield [{k: v[perms[g][i]] for k, v in blocked[g].items()}
-                       for g in range(len(groups))]
+                batch = []
+                for g, sh in enumerate(shares):
+                    idx = perms[g][i] if sh is None else perms[g][i][sh.pos]
+                    b = {k: v[idx] for k, v in blocked[g].items()}
+                    if sh is not None:
+                        b["w"] = sh.w
+                    batch.append(b)
+                yield batch
         return gen
 
     def loss_fn(batch):
         with record_function("update.forward"):
             # feature-major blocks (mb_g, F_g, c): logits (mb_g, c, A)
             parts = [net(b["obs"]) + (b,) for net, b in zip(nets, batch)]
-            return group_loss(parts, cfg)
+            return group_loss(parts, cfg, mesh, count)
 
     def update(traj, last_value, key):
         with record_function("update.gae"):
             per_step = step_labels(traj, last_value, cfg, False)
+            codes = traj["obs"]
+            if mesh is not None:
+                with record_function("update.all_gather"):
+                    per_step, codes = gather_env(mesh, [(per_step, 2),
+                                                        (tuple(codes), 3)])
             blocked = []
             for g, (idxs, _) in enumerate(groups):
                 d = {k: label_rows(v, idxs).permute(1, 0, 2).reshape(
                     G_gs[g], c) for k, v in per_step.items()}
-                d["obs"] = obs_blocks(traj["obs"][g], c)
+                d["obs"] = obs_blocks(codes[g], c)
                 blocked.append(d)
         for g, (G_g, used) in enumerate(zip(G_gs, used_gs)):
             warn_dropped(f"hetero PPO minibatching, group {g}", G_g, used)
         return run_epochs(minibatches(blocked), loss_fn, params, optimizer,
-                          key, cfg, dev)
+                          key, cfg, dev, reduce)
 
     return update
 
 
 def make_train_step_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
-                           optimizer, device="cuda", jit=True):
+                           optimizer, device="cuda", jit=True,
+                           mesh: Mesh = None):
     """Build ``train_step(env_state, key) -> (env_state, key, metrics)``, the
     JAX ``make_train_step_hetero`` on one device: :func:`make_rollout_hetero`
     then :func:`make_update_hetero`, with the JAX step's key plumbing (the
@@ -331,16 +405,38 @@ def make_train_step_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
     :func:`init_state_hetero` and are updated in place. ``jit`` as in
     ``ppo.make_train_step``: True (the default) gives one CUDA graph of the
     whole step on the card, its returned tensors donated; False the raw
-    eager step (for ``ppo.multi_step``)."""
+    eager step (for ``ppo.multi_step``).
+
+    ``mesh`` (the JAX ``mesh=``, the GSPMD step): this rank's part of the
+    step over the global batch of ``cfg.n_envs`` envs, every rank with the
+    same key, weights and optimizer state and its own B = n_envs / D envs
+    (``ppo.init_env_batch(..., mesh=mesh)``): what the ranks compute
+    together is the unsharded step of the global batch, up to the order of
+    float sums; the episode tallies are ``psum``'d, and with ``jit=True``
+    the collectives are captured in the graph."""
     dev = resolve(device)
-    rollout = make_rollout_hetero(env_params, cfg, nets, device=dev)
-    update = make_update_hetero(env_params, cfg, nets, optimizer, device=dev)
+    rollout = make_rollout_hetero(env_params, cfg, nets, device=dev,
+                                  mesh=mesh)
+    update = make_update_hetero(env_params, cfg, nets, optimizer, device=dev,
+                                mesh=mesh)
 
     def train_step(env_state, key):
         env_state, key, traj, last_value, _ = rollout(env_state, key)
-        metrics = episode_metrics(update(traj, last_value, key), traj)
+        metrics = episode_metrics(update(traj, last_value, key), traj, mesh)
         return env_state, rng.fold_in(key, 1), metrics
 
-    if jit:
-        return GraphedStep(train_step, "ppo_hetero.make_train_step_hetero")
-    return train_step
+    return graphed(train_step, "ppo_hetero.make_train_step_hetero", mesh,
+                   jit)
+
+
+def graphed(train_step, name: str, mesh: Mesh, jit: bool):
+    """A hetero trainer's step as ``make_train_step_*`` returns it: the raw
+    step (``jit=False``) with the ``capture_error_mode`` that
+    ``ppo.multi_step`` captures it in, or a ``GraphedStep`` of it named
+    ``name`` (with ``(mesh=...)`` under a mesh)."""
+    train_step.capture_error_mode = capture_error_mode(mesh)
+    if not jit:
+        return train_step
+    if mesh is not None:
+        name += "(mesh=...)"
+    return GraphedStep(train_step, name, train_step.capture_error_mode)

@@ -22,7 +22,10 @@ can learn from symbolic codes while another learns from rendered pixels.
   samples (``ppo_hetero.group_loss``).
 
 Feedforward only: recurrent hetero training is encode-only
-(``ppo_hetero_rnn.py``).
+(``ppo_hetero_rnn.py``). ``make_train_step_hetero_mixed(..., mesh=...)`` is
+the JAX GSPMD step: the update gathers the codes and the EnvState store in
+global env order, and each rank re-renders only its share of a
+minibatch's blocks.
 """
 from __future__ import annotations
 
@@ -36,10 +39,10 @@ from ..core.state import EnvParams
 from ..device import resolve
 from ..models import ActorCritic
 from ..vector import obs_groups
-from .graph import GraphedStep
-from .ppo import (PPOConfig, aux_dim, episode_metrics, make_optimizer,
+from .mesh import Mesh, gather_env
+from .ppo import (PPOConfig, Share, aux_dim, episode_metrics, make_optimizer,
                   run_epochs, shuffled_blocks, state_block_size, step_labels)
-from .ppo_hetero import (_LABELS, group_loss, group_obs, label_rows,
+from .ppo_hetero import (_LABELS, graphed, group_loss, group_obs, label_rows,
                          make_rollout_hetero, warn_dropped)
 
 
@@ -92,10 +95,10 @@ def _torsos(cfg: PPOConfig, groups):
 
 
 def make_rollout_hetero_mixed(env_params: EnvParams, cfg: PPOConfig, nets,
-                              device="cuda"):
+                              device="cuda", mesh: Mesh = None):
     """``ppo_hetero.make_rollout_hetero`` for a mixed population: the
     encode groups' codes and, with any pixel group, the pre-step
-    EnvStates stored."""
+    EnvStates stored (``mesh``: on this rank's envs, as there)."""
     groups = mixed_groups(env_params)
     if len(nets) != len(groups):
         raise ValueError(f"{len(nets)} nets for {len(groups)} observation "
@@ -103,11 +106,11 @@ def make_rollout_hetero_mixed(env_params: EnvParams, cfg: PPOConfig, nets,
     pixels = any(gp.observation_style != "encode" for _, gp in groups)
     return make_rollout_hetero(env_params, cfg, nets, device=device,
                                groups=groups, torsos=_torsos(cfg, groups),
-                               store_states=pixels)
+                               store_states=pixels, mesh=mesh)
 
 
 def make_update_hetero_mixed(env_params: EnvParams, cfg: PPOConfig, nets,
-                             optimizer, device="cuda"):
+                             optimizer, device="cuda", mesh: Mesh = None):
     """Build ``update(traj, last_value, key) -> metrics``, the update half
     of the JAX ``make_train_step_hetero_mixed``: GAE on (T, N*B); G =
     T * (B // c) (step, env-chunk) blocks of c envs
@@ -118,7 +121,16 @@ def make_update_hetero_mixed(env_params: EnvParams, cfg: PPOConfig, nets,
     the pixel groups' on a re-render of their observers from the
     minibatch's S = mb * c states (one board painted with the levels; K1
     and K3 once per pixel group), labels aligned to the render's (n_g, S)
-    order, and ``ppo_hetero.group_loss``."""
+    order, and ``ppo_hetero.group_loss``.
+
+    ``mesh``: the unsharded update of the global batch, as
+    ``ppo.make_update``'s mesh path: the labels, the encode groups' codes
+    and the stored states gathered in global env order (one all-gather),
+    the global trajectory's blocks (c and G from the global B), the same
+    permutation on every rank, and each minibatch's blocks split over the
+    ranks (``ppo.Share``): a rank re-renders the pixel groups of its
+    ``ceil(mb / D)`` blocks only, and the union's statistics and the
+    gradients are ``psum``'d."""
     dev = resolve(device)
     groups = mixed_groups(env_params)
     B, T = cfg.n_envs, cfg.rollout_len
@@ -137,9 +149,22 @@ def make_update_hetero_mixed(env_params: EnvParams, cfg: PPOConfig, nets,
             f"--envs with more factors of 2 or fewer minibatches")
     used = G // cfg.n_minibatches * cfg.n_minibatches
     params = [p for p in nets.parameters() if p.requires_grad]
+    share = count = reduce = None
+    if mesh is not None:
+        # a block holds N * c samples; the weights are aligned per group
+        share = Share(mesh, used // cfg.n_minibatches,
+                      env_params.n_agents * c, lambda w: w, dev)
+        count, reduce = share.count, mesh.psum
 
     def blocks(traj, last_value):
         per_step = step_labels(traj, last_value, cfg, False)   # (T, N, B)
+        codes = {g: x for g, x in enumerate(traj["obs"]) if x is not None}
+        states = traj.get("state")
+        if mesh is not None:
+            with record_function("update.all_gather"):
+                per_step, codes, states = gather_env(mesh, [
+                    (per_step, 2), (codes, 3),
+                    (() if states is None else states, 1)])
         out = {}
         for g, (idxs, gp) in enumerate(groups):
             n_g = len(idxs)
@@ -147,13 +172,13 @@ def make_update_hetero_mixed(env_params: EnvParams, cfg: PPOConfig, nets,
                 out[k, g] = label_rows(per_step[k], idxs).reshape(
                     T, n_g, Bc, c).permute(0, 2, 1, 3).reshape(G, n_g, c)
             if gp.observation_style == "encode":
-                out["obs", g] = traj["obs"][g].reshape(
+                out["obs", g] = codes[g].reshape(
                     T, n_g, -1, Bc, c).permute(0, 3, 1, 2, 4).reshape(
                         G, n_g, -1, c)
         if pixels:
             # (T, B, ...) -> (G, c, ...): block (t, k) holds envs
             # k*c ... (k+1)*c - 1 of step t, the labels' block order
-            out["state"] = traj["state"].map(
+            out["state"] = states.map(
                 lambda x: x.reshape((G, c) + x.shape[2:]))
         return out
 
@@ -172,6 +197,8 @@ def make_update_hetero_mixed(env_params: EnvParams, cfg: PPOConfig, nets,
                     # stored codes (mb, n_g, F_g, c): logits (mb, n_g, c, A)
                     logits, value = net(batch["obs", g])
                     lab = {k: batch[k, g] for k in _LABELS}
+                    if share is not None:
+                        lab["w"] = share.w[:, None, None]
                 else:
                     # the re-render's (n_g, S, ...): labels (mb, n_g, c)
                     # to its (n_g, S) order
@@ -179,21 +206,24 @@ def make_update_hetero_mixed(env_params: EnvParams, cfg: PPOConfig, nets,
                     n_g = len(groups[g][0])
                     lab = {k: batch[k, g].transpose(0, 1).reshape(n_g, -1)
                            for k in _LABELS}
+                    if share is not None:
+                        lab["w"] = share.w.repeat_interleave(c)
                 parts.append((logits, value, lab))
-            return group_loss(parts, cfg)
+            return group_loss(parts, cfg, mesh, count)
 
     def update(traj, last_value, key):
         with record_function("update.gae"):
             blocked = blocks(traj, last_value)
         warn_dropped("mixed hetero PPO minibatching", G, used)
-        return run_epochs(shuffled_blocks(blocked, G, used, cfg), loss_fn,
-                          params, optimizer, key, cfg, dev)
+        return run_epochs(shuffled_blocks(blocked, G, used, cfg, share),
+                          loss_fn, params, optimizer, key, cfg, dev, reduce)
 
     return update
 
 
 def make_train_step_hetero_mixed(env_params: EnvParams, cfg: PPOConfig,
-                                 nets, optimizer, device="cuda", jit=True):
+                                 nets, optimizer, device="cuda", jit=True,
+                                 mesh: Mesh = None):
     """Build ``train_step(env_state, key) -> (env_state, key, metrics)``, the
     JAX ``make_train_step_hetero_mixed`` on one device:
     :func:`make_rollout_hetero_mixed` then :func:`make_update_hetero_mixed`,
@@ -201,18 +231,18 @@ def make_train_step_hetero_mixed(env_params: EnvParams, cfg: PPOConfig,
     :func:`init_state_hetero_mixed` and are updated in place. ``jit`` as in
     ``ppo.make_train_step``: True (the default) gives one CUDA graph of the
     whole step on the card, its returned tensors donated; False the raw
-    eager step (for ``ppo.multi_step``)."""
+    eager step (for ``ppo.multi_step``). ``mesh``: the JAX ``mesh=`` (GSPMD)
+    step, as ``ppo_hetero.make_train_step_hetero``'s."""
     dev = resolve(device)
-    rollout = make_rollout_hetero_mixed(env_params, cfg, nets, device=dev)
+    rollout = make_rollout_hetero_mixed(env_params, cfg, nets, device=dev,
+                                        mesh=mesh)
     update = make_update_hetero_mixed(env_params, cfg, nets, optimizer,
-                                      device=dev)
+                                      device=dev, mesh=mesh)
 
     def train_step(env_state, key):
         env_state, key, traj, last_value, _ = rollout(env_state, key)
-        metrics = episode_metrics(update(traj, last_value, key), traj)
+        metrics = episode_metrics(update(traj, last_value, key), traj, mesh)
         return env_state, rng.fold_in(key, 1), metrics
 
-    if jit:
-        return GraphedStep(train_step,
-                           "ppo_hetero_mixed.make_train_step_hetero_mixed")
-    return train_step
+    return graphed(train_step,
+                   "ppo_hetero_mixed.make_train_step_hetero_mixed", mesh, jit)

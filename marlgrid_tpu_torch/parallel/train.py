@@ -43,10 +43,12 @@ directories with the run's ``config.json``.
 NCCL on the card, gloo on the CPU; ``--coordinator host:port`` with
 ``--num-processes`` and ``--process-id``, or torchrun's variables), and a
 run trains over ``parallel/mesh.py``'s data axis of all of them, as the
-JAX CLI trains over its mesh: feedforward (``--overlap`` too) and
-recurrent (image and rich obs too) on the sharded default path,
-``ppo.make_train_step(mesh=...)`` and ``ppo_rnn.make_train_step_rnn(
-mesh=...)``, which computes the unsharded step of the global batch.
+JAX CLI trains over its mesh: feedforward (``--overlap`` too), recurrent
+(image and rich obs too) and hetero populations (``--agent-config``) on
+the sharded default path, ``ppo.make_train_step(mesh=...)``,
+``ppo_rnn.make_train_step_rnn(mesh=...)`` and the hetero trainers'
+``make_train_step_hetero*(mesh=...)``, which compute the unsharded step
+of the global batch.
 ``--shard-map`` trains with ``ppo.make_train_step_shard_map`` (with
 ``--rnn``, ``ppo_rnn.make_train_step_rnn_shard_map``) instead: D = 1 in
 one process, or one rank per process under ``--distributed``. On either,
@@ -55,15 +57,13 @@ optimizer state, through ``mesh.broadcast_from`` (the counterpart of the
 JAX CLI's replicated ``device_put``); each rank logs the same metrics to
 its own ``--metrics``; rank 0 writes the checkpoints, the env state (and
 ``h``) gathered in global env order, so a checkpoint holds the global
-batch and ``--resume`` slices it for any D that divides ``--envs``. A
-hetero population (``--agent-config``) trains in one process.
+batch and ``--resume`` slices it for any D that divides ``--envs``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
-import os
 import time
 
 import torch
@@ -84,24 +84,11 @@ from . import ppo, ppo_hetero, ppo_hetero_mixed, ppo_hetero_rnn, ppo_rnn
 BUILTIN_SCENARIOS = ("empty", "cluttered", "doorkey", "goal_cycle")
 
 
-def world_size(args) -> int:
-    """The processes a run asks for: 1 without ``--distributed``, else
-    ``--num-processes`` or torchrun's ``WORLD_SIZE``."""
-    if not args.distributed:
-        return 1
-    if args.num_processes is not None:
-        return args.num_processes
-    return int(os.environ.get("WORLD_SIZE", "1"))
-
-
 #: (is it asked for, flag, the ROADMAP slice that brings it) for each flag
 #: with no path in the port yet
 LATER = (
     (lambda a: a.model_shards != 1, "--model-shards > 1",
-     "Slice G2b (the 'model' axis)"),
-    (lambda a: world_size(a) > 1 and a.agent_config and not a.shard_map,
-     "--agent-config with more than one process",
-     "Slice G2b (the hetero trainers' sharded path)"),
+     "Slice G2c (the 'model' axis)"),
 )
 
 #: the calls that --profile-dir traces (0-based), as the JAX CLI does
@@ -368,12 +355,12 @@ def make_step(ep: EnvParams, cfg, net, opt, dev, jit=True, **shards):
     ``--shard-map``'s explicit-collective step (``make_train_step``'s
     keywords)."""
     if ep.has_hetero_obs and cfg.rnn:
-        return ppo_hetero_rnn.make_train_step_hetero_rnn(ep, cfg, net, opt,
-                                                         device=dev, jit=jit)
+        return ppo_hetero_rnn.make_train_step_hetero_rnn(
+            ep, cfg, net, opt, device=dev, jit=jit, **shards)
     if ep.has_hetero_obs:
         make = (ppo_hetero_mixed.make_train_step_hetero_mixed if is_mixed(ep)
                 else ppo_hetero.make_train_step_hetero)
-        return make(ep, cfg, net, opt, device=dev, jit=jit)
+        return make(ep, cfg, net, opt, device=dev, jit=jit, **shards)
     if cfg.rnn:
         return ppo_rnn.make_train_step_rnn(ep, cfg, net, opt, device=dev,
                                            jit=jit, **shards)
@@ -508,9 +495,8 @@ def main(argv=None):
 def train(args, dev):
     ep, cfg = build(args)
     # the data axis: --shard-map's, or every rank of --distributed (the
-    # sharded default path; a hetero population trains in one process)
-    sharded = args.shard_map or (args.distributed
-                                 and not ep.has_hetero_obs)
+    # sharded default path)
+    sharded = args.shard_map or args.distributed
     mesh = mesh_mod.make_mesh(device=dev) if sharded else None
     key = rng.PRNGKey(args.seed, device=dev)
     gen = torch.Generator().manual_seed(args.seed)

@@ -185,11 +185,13 @@ def run_cases(tmp, devices, cases, d1_case=None):
     started first), JAX's GSPMD step of each while they run, and the
     port's D = 1 run of ``d1_case``."""
     made = {name: make_case(*spec[:3]) for name, spec in cases.items()}
-    wait = torch_dist_worker.start(
-        tmp, "train", dict(runs=[port_run(c) for c in made.values()]))
-    jax_out = {name: jax_mesh_step(c, devices) for name, c in made.items()}
-    d1 = port_d1(made[d1_case]) if d1_case else None
-    ranks = wait()
+    with torch_dist_worker.start(
+            tmp, "train",
+            dict(runs=[port_run(c) for c in made.values()])) as wait:
+        jax_out = {name: jax_mesh_step(c, devices)
+                   for name, c in made.items()}
+        d1 = port_d1(made[d1_case]) if d1_case else None
+        ranks = wait()
     return dict(jax=jax_out, d1=d1, ranks={
         name: [r[i] for r in ranks] for i, name in enumerate(cases)})
 

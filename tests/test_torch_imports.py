@@ -3,9 +3,10 @@
 A static AST scan (not ``sys.modules``: a site customization may import
 jax at interpreter start) of every module of ``marlgrid_tpu_torch`` (the
 data axis ``parallel/mesh.py`` among them), of ``chip_smoke.py`` and
-``chip_pair.py``, and of the multi-process tests' worker
-``tests/torch_dist_worker.py`` finds no import of jax, flax, optax or the
-JAX package. The package imports, and its host env runs, without
+``chip_pair.py``, of the multi-process tests' worker
+``tests/torch_dist_worker.py`` and of the port's examples
+(``examples/torch_*.py``) finds no import of jax, flax, optax or the JAX
+package. The package imports, and its host env runs, without
 gymnasium, imageio and PIL (the card's machine has none of them).
 """
 import ast
@@ -19,9 +20,21 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "marlgrid_tpu"}
+EXAMPLES = [ROOT / "examples" / f"torch_{name}.py" for name in (
+    "batched_rollout", "custom_env", "hetero_population", "random_rollout")]
 FILES = sorted((ROOT / "marlgrid_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_pair.py",
-    ROOT / "tests" / "torch_dist_worker.py"]
+    ROOT / "tests" / "torch_dist_worker.py"] + EXAMPLES
+
+
+def load_example(path: Path):
+    """An example script as a module (its ``main(argv)`` not called)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _imported_roots(path: Path):
@@ -112,7 +125,29 @@ def test_entry_points_default_to_cuda(monkeypatch):
                                                               None),
         lambda: train.main(["--scenario", "empty", "--agent-config",
                             '[{"view_size":5},{"view_size":3}]', "--envs",
-                            "4", "--iters", "1"]))
+                            "4", "--iters", "1"]),
+        # the hetero trainers' sharded default path
+        lambda: ppo_hetero.make_rollout_hetero(het, cfg, None,
+                                               mesh=cpu_mesh),
+        lambda: ppo_hetero.make_update_hetero(het, cfg, None, None,
+                                              mesh=cpu_mesh),
+        lambda: ppo_hetero.make_train_step_hetero(het, cfg, None, None,
+                                                  mesh=cpu_mesh),
+        lambda: ppo_hetero_rnn.make_update_hetero_rnn(het, rcfg, None, None,
+                                                      mesh=cpu_mesh),
+        lambda: ppo_hetero_rnn.make_train_step_hetero_rnn(
+            het, rcfg, None, None, mesh=cpu_mesh),
+        lambda: ppo_hetero_mixed.make_update_hetero_mixed(
+            mix, cfg, [], None, mesh=cpu_mesh),
+        lambda: ppo_hetero_mixed.make_train_step_hetero_mixed(
+            mix, cfg, [], None, mesh=cpu_mesh),
+        lambda: train.main(["--scenario", "empty", "--agent-config",
+                            '[{"view_size":5},{"view_size":3}]', "--envs",
+                            "4", "--iters", "1", "--distributed",
+                            "--num-processes", "1", "--process-id", "0",
+                            "--coordinator", "localhost:1"]))
+    example_calls = tuple((lambda m=load_example(p): m.main([]))
+                          for p in EXAMPLES)
     host_calls = (
         lambda: wrapper.MultiGridEnv(params=ep),
         lambda: envs.make("MarlGrid-3AgentCluttered15x15-v0"),
@@ -133,7 +168,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
                  lambda: ppo_rnn.make_train_step_rnn(ep, rcfg, None, None),
                  lambda: train.main(["--scenario", "empty", "--agents", "1",
                                      "--envs", "4", "--iters", "1"])
-                 ) + mesh_calls + hetero_calls + host_calls:
+                 ) + mesh_calls + hetero_calls + host_calls + example_calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     state, obs = VectorEnv(ep, 4, device="cpu").reset(key)

@@ -98,7 +98,7 @@ def test_identity_collectives_without_a_group():
 def test_make_mesh_refusals():
     with pytest.raises(AssertionError, match=r"^2x1 mesh != 1 devices$"):
         mesh_mod.make_mesh(n_data=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice G2b"):
+    with pytest.raises(NotImplementedError, match="Slice G2c"):
         mesh_mod.make_mesh(n_model=2, device="cpu")
     with pytest.raises(ValueError, match="process group"):
         mesh_mod.Mesh(2, 0, None, torch.device("cpu"))

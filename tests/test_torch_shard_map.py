@@ -192,12 +192,12 @@ def results(tmp_path_factory, devices8):
     started first), JAX's step of each while they run, and the port's
     D = 1 run of the no-reset case."""
     cases = {name: jax_case(name) for name in CASES}
-    wait = torch_dist_worker.start(
-        tmp_path_factory.mktemp("shard_map"), "train",
-        dict(runs=[port_run(c) for c in cases.values()]))
-    jax_out = {name: jax_step(c, devices8) for name, c in cases.items()}
-    d1 = port_d1(cases["no_resets"])
-    ranks = wait()
+    with torch_dist_worker.start(
+            tmp_path_factory.mktemp("shard_map"), "train",
+            dict(runs=[port_run(c) for c in cases.values()])) as wait:
+        jax_out = {name: jax_step(c, devices8) for name, c in cases.items()}
+        d1 = port_d1(cases["no_resets"])
+        ranks = wait()
     return dict(jax=jax_out, d1=d1, ranks={
         name: [r[i] for r in ranks] for i, name in enumerate(CASES)})
 

@@ -23,12 +23,12 @@ def results(tmp_path_factory, devices8):
     cases = {name: jax_case(name, rnn="gru", hidden=16) for name in CASES}
     bptt = port_run(cases["resets"], steps=3, dtype=torch.bfloat16)
     bptt["cfg"] = dict(bptt["cfg"], bptt_window=4)
-    wait = torch_dist_worker.start(
-        tmp_path_factory.mktemp("shard_map_rnn"), "train",
-        dict(runs=[port_run(c) for c in cases.values()] + [bptt]))
-    jax_out = {name: jax_step(c, devices8) for name, c in cases.items()}
-    d1 = port_d1(cases["no_resets"])
-    ranks = wait()
+    with torch_dist_worker.start(
+            tmp_path_factory.mktemp("shard_map_rnn"), "train",
+            dict(runs=[port_run(c) for c in cases.values()] + [bptt])) as wait:
+        jax_out = {name: jax_step(c, devices8) for name, c in cases.items()}
+        d1 = port_d1(cases["no_resets"])
+        ranks = wait()
     out = {name: [r[i] for r in ranks] for i, name in enumerate(CASES)}
     return dict(jax=jax_out, d1=d1, ranks=out,
                 bptt=[r[len(CASES)] for r in ranks])

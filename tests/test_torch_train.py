@@ -6,7 +6,8 @@ ROADMAP slice that brings it. ``--distributed`` trains on two gloo ranks,
 on the sharded default path (feedforward, ``--overlap``, recurrent encode
 and image) and with ``--shard-map``, checkpoints the global batch and
 resumes in one process; the JAX CLI's ``--shard-map`` exits are
-reproduced. ``--torso cnn`` trains
+reproduced. ``--agent-config`` trains on two gloo ranks too. ``--torso
+cnn`` trains
 from the row store and evaluates; ``--profile-dir`` writes a trace;
 ``--debug-nans`` raises.
 ``--agent-config`` trains each of the three hetero trainers, checkpoints
@@ -107,10 +108,10 @@ def test_cli_image(tmp_path):
 @pytest.mark.parametrize("flag,slice_", [
     (["--rnn", "gru", "--model-shards", "2"], "Slice G"),
     (["--rnn", "gru", "--agent-config", "[{}]", "--distributed",
-      "--num-processes", "2"], "Slice G"),
+      "--num-processes", "2", "--model-shards", "2"], "Slice G"),
     (["--agent-config", "[{}]", "--model-shards", "2"], "Slice G"),
     (["--overlap", "--agent-config", "[{}]", "--distributed",
-      "--num-processes", "2"], "Slice G"),
+      "--num-processes", "2", "--model-shards", "2"], "Slice G"),
     (["--model-shards", "2"], "Slice G"),
     # not a missing slice: the JAX CLI stops at init_state_rnn's assert
     (["--rnn", "gru", "--torso", "cnn"], "mlp feature-major path"),
@@ -123,19 +124,17 @@ def test_unsupported_flag_names_its_slice(flag, slice_):
 @pytest.mark.parametrize("flag", [
     ["--model-shards", "2", "--shard-map"],
     ["--model-shards", "2", "--distributed", "--num-processes", "3"],
-    ["--agent-config", '[{"view_size":5},{"view_size":3}]', "--distributed",
-     "--num-processes", "2"],
-], ids=["model-shards", "multi-rank", "multi-rank-hetero"])
+], ids=["model-shards", "multi-rank"])
 def test_later_refusals_name_slice_g2(flag, monkeypatch):
-    """What stays refused after the sharded default path came, naming Slice
-    G2b: the 'model' axis, and a hetero population (``--agent-config``)
-    in more than one process, before any process group is made;
-    torchrun's WORLD_SIZE counts as --num-processes."""
-    with pytest.raises(SystemExit, match="Slice G2b"):
+    """What stays refused after the sharded paths came, naming Slice G2c:
+    the 'model' axis, before any process group is made, also in a
+    torchrun rank (its WORLD_SIZE set)."""
+    with pytest.raises(SystemExit, match="Slice G2c"):
         train.main(TINY + flag)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="Slice G2b"):
-        train.main(TINY + ["--distributed", "--agent-config", "[{}]"])
+    with pytest.raises(SystemExit, match="Slice G2c"):
+        train.main(TINY + ["--distributed", "--model-shards", "2",
+                           "--agent-config", "[{}]"])
 
 
 #: the JAX CLI's multi-process test config (tests/test_shard_map.py::
@@ -147,22 +146,22 @@ DIST = ["--device", "cpu", "--scenario", "empty", "--grid-size", "9",
 
 def _two_ranks(tmp_path, flags, tag):
     """Two gloo ranks of the CLI (a ``file://`` coordinator) with
-    ``flags``; each rank's JSONL records."""
+    ``flags``; each rank's JSONL records. Both ranks are killed and reaped
+    however the wait ends (``torch_dist_worker.reap``)."""
     import os
-    import subprocess
     import sys
 
+    import torch_dist_worker
+
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    procs = [subprocess.Popen(
+    procs = torch_dist_worker.spawn([
         [sys.executable, "-m", "marlgrid_tpu_torch.parallel.train"] + flags
         + ["--distributed", "--coordinator", f"file://{tmp_path}/{tag}store",
            "--num-processes", "2", "--process-id", str(i), "--metrics",
-           str(tmp_path / f"{tag}{i}.jsonl")],
-        cwd=root, env=dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1"),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for i in range(2)]
-    for i, p in enumerate(procs):
-        out = p.communicate(timeout=300)[0]
+           str(tmp_path / f"{tag}{i}.jsonl")] for i in range(2)],
+        root, dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1"))
+    for i, (p, out) in enumerate(zip(procs, torch_dist_worker.reap(procs,
+                                                                   300))):
         assert p.returncode == 0, f"rank {i}:\n{out[-3000:]}"
     return [[json.loads(line) for line in
              (tmp_path / f"{tag}{i}.jsonl").read_text().splitlines()]
@@ -226,30 +225,13 @@ def test_cli_shard_map_two_ranks(tmp_path):
     the global batch's env-steps; rank 0's checkpoint holds the global
     batch, resumes in one process (D = 1, with and without --shard-map)
     and evaluates from its path alone."""
-    import os
-    import subprocess
-    import sys
-
     from marlgrid_tpu_torch.parallel import evaluate
     from marlgrid_tpu_torch.utils import checkpoint
 
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ck = tmp_path / "ck"
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "marlgrid_tpu_torch.parallel.train"] + TINY + [
-            "--distributed", "--coordinator", f"file://{tmp_path}/store",
-            "--num-processes", "2", "--process-id", str(i), "--shard-map",
-            "--metrics", str(tmp_path / f"m{i}.jsonl"), "--checkpoint-dir",
-            str(ck), "--checkpoint-every", "2"],
-        cwd=root, env=dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1"),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for i in range(2)]
-    for i, p in enumerate(procs):
-        out = p.communicate(timeout=300)[0]
-        assert p.returncode == 0, f"rank {i}:\n{out[-3000:]}"
-    recs = [[json.loads(line) for line in
-             (tmp_path / f"m{i}.jsonl").read_text().splitlines()]
-            for i in range(2)]
+    recs = _two_ranks(tmp_path, TINY + [
+        "--shard-map", "--checkpoint-dir", str(ck), "--checkpoint-every",
+        "2"], "m")
     assert [r["step"] for r in recs[0]] == [0, 1]
     for a, b in zip(*recs):
         assert set(a) == FIELDS and np.isfinite(a["loss"])
@@ -379,6 +361,36 @@ def test_cli_agent_config(tmp_path, spec, rnn, kinds):
     assert [r["step"] for r in recs] == [0]
     for a, b in zip(resumed, nets):
         assert not torch.equal(next(a.parameters()), next(b.parameters()))
+
+
+@pytest.mark.parametrize("spec,rnn", [
+    (VIEWS, []), (VIEWS, ["--rnn", "gru"]), (MIXED, []),
+], ids=["views", "views-gru", "mixed"])
+def test_cli_distributed_hetero(tmp_path, spec, rnn):
+    """``--agent-config`` with ``--distributed`` in two CPU processes
+    trains each hetero trainer on the sharded default path
+    (``make_train_step_hetero*(mesh=...)``), as the JAX CLI trains a hetero
+    population over its mesh: both ranks log the same finite metrics over
+    the global batch's env-steps, and rank 0's checkpoint holds the global
+    batch (with ``--rnn``, each group's carry in global env order)."""
+    from marlgrid_tpu_torch.utils import checkpoint
+
+    ck = tmp_path / "ck"
+    recs = _two_ranks(tmp_path, HETERO + rnn + [
+        "--agent-config", spec, "--checkpoint-dir", str(ck),
+        "--checkpoint-every", "2"], "h")
+    assert [r["step"] for r in recs[0]] == [0, 1]
+    for a, b in zip(*recs):
+        assert set(a) == FIELDS and np.isfinite(a["loss"])
+        for k in FIELDS - {"time", "env_steps_per_s", "agent_steps_per_s"}:
+            assert a[k] == b[k], k
+    assert recs[0][-1]["env_steps"] == 2 * 8 * 4
+    assert recs[0][-1]["n_episodes"] > 0
+    tree = checkpoint.restore(ck, map_location="cpu")
+    assert all(v.shape[0] == 8 for v in tree["env_state"].values())
+    if rnn:
+        assert {g: tuple(h.shape) for g, h in tree["h"].items()} == {
+            0: (2, 8, 16), 1: (1, 8, 16)}
 
 
 @pytest.mark.parametrize("flag,match", [

@@ -18,12 +18,16 @@ it returns to OUTPUT (every rank writes its own file).
   ``"shard_map"`` (``ppo.make_train_step_shard_map``,
   ``ppo_rnn.make_train_step_rnn_shard_map``), or ``"mesh"``, the sharded
   default path (``ppo.make_train_step(mesh=...)``, with ``overlap`` too,
-  and ``ppo_rnn.make_train_step_rnn(mesh=...)``). It returns the first
-  minibatch's gradients as the optimizer sees them (after the all-reduce
-  and the clip), the sample count of every loss call (the logits' leading
-  shape), the collectives the steps called, and a snapshot after every
-  step: the weights, the env state and carry gathered in global env order,
-  the key and the metrics.
+  and ``ppo_rnn.make_train_step_rnn(mesh=...)``). A run whose params hold
+  per-agent observation configs takes the hetero family the train CLI
+  picks for it (``train.init``, ``train.make_step``: ``ppo_hetero``,
+  ``ppo_hetero_rnn`` or ``ppo_hetero_mixed``, ``mesh=``), its weights a
+  ModuleList's state_dict. It returns the first minibatch's gradients as
+  the optimizer sees them (after the all-reduce and the clip), the sample
+  count of every loss call (the logits' leading shape; on the hetero
+  families a tuple, one count a group), the collectives the steps called,
+  and a snapshot after every step: the weights, the env state and carry
+  gathered in global env order, the key and the metrics.
 """
 from __future__ import annotations
 
@@ -35,7 +39,9 @@ import torch.distributed as dist
 
 from marlgrid_tpu_torch.core.state import EnvParams, FIELDS, state_to_numpy
 from marlgrid_tpu_torch.parallel import mesh as mesh_mod
-from marlgrid_tpu_torch.parallel import ppo, ppo_rnn
+from marlgrid_tpu_torch.parallel import (ppo, ppo_hetero, ppo_hetero_mixed,
+                                         ppo_hetero_rnn, ppo_rnn)
+from marlgrid_tpu_torch.parallel import train as train_mod
 
 
 def gather_parts(rank):
@@ -90,6 +96,20 @@ def count_loss_samples(seen):
     ppo.ppo_loss = ppo_rnn.ppo_loss = counted
 
 
+def count_group_loss_samples(seen):
+    """Wrap ``group_loss`` where the three hetero trainers call it,
+    appending each call's per-group sample counts to ``seen``."""
+    loss = getattr(ppo_hetero.group_loss, "original", ppo_hetero.group_loss)
+
+    def counted(parts, *a, **k):
+        seen.append(tuple(p[0].shape[:-1].numel() for p in parts))
+        return loss(parts, *a, **k)
+
+    counted.original = loss
+    ppo_hetero.group_loss = ppo_hetero_rnn.group_loss = counted
+    ppo_hetero_mixed.group_loss = counted
+
+
 def train_run(args):
     mesh = mesh_mod.make_mesh(device="cpu")
     ep = EnvParams.from_dict(args["ep"])
@@ -98,7 +118,13 @@ def train_run(args):
     gen = torch.Generator().manual_seed(mesh.rank + 1)
     on_mesh = args.get("path", "shard_map") == "mesh"
     prev = None
-    if cfg.rnn:
+    hdim = 1
+    if ep.has_hetero_obs:
+        dev = torch.device("cpu")
+        net, opt, h = train_mod.init(ep, cfg, gen, dev)
+        h = train_mod.local_carry(mesh, h, hdim)
+        step = train_mod.make_step(ep, cfg, net, opt, dev, mesh=mesh)
+    elif cfg.rnn:
         net, opt, h = ppo_rnn.init_state_rnn(ep, cfg, gen, device="cpu")
         hdim = ppo_rnn.carry_env_dim(ep, cfg)
         h = ppo_rnn.map_carry(lambda x: mesh_mod.shard(mesh, x, hdim), h)
@@ -122,6 +148,7 @@ def train_run(args):
                                                  device="cpu")
     seen = []
     count_loss_samples(seen)
+    count_group_loss_samples(seen)
     if mesh.rank == 0:
         net.load_state_dict(args["state_dict"])
     mesh_mod.broadcast_from(mesh, list(net.state_dict().values()))
@@ -148,7 +175,7 @@ def train_run(args):
             weights={k: v.clone() for k, v in net.state_dict().items()},
             env={f: mesh_mod.gather(mesh, getattr(env, f)).numpy()
                  for f in FIELDS},
-            h=None if h is None else ppo_rnn.map_carry(
+            h=None if h is None else train_mod._carry_map(
                 lambda x: mesh_mod.gather(mesh, x, hdim), h),
             key=key.clone(), metrics={k: float(v) for k, v in m.items()}))
     return dict(snaps=snaps, grad0=grads[0], all_reduces=mesh.all_reduces,
@@ -172,14 +199,82 @@ def run(tmp_path, job, args, world=2, timeout=240):
     """Run ``world`` ranks of JOB on ``args`` (from the calling test) and
     return each rank's result, in rank order; fails with a rank's output if
     it exits non-zero."""
-    return start(tmp_path, job, args, world)(timeout)
+    with start(tmp_path, job, args, world) as wait:
+        return wait(timeout)
 
 
-def start(tmp_path, job, args, world=2):
-    """Start ``world`` ranks of JOB on ``args`` and return ``wait(timeout)``,
-    which returns :func:`run`'s result: the caller works while they run."""
-    import os
+def spawn(cmds, cwd, env):
+    """One process per command line of ``cmds``, its stdout and stderr on
+    one pipe; the caller :func:`reap`s them."""
     import subprocess
+
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(
+                cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    except BaseException:
+        stop(procs)
+        raise
+    return procs
+
+
+def reap(procs, timeout):
+    """Each process's output, in order, once it has exited (at most
+    ``timeout`` seconds a process); on the way out, whether the wait ended,
+    timed out or was interrupted, every process still running is killed,
+    and every one is reaped."""
+    try:
+        return [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        stop(procs)
+
+
+def stop(procs):
+    """Kill each process of ``procs`` that is still running, wait for it
+    and close its pipe."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    for p in procs:
+        p.wait()
+        if p.stdout is not None:
+            p.stdout.close()
+
+
+class Ranks:
+    """Ranks of a job started by :func:`start`: call it (``timeout``
+    seconds a rank) for their results, in rank order. As a context manager
+    it kills and reaps every rank still running when the block ends,
+    whether or not the block raised before the call; a rank that outlives
+    its caller otherwise is killed when the interpreter exits."""
+
+    def __init__(self, procs, outs, job):
+        import atexit
+
+        self.procs, self.outs, self.job = procs, outs, job
+        atexit.register(stop, procs)
+
+    def __call__(self, timeout=240):
+        logs = reap(self.procs, timeout)
+        for r, (p, log) in enumerate(zip(self.procs, logs)):
+            assert p.returncode == 0, \
+                f"rank {r} of {self.job} failed:\n{log[-4000:]}"
+        return [torch.load(o, weights_only=False) for o in self.outs]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        stop(self.procs)
+
+
+def start(tmp_path, job, args, world=2) -> Ranks:
+    """Start ``world`` ranks of JOB on ``args`` and return their
+    :class:`Ranks`, which the caller waits on after working while they
+    run: ``with start(...) as wait: ...; results = wait()``."""
+    import os
     import tempfile
     from pathlib import Path
 
@@ -189,27 +284,10 @@ def start(tmp_path, job, args, world=2):
     torch.save(args, inp)
     outs = [d / f"rank{r}.pt" for r in range(world)]
     env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), job, str(r), str(world),
-         str(store), str(inp), str(outs[r])], cwd=root, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-
-    def wait(timeout=240):
-        logs = []
-        for p in procs:
-            try:
-                logs.append(p.communicate(timeout=timeout)[0])
-            except subprocess.TimeoutExpired:
-                for q in procs:
-                    q.kill()
-                raise
-        for r, (p, log) in enumerate(zip(procs, logs)):
-            assert p.returncode == 0, \
-                f"rank {r} of {job} failed:\n{log[-4000:]}"
-        return [torch.load(o, weights_only=False) for o in outs]
-
-    return wait
+    procs = spawn([[sys.executable, os.path.abspath(__file__), job, str(r),
+                    str(world), str(store), str(inp), str(outs[r])]
+                   for r in range(world)], root, env)
+    return Ranks(procs, outs, job)
 
 
 if __name__ == "__main__":
