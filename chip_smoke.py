@@ -122,7 +122,16 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    first torchrun run (their rates marked as measured on a shared card),
    and ``torchrun --nproc-per-node 2 ... --agent-config --device cpu``
    (two gloo ranks on the host, B = 64: NCCL refuses two ranks on one
-   card), both ranks logging the same metrics;
+   card), both ranks logging the same metrics, and ``torchrun
+   --nproc-per-node 2 ... --model-shards 2 --device cpu`` (a (1, 2) mesh
+   of gloo ranks on the host: the model axis's two ranks log the same
+   metrics); before the torchrun runs, the tensor-parallel feedforward
+   step (``tensor_parallel.TensorParallelActorCritic`` in
+   ``ppo.make_train_step(mesh=...)``) over gloo ranks on the host (B = 64,
+   the resets case): (1, 2) in bf16 and in float32 and (2, 2) in float32,
+   against the unsharded step from the same weights (env state and key
+   bit-equal; float32 weights within rtol 2e-4 / atol 2e-5; bf16 no
+   further from the unsharded bf16 step than that is from float32's);
 8c. the host API (``wrapper.MultiGridEnv`` through ``envs.make`` and
    ``envs.env_from_config``): a cluttered 15x15 image env, a goal-cycle
    encode env and a doorkey image env, one episode each to done bit-equal
@@ -172,7 +181,16 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    (``make_train_step_hetero*``, 8b's populations at B = 4096, T = 16),
    each beside its own unsharded graphed step from the same start (its
    replay's busy time and memory rise), ``multi_step`` on the all-encode
-   one;
+   one; then the 'model' axis on the same group (n_model = 1: its
+   collectives run on a group of one rank and are captured): the
+   tensor-parallel feedforward step at full width, T = 32, graphed beside
+   the unsharded graphed step from the same start (env state and key
+   bit-equal, weights within rtol 2e-4 / atol 2e-5, the collectives a
+   step by axis, K2f and K2b launches, busy time and memory), and one
+   eager step each of the unsharded, plain ``mesh=`` and tensor-parallel
+   steps at T = 16 (the last two bit-equal); then
+   ``__graft_entry_torch__``: ``entry()`` card vs CPU and
+   ``dryrun_multichip(1)``, seven finite losses;
 10. the env-only phase at bench.py's config (cluttered 15x15, 3 agents,
    25 clutter, B = 32768, T = 16 random actions, board pool 256), with
    encode and with image observations;
@@ -180,6 +198,10 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    random policy), shared-board and independent resets: the graphed
    rollout (one CUDA graph) bit-equal to the eager one from the same
    start, and its env-steps/s beside the eager rate;
+10c. the timer check: K1 at (4096, 196) timed with the card's hold sized
+   on an idle host while the host is loaded (the unchecked timer, which
+   read K1 at 76.88-85.49 us in five runs), by the checked ``time_ms``
+   and in one CUDA graph of 50 launches;
 11. the kernels' times with CUDA events at the rollout's and the update's
    shapes (K3 also at the image env-only shape; K2f, K5f and K5b also at
    a hetero 5x5 group's update shape with the full vocabulary, on the
@@ -243,14 +265,39 @@ def sync():
     torch.cuda.synchronize()
 
 
-def time_ms(fn, iters=50, warmup=5):
+#: what :func:`time_ms` saw: its timed runs, the runs it repeated because
+#: the card's hold ended before the host had queued the timed launches,
+#: the longest hold it took (ms), and the functions it timed that wait on
+#: the card themselves (unchecked: no hold can outlast their queueing)
+TIMER = dict(runs=0, retried=0, max_hold_ms=0.0, waiting=0)
+
+
+def _hold(ms: float):
+    """Hold the card for about ``ms`` (at least; >= 2 GHz cycles per ns
+    overestimates the clock, so it only lasts longer)."""
+    torch.cuda._sleep(int(ms * 1e-3 * 2e9) + 1000)
+
+
+def time_ms(fn, iters=50, warmup=5, checked=True):
     """(device ms, host ms) per call of ``fn``, means over ``iters`` calls.
 
     Device time: CUDA events around ``iters`` back-to-back calls that the
     host queued while the card was held busy by ``torch.cuda._sleep``, so
     the host's launch cost (Python, checks, ctypes) does not show in it.
-    Host time: wall clock per call with the card idle, synchronized at the
-    end — what a caller pays per call when the kernel is this small.
+    The hold is sized at twice the host's idle queueing time; once the
+    launches are queued, the start event must still be pending (the card
+    still inside the hold). If it is not, the card ran ahead of the host
+    and the events timed the host's pace: the run is repeated once with a
+    hold four times longer (:data:`TIMER` counts them). A function that
+    waits on the card itself (some plain versions: a host copy, a
+    data-dependent shape) ends any hold before its calls are queued; it is
+    seen so first (one call behind a hold returns after the hold has
+    ended), or by running dry again behind the longer hold, and its
+    reading is then that of an unchecked run: the card's time with the
+    host's gaps. ``checked=False``: one run, unchecked (the
+    timer before that repair, kept for the timer check phase). Host time:
+    wall clock per call with the card idle, synchronized at the end: what
+    a caller pays per call when the kernel is this small.
     """
     for _ in range(warmup):
         fn()
@@ -262,15 +309,158 @@ def time_ms(fn, iters=50, warmup=5):
     host_ms = (time.perf_counter() - t0) / iters * 1e3
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    # hold the card for about twice the host's queueing time (>= 2 GHz
-    # cycles per ns is an overestimate of the clock, so it only lasts longer)
-    torch.cuda._sleep(int(2 * host_ms * 1e-3 * iters * 2e9) + 1000)
-    start.record()
-    for _ in range(iters):
+    if checked:
+        _hold(10 * host_ms + 1.0)
+        start.record()
         fn()
-    end.record()
-    sync()
+        waits = start.query()
+        sync()
+        if waits:
+            TIMER["waiting"] += 1
+            checked = False
+    hold = 2 * host_ms * iters
+    for _ in range(2):
+        _hold(hold)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        held = not start.query()
+        sync()
+        if not checked:
+            break
+        TIMER["runs"] += 1
+        TIMER["max_hold_ms"] = max(TIMER["max_hold_ms"], hold)
+        if held:
+            break
+        TIMER["retried"] += 1
+        hold *= 4
+    else:
+        TIMER["waiting"] += 1
     return start.elapsed_time(end) / iters, host_ms
+
+
+def graph_ms(fn, iters=50, replays=5):
+    """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph, ``replays`` replays each timed with CUDA events (no host between
+    the launches), the median. A cross-check of :func:`time_ms` for
+    kernels whose wrapper launches from the host thread (ctypes), which a
+    graph captures."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(replays):
+        start.record()
+        g.replay()
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[replays // 2]
+
+
+class _HostSlows:
+    """``fn`` whose caller, the host, slows after its first ``fast``
+    calls: each later call first spins ``delay_ms`` on the host. What a
+    host that is slower while the timed launches are queued than while
+    :func:`time_ms` sized the card's hold looks like to the timer."""
+
+    def __init__(self, fn, fast: int, delay_ms: float):
+        self.fn, self.fast, self.delay_s, self.calls = fn, fast, \
+            delay_ms * 1e-3, 0
+
+    def __call__(self):
+        self.calls += 1
+        if self.calls > self.fast:
+            until = time.perf_counter() + self.delay_s
+            while time.perf_counter() < until:
+                pass
+        return self.fn()
+
+
+def phase_timer_check(card, iters=50, warmup=5, delay_ms=0.08):
+    """Why K1's device time once read 76.88-85.49 us in five runs and
+    3.71-3.90 us in others. K1 at (4096, 196) int32, ``iters``
+    launches, by (1) the unchecked timer (the one before the repair: a
+    hold sized from the host's queueing time while the card is idle); (2)
+    the same when the host queues the timed launches ``delay_ms`` slower a
+    call than it did while the hold was sized (:class:`_HostSlows`), with
+    the start event's state once they are queued (complete: the hold ended
+    first, and the events timed the host's pace); (3) the checked
+    :func:`time_ms` on that slowing host, which sees this and repeats with
+    a longer hold; (4) :func:`graph_ms`, no host in the timed run. Fails
+    if (3) reads more than 2x (4), or if (2) did not run dry."""
+    from marlgrid_tpu_torch.ops import transpose as T
+
+    x = torch.randint(0, 2 ** 20, (4096, 196), dtype=torch.int32,
+                      device="cuda")
+
+    def k1():
+        return T.transpose_bk(x)
+
+    out = dict(graph_ms=graph_ms(k1, iters))
+    idle = [time_ms(k1, iters, warmup, checked=False) for _ in range(3)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    slowed, dry = [], []
+    for _ in range(3):
+        # the old timer: its hold sized on the host's own pace, then the
+        # host slows while it queues the timed launches
+        fn = _HostSlows(k1, warmup + iters, delay_ms)
+        for _ in range(warmup):
+            fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        sync()
+        host_ms = (time.perf_counter() - t0) / iters * 1e3
+        _hold(2 * host_ms * iters)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        dry.append(bool(start.query()))
+        sync()
+        slowed.append(start.elapsed_time(end) / iters)
+    before = TIMER["retried"]
+    checked = [time_ms(_HostSlows(k1, warmup + iters, delay_ms), iters,
+                       warmup)[0] for _ in range(3)]
+    retried = TIMER["retried"] - before
+    out.update(unchecked_ms=[t for t, _ in idle],
+               host_ms=[h for _, h in idle], slowed_ms=slowed, ran_dry=dry,
+               checked_slowed_ms=checked, retried=retried,
+               delay_ms=delay_ms)
+
+    def us(xs):
+        return ", ".join(f"{v * 1e3:.2f}" for v in xs)
+
+    print(f"[timer] K1 (4096, 196) int32, {iters} launches: the unchecked "
+          f"timer {us(out['unchecked_ms'])} us (host {us(out['host_ms'])} "
+          f"us per call, card idle); with the host {delay_ms * 1e3:.0f} us "
+          f"a call slower while it queues the timed launches than while the "
+          f"hold was sized: {us(slowed)} us, the hold over before the last "
+          f"launch was queued: {dry}; the checked timer on that host "
+          f"{us(checked)} us ({retried} runs repeated with a longer hold); "
+          f"one CUDA graph of the launches {out['graph_ms'] * 1e3:.2f} us "
+          f"per launch [{card}]")
+    if not (all(dry) and max(checked) <= 2 * out["graph_ms"]):
+        raise AssertionError(f"timer check: the slowed unchecked runs ran "
+                             f"dry {dry}; the checked timer read "
+                             f"{us(checked)} us, the graph "
+                             f"{out['graph_ms'] * 1e3:.2f} us")
+    return out
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -2736,11 +2926,13 @@ def phase_timings(roll, card, seed):
                       device="cuda")
     k1 = dict(bytes=2 * x.numel() * 4, ops=0)
     k1["ms"], k1["host_ms"] = time_ms(lambda: T.transpose_bk(x))
+    k1["graph_ms"] = graph_ms(lambda: T.transpose_bk(x))
     k1["plain_ms"], _ = time_ms(lambda: T.transpose_bk_plain(x))
     k1["library_ms"], _ = time_ms(lambda: x.t().contiguous())
     _bound(k1)
-    print(f"[time] K1 (4096, 196) int32: {k1['ms'] * 1e3:.2f} us (host "
-          f"{k1['host_ms'] * 1e3:.2f} us per call), plain "
+    print(f"[time] K1 (4096, 196) int32: {k1['ms'] * 1e3:.2f} us (one CUDA "
+          f"graph of 50 launches {k1['graph_ms'] * 1e3:.2f} us a launch; "
+          f"host {k1['host_ms'] * 1e3:.2f} us per call), plain "
           f"{k1['plain_ms'] * 1e3:.2f} us, x.t().contiguous() "
           f"{k1['library_ms'] * 1e3:.2f} us, bound "
           f"{k1['bound_ms'] * 1e3:.2f} us ({k1['bound_by']}) [{card}]")
@@ -3224,6 +3416,9 @@ GSPMD_PATHS = {
     "rnn": GRAPH_PATHS["rnn"],
     **{name: (flags + ("--rollout", "16"), plane_major, 4096)
        for name, (flags, plane_major) in HETERO_PATHS.items()},
+    # the tensor-parallel feedforward step (the 'model' axis), at the
+    # encode mesh= step's depth
+    "tp encode": GRAPH_PATHS["encode"],
 }
 
 
@@ -3498,12 +3693,150 @@ def phase_shard_map(seed, card):
                 out[f"gspmd {name}"] = phase_gspmd(
                     seed, card, name, mesh, multi=name == "hetero",
                     own_baseline=True)
+            out["tp encode"] = phase_gspmd(seed, card, "tp encode", mesh,
+                                           multi=False, tp=True)
+            out["tp eager"] = phase_tp_eager(seed, card, mesh)
+            out["graft"] = phase_graft(card)
         finally:
             dist.destroy_process_group()
     return out
 
 
-def phase_gspmd(seed, card, name, mesh, multi=True, own_baseline=False):
+def phase_tp_eager(seed, card, mesh, T=16):
+    """One eager step each, from one start, of the unsharded step, the
+    plain ``mesh=`` step and the tensor-parallel ``mesh=`` step (the
+    encode path at B = 4096, T = 16) on the NCCL group's mesh: the
+    tensor-parallel step bit-equal to the plain ``mesh=`` step (weights,
+    first gradients, env state, key, loss: at n_model = 1 it runs the same
+    operations). Reported beside it, not held to a bound: each one's
+    distance to the unsharded step, whose reductions differ in order
+    (``ppo.Share``), and the largest first gradient among the weights
+    beyond rtol 2e-4, atol 2e-5 (Adam moves a weight of a small gradient
+    by up to lr whatever its size)."""
+    from marlgrid_tpu_torch.core import rng
+    from marlgrid_tpu_torch.parallel import graph, ppo, tensor_parallel
+    from marlgrid_tpu_torch.parallel import train as train_mod
+
+    ep, cfg = cli_config("--rollout", str(T), "--envs", "4096")
+    dev = torch.device("cuda")
+    runs = {}
+    for kind in ("unsharded", "mesh=", "tensor-parallel"):
+        gen = torch.Generator().manual_seed(seed)
+        if kind == "tensor-parallel":
+            net = tensor_parallel.TensorParallelActorCritic(
+                cfg, ep.view_size, mesh, gen, device=dev)
+            opt = ppo.make_optimizer(net, cfg)
+        else:
+            net, opt, _ = train_mod.init(ep, cfg, gen, dev)
+        first = {}
+        _record_first_grads(net, opt, first)
+        key = rng.PRNGKey(seed, device=dev)
+        env = ppo.init_env_batch(ep, cfg.n_envs, rng.fold_in(key, 1),
+                                 stagger=True, device=dev, mesh=mesh)
+        step = ppo.make_train_step(ep, cfg, net, opt, device=dev, jit=False,
+                                   **({} if kind == "unsharded"
+                                      else dict(mesh=mesh)))
+        env, key, m = step(env, rng.fold_in(key, 2))
+        sync()
+        runs[kind] = dict(
+            w={k: v.clone() for k, v in net.state_dict().items()},
+            g=first, env_key=graph.flatten(env)[0] + [key],
+            loss=float(m["loss"]))
+        del net, opt, step
+    tp, plain = runs["tensor-parallel"], runs["mesh="]
+    if not (all(torch.equal(a, b) for a, b in zip(
+            tp["env_key"], plain["env_key"], strict=True))
+            and _max_diff(list(tp["w"].values()), list(plain["w"].values()))
+            == 0 and _max_diff(list(tp["g"].values()),
+                               list(plain["g"].values())) == 0
+            and tp["loss"] == plain["loss"]):
+        raise AssertionError("tp eager: the tensor-parallel step at "
+                             "n_model = 1 differs from the plain mesh= step")
+    out = {}
+    base = runs["unsharded"]
+    for kind in ("mesh=", "tensor-parallel"):
+        r, worst, n_off, g_off = runs[kind], 0.0, 0, 0.0
+        for k, y in base["w"].items():
+            x, y = r["w"][k].double(), y.double()
+            off = ~torch.isclose(x, y, rtol=2e-4, atol=2e-5)
+            n_off += int(off.sum())
+            worst = max(worst, float((x - y).abs().max()))
+            if off.any():
+                g_off = max(g_off,
+                            float(base["g"][k][off.cpu()].abs().max()))
+        g_diff = _max_diff(list(r["g"].values()), list(base["g"].values()))
+        env_equal = all(torch.equal(a, b) for a, b in zip(
+            r["env_key"], base["env_key"], strict=True))
+        out[kind] = dict(max_weight_diff=worst, n_off=n_off,
+                         max_grad_diff=g_diff, off_max_grad=g_off,
+                         env_key_equal=env_equal)
+        print(f"[tp] {kind} eager step (B=4096, T={T}) against the "
+              f"unsharded one from one start: env state and key "
+              f"{'bit-equal' if env_equal else 'DIFFER'}, first gradients "
+              f"max |diff| {g_diff:.3e}, weights max |diff| {worst:.3e}, "
+              f"{n_off} beyond rtol 2e-4, atol 2e-5 (reported, not held; "
+              f"their first gradients at most {g_off:.3e} in magnitude) "
+              f"[{card}]")
+    print(f"[tp] tensor-parallel eager step (n_model = 1) against the plain "
+          f"mesh= step from one start: weights, first gradients, env state, "
+          f"key and loss bit-equal [{card}]")
+    return out
+
+
+def phase_graft(card):
+    """The entry points of ``__graft_entry_torch__.py`` on the card:
+    ``entry()``'s forward (one K2f launch) on its zeros and on random valid
+    codes against ``entry("cpu")``'s, the same weights, within the bf16
+    forward's 1e-2; then ``dryrun_multichip(1)`` in this rank of the NCCL
+    group of world size 1 (a 1 x 1 mesh: every family's step on it, the
+    feedforward one through the tensor-parallel policy): seven finite
+    losses."""
+    import __graft_entry_torch__ as graft
+
+    fn, (params, obs) = graft.entry()
+    cpu_fn, (cpu_params, cpu_obs) = graft.entry("cpu")
+    for k, v in params.items():
+        if not torch.equal(v.cpu(), cpu_params[k]):
+            raise AssertionError(f"entry(): weight {k} differs card vs CPU")
+    gen = torch.Generator().manual_seed(5)
+    codes = torch.stack([torch.randint(0, hi, tuple(obs.shape[:-1]),
+                                       generator=gen, dtype=torch.int32)
+                         for hi in (12, 10, 25)], -1)
+    worst = 0.0
+    with torch.no_grad():
+        for x in (cpu_obs, codes):
+            zero_counts()
+            logits, value = fn(params, x.cuda())
+            sync()
+            if read_counts() != want_counts(onehot_embed_fwd=1):
+                raise AssertionError(f"entry(): launches {read_counts()}")
+            want_l, want_v = cpu_fn(cpu_params, x)
+            if logits.shape != (32, 4, 7) or value.shape != (32, 4) or \
+                    not torch.isfinite(logits).all():
+                raise AssertionError(f"entry(): logits {logits.shape}, "
+                                     f"value {value.shape}")
+            for got, want in ((logits, want_l), (value, want_v)):
+                worst = max(worst, float((got.cpu() - want).abs().max()))
+                if not torch.allclose(got.cpu(), want, rtol=1e-2, atol=1e-2):
+                    raise AssertionError(f"entry(): card vs CPU max |diff| "
+                                         f"{worst:.3e}")
+    t0 = time.perf_counter()
+    losses = graft.dryrun_multichip(1)
+    secs = time.perf_counter() - t0
+    if len(losses) != 7 or not all(map(math.isfinite, losses.values())):
+        raise AssertionError(f"dryrun_multichip(1): {losses}")
+    print(f"[graft] entry(): logits (32, 4, 7) and values on its zeros and "
+          f"on random codes, card vs CPU max |diff| {worst:.3e} (bound "
+          f"1e-2), 1 K2f launch a forward; dryrun_multichip(1) on one NCCL "
+          f"rank in {secs:.2f} s: losses "
+          + ", ".join(f"{k} {v:.6f}" for k, v in losses.items())
+          + f" [{card}]")
+    return dict(entry_max_diff=worst, dryrun_losses=losses,
+                dryrun_s=secs)
+
+
+def phase_gspmd(seed, card, name, mesh, multi=True, own_baseline=False,
+                tp=False):
     """The sharded default path's step (``ppo.make_train_step(mesh=...)``,
     ``ppo_rnn.make_train_step_rnn(mesh=...)``, the hetero trainers'
     ``make_train_step_hetero*(mesh=...)``; the JAX CLI's training step
@@ -3534,10 +3867,20 @@ def phase_gspmd(seed, card, name, mesh, multi=True, own_baseline=False):
     and device ops of the profiled replay, the collectives per step, the
     replays' wall and peak memory (and its rise above the allocation at
     the start of the eager call, capture and replays, as ``phase_graphs``
-    reports its runs')."""
+    reports its runs'). ``tp``: the mesh step's net is the tensor-parallel
+    policy (``tensor_parallel.TensorParallelActorCritic``, drawn from the
+    same generator: at n_model = 1 its shards are the whole weights) in
+    ``ppo.make_train_step(mesh=...)``; the model axis's collectives
+    (``model_all_gather``, ``model_all_reduce``) are counted and held as
+    the data axis's."""
     from marlgrid_tpu_torch.core import rng
     from marlgrid_tpu_torch.parallel import graph, ppo, ppo_rnn
+    from marlgrid_tpu_torch.parallel import tensor_parallel
     from marlgrid_tpu_torch.parallel import train as train_mod
+
+    def collectives():
+        return (mesh.all_gathers, mesh.all_reduces, mesh.model_all_gathers,
+                mesh.model_all_reduces)
 
     flags, plane_major, B = GSPMD_PATHS[name]
     ep, cfg = cli_config(*flags, "--envs", str(B))
@@ -3574,7 +3917,7 @@ def phase_gspmd(seed, card, name, mesh, multi=True, own_baseline=False):
             carry = _clone_tree(carry0)
         sync()
         zero_counts()
-        n0 = (mesh.all_gathers, mesh.all_reduces)
+        n0 = collectives()
         t0 = time.perf_counter()
         *carry, m = step(*carry)
         sync()
@@ -3589,7 +3932,7 @@ def phase_gspmd(seed, card, name, mesh, multi=True, own_baseline=False):
             h=[x.clone() for x in graph.flatten(tuple(carry[1:-1]))[0]],
             weights=[v.clone() for v in net.state_dict().values()],
             metrics={k: float(v) for k, v in m.items()}, secs=secs,
-            collectives=(mesh.all_gathers - n0[0], mesh.all_reduces - n0[1]),
+            collectives=tuple(b - a for a, b in zip(n0, collectives())),
             carry=carry)
 
     def replays(step, carry, what):
@@ -3600,13 +3943,12 @@ def phase_gspmd(seed, card, name, mesh, multi=True, own_baseline=False):
         for _ in range(2):
             sync()
             zero_counts()
-            n0 = (mesh.all_gathers, mesh.all_reduces)
+            n0 = collectives()
             t0 = time.perf_counter()
             *carry, m = step(*carry)
             sync()
             secs.append(time.perf_counter() - t0)
-            if read_counts() != per_step or \
-                    (mesh.all_gathers, mesh.all_reduces) != n0:
+            if read_counts() != per_step or collectives() != n0:
                 raise AssertionError(f"gspmd {label} {what} replay: "
                                      f"launches {read_counts()}, or a "
                                      f"collective called from the host")
@@ -3646,10 +3988,24 @@ def phase_gspmd(seed, card, name, mesh, multi=True, own_baseline=False):
         base = call(train_mod.make_step(ep, cfg, net, opt, dev, jit=False),
                     "unsharded eager")
         del base["carry"]
+    if tp:
+        # the same draws: at n_model = 1 the shards are the whole weights
+        net = tensor_parallel.TensorParallelActorCritic(
+            cfg, ep.view_size, mesh, torch.Generator().manual_seed(seed),
+            device=dev)
+        opt = ppo.make_optimizer(net, cfg)
+        if _max_diff(list(net.state_dict().values()),
+                     list(w0.values())) != 0:
+            raise AssertionError(f"tp {name}: the tensor-parallel policy "
+                                 f"did not draw the unsharded weights")
+        w0 = {k: v.clone() for k, v in net.state_dict().items()}
+        label = f"{name} (D={mesh.D}, n_model={mesh.n_model})"
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated() / 1e9
-    step = train_mod.make_step(ep, cfg, net, opt, dev, jit=True, mesh=mesh)
+    step = (ppo.make_train_step(ep, cfg, net, opt, device=dev, mesh=mesh)
+            if tp else
+            train_mod.make_step(ep, cfg, net, opt, dev, jit=True, mesh=mesh))
     eager = call(step, "eager")
     del eager["carry"]
     graphed = call(step, "capture")
@@ -3684,6 +4040,8 @@ def phase_gspmd(seed, card, name, mesh, multi=True, own_baseline=False):
                weights_vs_unsharded=wdiff,
                all_gathers=eager["collectives"][0],
                all_reduces=eager["collectives"][1],
+               model_all_gathers=eager["collectives"][2],
+               model_all_reduces=eager["collectives"][3],
                loss=[base["metrics"]["loss"], eager["metrics"]["loss"]],
                eager_s=[base["secs"], eager["secs"]], unsharded_graph=own)
     print(f"[gspmd] {label} ({' '.join(flags) or 'defaults'}, B={B}, "
@@ -3693,7 +4051,11 @@ def phase_gspmd(seed, card, name, mesh, multi=True, own_baseline=False):
           f"{wdiff:.3e} (bound rtol 2e-4, atol 2e-5), loss "
           f"{eager['metrics']['loss']:.6f} vs {base['metrics']['loss']:.6f};"
           f" {eager['collectives'][0]} all_gather and "
-          f"{eager['collectives'][1]} all_reduce calls a step, all captured "
+          f"{eager['collectives'][1]} all_reduce calls a step on 'data'"
+          + (f", {eager['collectives'][2]} all_gather and "
+             f"{eager['collectives'][3]} all_reduce on 'model'" if tp
+             else "")
+          + f", all captured "
           f"(graph nodes), none from the host on a replay; replays "
           f"{', '.join(f'{t:.3f}' for t in secs)} s; capture "
           f"{out['capture_s']} s; peak device memory allocated / reserved "
@@ -3753,7 +4115,7 @@ def _gspmd_multi(call, raw, feedforward, per_call, label, card):
         raise AssertionError(f"gspmd {label} multi_step(k=2): metrics "
                              f"{mres['metrics']} vs two eager steps' "
                              f"{eager2['metrics']}")
-    if mcoll != want_coll or mrep["collectives"] != (0, 0):
+    if mcoll != want_coll or any(mrep["collectives"]):
         raise AssertionError(f"gspmd {label} multi_step(k=2): collectives "
                              f"of its first call {mcoll} (want {want_coll}: "
                              f"an eager step's and the capture's), of a "
@@ -3823,7 +4185,12 @@ RANKS_RUNS = (("shard_map", {}),
                dict(gspmd=True, f32_embed=True)),
               ("hetero mesh= (resets)", dict(gspmd=True, hetero=True)),
               ("hetero mesh= (resets), float32 embed",
-               dict(gspmd=True, hetero=True, f32_embed=True)))
+               dict(gspmd=True, hetero=True, f32_embed=True)),
+              # the 'model' axis: the tensor-parallel step at (1, 2), each
+              # rank's K2f and K2b on its H / 2 = 64 columns
+              ("tp (1, 2) (resets)", dict(gspmd=True, tp=True)),
+              ("tp (1, 2) (resets), float32 embed",
+               dict(gspmd=True, tp=True, f32_embed=True)))
 
 
 @contextlib.contextmanager
@@ -3856,7 +4223,7 @@ def float32_embed():
 
 
 def _ranks_run(seed, mesh, steps=2, gspmd=False, f32_embed=False,
-               hetero=False):
+               hetero=False, tp=False):
     """Two eager steps on the card over ``mesh`` from the weights of
     ``seed`` (rank 0's, broadcast): ``--shard-map`` steps of
     :data:`RANKS_CASE`, or with ``gspmd`` the sharded default path's of
@@ -3865,7 +4232,11 @@ def _ranks_run(seed, mesh, steps=2, gspmd=False, f32_embed=False,
     :func:`float32_embed`. The weights, the last loss and episode count,
     the launch counts (and the path's, K2f's and K2b's 0 with
     ``f32_embed``), and the env state gathered in global env order with
-    the key (on the CPU)."""
+    the key (on the CPU). ``tp``: over a mesh with a group, the
+    tensor-parallel policy (``tensor_parallel.TensorParallelActorCritic``,
+    this rank's shards: its weights and gradients are shards too) in
+    ``ppo.make_train_step(mesh=...)``; with no group, the unsharded
+    step."""
     from marlgrid_tpu_torch.core import rng
     from marlgrid_tpu_torch.core.state import (EnvParams, FIELDS,
                                                default_agent_colors)
@@ -3877,14 +4248,25 @@ def _ranks_run(seed, mesh, steps=2, gspmd=False, f32_embed=False,
                               else GSPMD_RANKS_CASE if gspmd else RANKS_CASE)
     ep = EnvParams(**{"agent_colors": default_agent_colors(2), **ep_kw})
     cfg = ppo.PPOConfig(**cfg_kw)
+    from marlgrid_tpu_torch.parallel import tensor_parallel
+
     dev = mesh.device
-    net, opt, _ = train_mod.init(ep, cfg,
-                                 torch.Generator().manual_seed(seed), dev)
-    mesh_mod.broadcast_from(mesh, list(net.state_dict().values()))
+    gen = torch.Generator().manual_seed(seed)
+    if tp and mesh.group is not None:
+        net = tensor_parallel.TensorParallelActorCritic(
+            cfg, ep.view_size, mesh, gen, device=dev)
+        opt = ppo.make_optimizer(net, cfg)
+        tensor_parallel.broadcast_state(mesh, net, opt)
+    else:
+        net, opt, _ = train_mod.init(ep, cfg, gen, dev)
+        mesh_mod.broadcast_from(mesh, list(net.state_dict().values()))
     key = rng.PRNGKey(seed, device=dev)
     env = ppo.init_env_batch(ep, cfg.n_envs, rng.fold_in(key, 1),
                              stagger=stagger, device=dev, mesh=mesh)
-    if gspmd:
+    if tp:
+        step = ppo.make_train_step(ep, cfg, net, opt, device=dev, jit=False,
+                                   mesh=mesh)
+    elif gspmd:
         step = train_mod.make_step(ep, cfg, net, opt, dev, jit=False,
                                    mesh=mesh)
     else:
@@ -3913,7 +4295,8 @@ def _ranks_run(seed, mesh, steps=2, gspmd=False, f32_embed=False,
 def _ranks_worker(rank, world, store, seed, out):
     """One rank of :func:`phase_shard_map_ranks` (a spawned process):
     a gloo group over the card's tensors, then :func:`_ranks_run` of each of
-    :data:`RANKS_RUNS`; rank 0 saves the results to ``out``."""
+    :data:`RANKS_RUNS` (the ``tp`` runs over a (1, 2) mesh, the others over
+    the data axis); each rank saves its results to ``out``-rank."""
     import torch.distributed as dist
 
     from marlgrid_tpu_torch.parallel import mesh as mesh_mod
@@ -3923,9 +4306,10 @@ def _ranks_worker(rank, world, store, seed, out):
                             world_size=world, rank=rank)
     try:
         mesh = mesh_mod.make_mesh(device="cuda")
-        res = {what: _ranks_run(seed, mesh, **kw) for what, kw in RANKS_RUNS}
-        if rank == 0:
-            torch.save(res, out)
+        mesh2d = mesh_mod.make_mesh(n_model=2, device="cuda")
+        res = {what: _ranks_run(seed, mesh2d if kw.get("tp") else mesh,
+                                **kw) for what, kw in RANKS_RUNS}
+        torch.save(res, f"{out}-{rank}")
     finally:
         dist.destroy_process_group()
 
@@ -3939,26 +4323,40 @@ def phase_shard_map_ranks(seed, card):
     sharded default path's step on :data:`GSPMD_RANKS_CASE` and the hetero
     trainer's on :data:`GSPMD_HETERO_RANKS_CASE`, with resets, each once as
     the card runs it and once with the embed in float32
-    (:func:`float32_embed`, the witness). Each: the loss within
-    rtol 2e-3, the env state and the key bit-equal, each rank's launches
-    those of the unsharded step; the weights after two steps within the
-    JAX test's bound (rtol 2e-4, atol 2e-5) for ``--shard-map`` and the
-    witness, and within :data:`GSPMD_RANKS_TOL` in norm for the sharded
-    default path with the bf16 embed."""
+    (:func:`float32_embed`, the witness), and the tensor-parallel step
+    over the same two ranks laid out (1, 2) (the 'model' axis: each rank's
+    K2f and K2b on its H / 2 columns), its shards put together. Each: the
+    loss within rtol 2e-3, the env state and the key bit-equal, each
+    rank's launches those of the unsharded step; the weights after two
+    steps within the JAX test's bound (rtol 2e-4, atol 2e-5) for
+    ``--shard-map`` and the witnesses, and within :data:`GSPMD_RANKS_TOL`
+    in norm for the sharded default path and the tensor-parallel step with
+    the bf16 embed."""
     import torch.multiprocessing as mp
 
+    from marlgrid_tpu_torch.models import MODEL_SPLIT
     from marlgrid_tpu_torch.parallel import mesh as mesh_mod
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        out = f"{tmp}/rank0.pt"
-        mp.spawn(_ranks_worker, args=(2, f"{tmp}/store", seed, out),
+        mp.spawn(_ranks_worker, args=(2, f"{tmp}/store", seed, f"{tmp}/out"),
                  nprocs=2, join=True)
-        d2s = torch.load(out, weights_only=False)
+        ranks = [torch.load(f"{tmp}/out-{r}", weights_only=False)
+                 for r in range(2)]
     spawn_s = time.perf_counter() - t0
     report = dict(spawn_s=spawn_s)
     for what, kw in RANKS_RUNS:
-        d2 = d2s[what]
+        d2 = ranks[0][what]
+        if kw.get("tp"):
+            # the model ranks' shards put together; the replicated entries
+            # the same on both
+            for k, v in ranks[1][what]["weights"].items():
+                if k in MODEL_SPLIT or torch.equal(v, d2["weights"][k]):
+                    continue
+                raise AssertionError(f"{what} ranks: replicated {k} "
+                                     f"differs between the model ranks")
+            d2 = dict(d2, **{k: _tp_whole([r[what][k] for r in ranks])
+                             for k in ("w0", "grad0", "weights")})
         d1 = _ranks_run(seed, mesh_mod.make_mesh(device="cuda"), **kw)
         gspmd = kw.get("gspmd", False)
         in_norm = gspmd and not kw.get("f32_embed", False)
@@ -4022,6 +4420,157 @@ def phase_shard_map_ranks(seed, card):
         report[what] = dict(
             max_weight_diff=worst, n_off=n_off, grad_err=e_g, weight_err=e_w,
             loss=[d2["loss"], d1["loss"]], counts=d2["counts"])
+    return report
+
+
+#: the tensor-parallel host runs (:func:`phase_tp_ranks`): (label, world,
+#: n_model), float32, on :data:`GSPMD_RANKS_CASE`
+TP_RUNS = (("(1, 2)", 2, 2), ("(2, 2)", 4, 2))
+
+
+def _tp_run(seed, mesh, steps=2):
+    """Two steps of the tensor-parallel feedforward step on the CPU over
+    ``mesh`` (with no group: the unsharded policy's step) from the weights
+    of ``seed``, on :data:`GSPMD_RANKS_CASE` (float32): the weights (this
+    rank's shards), the first gradients, the last loss and episode count,
+    the env state gathered in global env order and the key."""
+    from marlgrid_tpu_torch.core import rng
+    from marlgrid_tpu_torch.core.state import (EnvParams, FIELDS,
+                                               default_agent_colors)
+    from marlgrid_tpu_torch.parallel import mesh as mesh_mod
+    from marlgrid_tpu_torch.parallel import ppo, tensor_parallel
+
+    ep_kw, cfg_kw, stagger = GSPMD_RANKS_CASE
+    ep = EnvParams(**{"agent_colors": default_agent_colors(2), **ep_kw})
+    cfg = ppo.PPOConfig(**cfg_kw)
+    dev = torch.device("cpu")
+    gen = torch.Generator().manual_seed(seed)
+    if mesh.group is None:
+        net, opt = ppo.init_state(ep, cfg, gen, device=dev)
+    else:
+        net = tensor_parallel.TensorParallelActorCritic(
+            cfg, ep.view_size, mesh, gen, device=dev)
+        opt = ppo.make_optimizer(net, cfg)
+        tensor_parallel.broadcast_state(mesh, net, opt)
+    key = rng.PRNGKey(seed, device=dev)
+    env = ppo.init_env_batch(ep, cfg.n_envs, rng.fold_in(key, 1),
+                             stagger=stagger, device=dev, mesh=mesh)
+    step = ppo.make_train_step(ep, cfg, net, opt, device=dev, mesh=mesh)
+    w0 = {k: v.clone() for k, v in net.state_dict().items()}
+    first = {}
+    _record_first_grads(net, opt, first)
+    for _ in range(steps):
+        env, key, m = step(env, key)
+    return dict(w0=w0, grad0=first, weights=net.state_dict(),
+                loss=float(m["loss"]), n_episodes=float(m["n_episodes"]),
+                key=key, env={f: mesh_mod.gather(mesh, getattr(env, f))
+                              for f in FIELDS},
+                collectives=(mesh.all_gathers, mesh.all_reduces,
+                             mesh.model_all_gathers, mesh.model_all_reduces))
+
+
+def _tp_ranks_worker(rank, world, n_model, store, seed, out):
+    """One gloo rank of :func:`phase_tp_ranks` on the host (a spawned
+    process): :func:`_tp_run` over the (world / n_model, n_model) mesh;
+    each rank saves its result to ``out``-rank."""
+    import torch.distributed as dist
+
+    from marlgrid_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = mesh_mod.make_mesh(n_model=n_model, device="cpu")
+        torch.save(_tp_run(seed, mesh), f"{out}-{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_whole(parts):
+    """A state_dict put back together from the model ranks' ``parts``."""
+    from marlgrid_tpu_torch.models import MODEL_SPLIT
+
+    return {k: (torch.cat([p[k] for p in parts], MODEL_SPLIT[k])
+                if k in MODEL_SPLIT else parts[0][k]) for k in parts[0]}
+
+
+def phase_tp_ranks(seed, card):
+    """The tensor-parallel feedforward step over gloo ranks on the host
+    (``--device cpu``), :data:`TP_RUNS`, all started at once: two ranks
+    at (1, 2) and four at (2, 2) (the data axis too), float32, each
+    against the unsharded step in this process from the same weights,
+    two steps of
+    :data:`GSPMD_RANKS_CASE` (B = 64, resets); the two ranks on the card
+    are in :func:`phase_shard_map_ranks`. Each: the env state and key
+    bit-equal; the replicated weights equal on every rank; the weights,
+    the ranks' shards put together, within rtol 2e-4 / atol 2e-5."""
+    import torch.multiprocessing as mp
+
+    from marlgrid_tpu_torch.models import MODEL_SPLIT
+    from marlgrid_tpu_torch.parallel import mesh as mesh_mod
+
+    report, results = {}, {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # the runs' ranks at once, and the unsharded step here meanwhile
+        runs = [(what, world, mp.spawn(
+            _tp_ranks_worker, args=(world, n_model, f"{tmp}/store{world}",
+                                    seed, f"{tmp}/out{world}"),
+            nprocs=world, join=False)) for what, world, n_model in TP_RUNS]
+        d1 = _tp_run(seed, mesh_mod.make_mesh(device="cpu"))
+        for what, world, ctx in runs:
+            while not ctx.join():
+                pass
+            results[what] = [torch.load(f"{tmp}/out{world}-{r}",
+                                        weights_only=False)
+                             for r in range(world)]
+    spawn_s = time.perf_counter() - t0
+    for what, world, n_model in TP_RUNS:
+        ranks = results[what]
+        for r in ranks:
+            for k, v in r["weights"].items():
+                if k not in MODEL_SPLIT and not torch.equal(
+                        v, ranks[0]["weights"][k]):
+                    raise AssertionError(f"tp ranks {what}: replicated {k} "
+                                         f"differs between ranks")
+            for f, v in d1["env"].items():
+                if not torch.equal(v, r["env"][f]):
+                    raise AssertionError(f"tp ranks {what}: env field {f} "
+                                         f"differs from the unsharded step")
+            if not torch.equal(d1["key"], r["key"]):
+                raise AssertionError(f"tp ranks {what}: the key differs")
+        # the model ranks of data index 0
+        whole = _tp_whole([r["weights"] for r in ranks[:n_model]])
+        worst, n_off = 0.0, 0
+        for k, want in d1["weights"].items():
+            x, y = whole[k].double(), want.double()
+            n_off += int((~torch.isclose(x, y, rtol=2e-4, atol=2e-5)).sum())
+            worst = max(worst, float((x - y).abs().max()))
+        if n_off:
+            raise AssertionError(f"tp ranks {what}: {n_off} weights beyond "
+                                 f"rtol 2e-4, atol 2e-5 (max |diff| "
+                                 f"{worst:.3e})")
+        if not (math.isfinite(ranks[0]["loss"]) and math.isclose(
+                ranks[0]["loss"], d1["loss"], rel_tol=2e-3, abs_tol=1e-4)
+                and ranks[0]["n_episodes"] > 0):
+            raise AssertionError(f"tp ranks {what}: loss {ranks[0]['loss']} "
+                                 f"vs {d1['loss']}")
+        print(f"[tp] {what}: {world} gloo ranks on the host (spawned with "
+              f"the other runs' ranks, {spawn_s:.1f} s for all) against the "
+              f"unsharded step (no group): "
+              f"empty 9x9, B=64, T=8, float32, 2 steps "
+              f"({ranks[0]['n_episodes']:.0f} episodes ended in the last): "
+              f"env state and key bit-equal, replicated weights equal on "
+              f"every rank; shards put together: weights max |diff| "
+              f"{worst:.3e}, {n_off} beyond rtol 2e-4, atol 2e-5; loss "
+              f"{ranks[0]['loss']:.6f} vs {d1['loss']:.6f}; collectives a "
+              f"rank (data all_gather, all_reduce; model all_gather, "
+              f"all_reduce) {ranks[0]['collectives']}")
+        report[what] = dict(max_weight_diff=worst, n_off=n_off,
+                            loss=[ranks[0]["loss"], d1["loss"]],
+                            collectives=ranks[0]["collectives"],
+                            spawn_s=spawn_s)
     return report
 
 
@@ -4091,10 +4640,11 @@ def phase_cli_distributed(card, keep):
             mesh_run = torchrun("--rollout", "32")
             hetero_run = torchrun("--agent-config", HETERO_SPEC, "--rollout",
                                   "32")
-            ranks_run = torchrun("--agent-config", HETERO_SPEC, "--device",
-                                 "cpu", "--grid-size", "9", "--envs", "64",
-                                 "--rollout", "8", "--hidden", "32",
-                                 "--max-steps", "10", nproc=2)
+            host = ("--device", "cpu", "--grid-size", "9", "--envs", "64",
+                    "--rollout", "8", "--hidden", "32", "--max-steps", "10")
+            ranks_run = torchrun("--agent-config", HETERO_SPEC, *host,
+                                 nproc=2)
+            model_run = torchrun("--model-shards", "2", *host, nproc=2)
             first, recs = shard_run()
             tree = checkpoint.restore(keep, map_location="cpu")
             if checkpoint.steps(keep) != [2] or \
@@ -4109,6 +4659,7 @@ def phase_cli_distributed(card, keep):
             mesh_s, mesh_recs = mesh_run()
             hetero_s, hetero_recs = hetero_run()
             ranks_s, ranks_recs = ranks_run()
+            model_s, model_recs = model_run()
         finally:
             for proc in procs:
                 if proc.poll() is None:
@@ -4118,22 +4669,30 @@ def phase_cli_distributed(card, keep):
     if counts != want:
         raise AssertionError(f"resumed --shard-map: launches {counts}, want "
                              f"{want}")
-    for r in recs + mesh_recs + hetero_recs + ranks_recs:
+    for r in recs + mesh_recs + hetero_recs + ranks_recs + model_recs:
         if not (math.isfinite(r["loss"]) and r["n_episodes"] > 0):
             raise AssertionError(f"--distributed CLI metrics {r}")
     if len(mesh_recs) != 2 or len(hetero_recs) != 2:
         raise AssertionError(f"torchrun --distributed logged {mesh_recs}, "
                              f"with --agent-config {hetero_recs}")
-    # two ranks: each step logged once by each, with the same metrics
-    same = {k for k in ranks_recs[0]} - {"time", "env_steps_per_s",
-                                         "agent_steps_per_s"}
-    by_step = {}
-    for r in ranks_recs:
-        by_step.setdefault(r["step"], []).append({k: r[k] for k in same})
-    if sorted(by_step) != [0, 1] or any(
-            len(v) != 2 or v[0] != v[1] for v in by_step.values()):
-        raise AssertionError(f"torchrun --nproc-per-node 2 --agent-config: "
-                             f"the ranks logged {ranks_recs}")
+
+    def by_step(recs, what):
+        """Two ranks: each step logged once by each, with the same
+        metrics."""
+        same = {k for k in recs[0]} - {"time", "env_steps_per_s",
+                                       "agent_steps_per_s"}
+        steps = {}
+        for r in recs:
+            steps.setdefault(r["step"], []).append({k: r[k] for k in same})
+        if sorted(steps) != [0, 1] or any(
+                len(v) != 2 or v[0] != v[1] for v in steps.values()):
+            raise AssertionError(f"torchrun --nproc-per-node 2 {what}: the "
+                                 f"ranks logged {recs}")
+        return ", ".join(format(v[0]["loss"], ".6f")
+                         for _, v in sorted(steps.items()))
+
+    ranks_losses = by_step(ranks_recs, "--agent-config")
+    model_losses = by_step(model_recs, "--model-shards 2")
     print(f"[cli] torchrun --nproc-per-node 1 ... train --distributed "
           f"--shard-map (defaults, T=32, NCCL, graphed; on a card shared with "
           f"the "
@@ -4152,8 +4711,6 @@ def phase_cli_distributed(card, keep):
           f"env_steps_per_s on the shared card {mesh_rates} [{card}]")
     hetero_rates = ", ".join(format(r["env_steps_per_s"], ",.0f")
                              for r in hetero_recs)
-    ranks_losses = ", ".join(format(v[0]["loss"], ".6f")
-                             for _, v in sorted(by_step.items()))
     print(f"[cli] torchrun --nproc-per-node 1 ... train --distributed "
           f"--agent-config {HETERO_SPEC} --rollout 32 (the hetero trainer's "
           f"sharded default path, NCCL, graphed; on a card shared with the "
@@ -4165,11 +4722,16 @@ def phase_cli_distributed(card, keep):
           f"--agent-config (views 7/5/7/5) --device cpu (gloo, B=64, T=8, "
           f"on the host): 2 iterations in {ranks_s:.2f} s, both ranks logged "
           f"the same metrics, losses {ranks_losses}")
+    print(f"[cli] torchrun --nproc-per-node 2 ... train --distributed "
+          f"--model-shards 2 --device cpu (gloo, a (1, 2) mesh: the two "
+          f"ranks of the model axis repeat one step, B=64, T=8, on the "
+          f"host): 2 iterations in {model_s:.2f} s, both ranks logged the "
+          f"same metrics, losses {model_losses}")
     return dict(env_steps_per_s=[r["env_steps_per_s"] for r in recs],
                 losses=[r["loss"] for r in recs], counts=counts,
                 first_s=first, mesh_s=mesh_s, hetero_s=hetero_s,
                 hetero_losses=[r["loss"] for r in hetero_recs],
-                ranks_s=ranks_s,
+                ranks_s=ranks_s, model_shards_s=model_s,
                 mesh_losses=[r["loss"] for r in mesh_recs],
                 mesh_env_steps_per_s=[r["env_steps_per_s"]
                                       for r in mesh_recs])
@@ -4408,8 +4970,9 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
         keep=ckpts["hetero 7/5/7/5"][0])
     stamp("hetero")
     shard_ranks = phase_shard_map_ranks(args.seed, card)
+    tp_ranks = phase_tp_ranks(args.seed, card)
     cli_shard = phase_cli_distributed(card, ckpts["--shard-map (torchrun)"][0])
-    stamp("shard_map ranks, torchrun CLI")
+    stamp("shard_map and tp ranks, torchrun CLI")
     host_api = phase_host_api(args.seed, card)
     examples = phase_examples(card)
     stamp("host API, examples")
@@ -4438,11 +5001,14 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
               f"{g['device_ops']} device ops [{card}]")
     stamp("graphs")
     shard = phase_shard_map(args.seed, card)
-    for name in ("encode", "rnn"):
-        g, m = graphs[name]["graphed"], shard[f"gspmd {name}"]
+    for name, what in (("encode", "gspmd encode"), ("rnn", "gspmd rnn"),
+                       ("encode", "tp encode")):
+        g, m = graphs[name]["graphed"], shard[what]
         gp, mp_ = g["profile"], m["profile"]
         if gp and gp["device_busy_s"] > 0 and mp_["device_busy_s"] > 0:
-            print(f"[gspmd] {name}: graphed mesh= step (D=1, NCCL) busy "
+            kind = ("tensor-parallel step (n_model=1" if what.startswith("tp")
+                    else "mesh= step (D=1")
+            print(f"[gspmd] {what}: graphed {kind}, NCCL) busy "
                   f"{mp_['device_busy_s'] * 1e3:.1f} ms in "
                   f"{mp_['device_ops']} device ops, replays "
                   f"{', '.join(f'{t:.3f}' for t in m['replay_s'])} s, "
@@ -4461,6 +5027,7 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
     stamp("env-only")
     vector = phase_vector(args.seed, card, env["env_steps_per_s"])
     stamp("vector")
+    timer_check = phase_timer_check(card)
     tim = phase_timings(roll, card, args.seed)
     tim["compose_image_b"] = phase_timings_k3(image, env_img, card,
                                               args.seed)
@@ -4530,6 +5097,11 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
             if extra in k:
                 kernels[-1][extra] = k[extra]
     stamp("timings and probes")
+    print(f"[timer] time_ms: {TIMER['runs']} checked runs, "
+          f"{TIMER['retried']} repeated because the card's hold ended before "
+          f"the host had queued the launches; longest hold "
+          f"{TIMER['max_hold_ms']:.1f} ms; {TIMER['waiting']} timed "
+          f"functions wait on the card themselves (unchecked)")
     total_s = time.perf_counter() - t_start
     if args.json:
         with open(args.json, "w") as f:
@@ -4567,6 +5139,8 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
                            host_shape_timings=tim_host, rounding=rounding,
                            vector=vector, host_api=host_api,
                            shard_map=shard, shard_map_ranks=shard_ranks,
+                           tp_ranks=tp_ranks, timer_check=timer_check,
+                           timer=TIMER,
                            cli_shard_map=cli_shard, examples=examples,
                            evaluate=evaluation, clock_s=clock,
                            total_s=total_s), f,

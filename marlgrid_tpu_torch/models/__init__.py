@@ -1,3 +1,3 @@
 from .actor_critic import (  # noqa: F401
-    ActorCritic, FusedGRUCell, FusedLSTMCell, OneHotEmbed,
-    RecurrentActorCritic, load_flax_params)
+    MODEL_SPLIT, ActorCritic, FusedGRUCell, FusedLSTMCell, OneHotEmbed,
+    RecurrentActorCritic, load_flax_params, load_flax_params_shard)

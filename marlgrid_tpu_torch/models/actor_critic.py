@@ -91,7 +91,10 @@ class OneHotEmbed(nn.Module):
         """(cells, sum(widths), H) packed table of the three planes."""
         return embed_op.pack_weights(*self.tables())
 
-    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+    def forward(self, obs: torch.Tensor, cols: slice = None) -> torch.Tensor:
+        """``cols``: the columns of the bias that the tables hold (a model
+        rank's shard of the tables is H / n_model wide, its bias whole);
+        None: all of them."""
         lead, (Fd, S) = obs.shape[:-2], obs.shape[-2:]
         x = obs.reshape((-1, Fd, S))
         if self.plane_major:
@@ -101,7 +104,8 @@ class OneHotEmbed(nn.Module):
             out = embed_op.onehot_embed(x, self.table(), self.widths,
                                         self.values, self.dtype)
         out = out.reshape(lead + out.shape[1:]).to(self.dtype)
-        return out + self.bias.to(self.dtype)
+        bias = self.bias if cols is None else self.bias[cols]
+        return out + bias.to(self.dtype)
 
 
 def onehot_features(obs: torch.Tensor, dtype) -> torch.Tensor:
@@ -445,3 +449,41 @@ def load_flax_params(params):
         sd[f"{name}.weight"] = t(p[name]["kernel"]).T
         sd[f"{name}.bias"] = t(p[name]["bias"])
     return {k: v.contiguous() for k, v in sd.items()}
+
+
+#: the tensor-parallel rule of the JAX package's multi-chip dry run
+#: (``__graft_entry__.py::dryrun_multichip``) for the feedforward mlp
+#: policy, in torch's orientation: state_dict entry -> the dim split over
+#: 'model'. Flax's ``P(None, "model")`` splits the embed tables (cells*n,
+#: H), stored as flax stores them, along H (dim 1), and the torso Dense
+#: kernel (H, H) along its output columns: torch's weight rows (dim 0).
+#: ``P("model", None)`` splits the heads' kernels (H, A) along their input
+#: rows: torch's weight columns (dim 1). Every other entry is replicated.
+MODEL_SPLIT = {"torso0.w0": 1, "torso0.w1": 1, "torso0.w2": 1,
+               "torso.weight": 0, "pi.weight": 1, "v.weight": 1}
+
+
+def load_flax_params_shard(params, index: int, n_model: int):
+    """:func:`load_flax_params` of the feedforward mlp policy's flax
+    parameters (numpy arrays), cut to model rank ``index``'s shard of
+    ``n_model``: each entry of :data:`MODEL_SPLIT` its ``index``-th of
+    ``n_model`` equal parts along its dim, every other entry whole, each a
+    contiguous tensor of its own. The state_dict of that rank's
+    tensor-parallel policy (``parallel/tensor_parallel.py``)."""
+    sd = load_flax_params(params)
+    missing = set(MODEL_SPLIT) - set(sd)
+    if missing:
+        raise ValueError(f"the tensor-parallel rule splits {sorted(missing)}, "
+                         f"which these parameters lack (the rule is the mlp "
+                         f"feedforward policy's)")
+    out = {}
+    for k, v in sd.items():
+        if k in MODEL_SPLIT:
+            dim = MODEL_SPLIT[k]
+            if v.shape[dim] % n_model:
+                raise ValueError(f"{k}: {v.shape[dim]} does not split into "
+                                 f"{n_model} parts along dim {dim}")
+            w = v.shape[dim] // n_model
+            v = v.narrow(dim, index * w, w)
+        out[k] = v.clone(memory_format=torch.contiguous_format)
+    return out

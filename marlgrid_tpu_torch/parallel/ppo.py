@@ -235,13 +235,16 @@ def make_optimizer(net, cfg: PPOConfig):
     return opt
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, sq_norm=None):
     """optax's ``clip_by_global_norm`` rule, in place and without a host
     sync: with ``g_norm`` the square root of the sum of every gradient's
-    squares, each gradient ``t`` stays as it is if ``g_norm < max_norm``
-    and becomes ``(t / g_norm) * max_norm`` otherwise. (torch's
+    squares (``sq_norm``, where the caller has it: a tensor-parallel net's
+    whole-model sum), each gradient ``t`` stays as it is if ``g_norm <
+    max_norm`` and becomes ``(t / g_norm) * max_norm`` otherwise. (torch's
     ``clip_grad_norm_`` divides by ``norm + 1e-6`` instead.)"""
-    g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    if sq_norm is None:
+        sq_norm = sum((g * g).sum() for g in grads)
+    g_norm = torch.sqrt(sq_norm)
     keep = g_norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / g_norm) * max_norm))
@@ -338,17 +341,18 @@ def sample_actions(ak, logits, axis: Mesh, B: int, key_axis: int,
                    mesh: Mesh = None):
     """Actions from the step's key ``ak``: one ``categorical`` draw over
     the whole logits without ``axis``; with it, the JAX shard_map recipe:
-    env b draws from ``fold_in(ak, rank * B + b)``, its global index, so
-    the actions do not depend on how the batch is split. With ``mesh``
+    env b draws from ``fold_in(ak, r * B + b)`` (r the rank's data index),
+    its global index, so the actions do not depend on how the batch is
+    split. With ``mesh``
     (the GSPMD path): this rank's B rows of the one draw over the global
     logits (``rng.categorical_slice``). ``key_axis``: the logits' env axis
     (1 feature-major, 0 env-leading)."""
     if mesh is not None:
-        return rng.categorical_slice(ak, logits, mesh.D * B, mesh.rank * B,
-                                     key_axis)
+        return rng.categorical_slice(ak, logits, mesh.D * B,
+                                     mesh.data_index * B, key_axis)
     if axis is None:
         return rng.categorical(ak, logits)
-    ids = axis.rank * B + torch.arange(B, device=logits.device)
+    ids = axis.data_index * B + torch.arange(B, device=logits.device)
     return rng.categorical_per_key(rng.fold_in(ak, ids), logits, key_axis)
 
 
@@ -360,12 +364,13 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda",
     ``axis`` (a ``parallel/mesh.py`` Mesh): the JAX ``axis`` variant, on
     this rank's B = n_envs / D envs: the fresh-board key folded with the
     rank, per-env action keys from the global env index
-    (:func:`sample_actions`) and ``env_offset = rank * B`` into the
+    (:func:`sample_actions`) and ``env_offset = r * B`` (r the rank's data
+    index) into the
     autoreset. ``mesh``: the JAX ``mesh=`` (GSPMD) step's rollout, on this
     rank's B envs: this rank's rows of what the unsharded rollout of the
     global batch computes (the pool size K from the global batch, the
     pool's rows of this rank's envs, its rows of the one global action
-    draw, ``env_offset = rank * B``); no collective. None: one device, no
+    draw, ``env_offset = r * B``); no collective. None: one device, no
     shards.
 
     Per step t: the policy acts on the observation, actions come from
@@ -400,7 +405,7 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda",
     B, T, N = local_batch(cfg, shards), cfg.rollout_len, env_params.n_agents
     Fd = 3 * env_params.view_size ** 2
     K = pool_size(cfg, cfg.n_envs if mesh is not None else B)
-    offset = 0 if shards is None else shards.rank * B
+    offset = 0 if shards is None else shards.data_index * B
     # the pool rows of this rank's envs: under ``axis`` each rank tiles its
     # own pool over its own envs
     pool_offset = offset if mesh is not None else 0
@@ -424,7 +429,7 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda",
         key, fk = ks[0], ks[1]
         if axis is not None:
             # distinct fresh-board layouts per rank (the key is replicated)
-            fk = rng.fold_in(fk, axis.rank)
+            fk = rng.fold_in(fk, axis.data_index)
         with record_function("rollout.fresh_pool"):
             pool = step_mod.fresh_pool(env_params, fk, K)
         names = ("act", "logp", "val", "rew", "done", "ep_ret", "ep_len",
@@ -580,10 +585,11 @@ def _take(v, idx):
 
 class Share:
     """This rank's share of every minibatch on the mesh path: of a
-    minibatch's ``mb`` block indices, rank r takes positions ``[r*mb//D,
-    (r+1)*mb//D)``, padded to ``ceil(mb/D)`` positions with others at
-    weight 0, so the ranks split each minibatch's compute (none
-    replicated, none dropped or counted twice) in tensors of one shape.
+    minibatch's ``mb`` block indices, the rank at data index r takes
+    positions ``[r*mb//D, (r+1)*mb//D)``, padded to ``ceil(mb/D)``
+    positions with others at weight 0, so the data ranks split each
+    minibatch's compute (none replicated, none dropped or counted twice)
+    in tensors of one shape.
 
     ``pos`` (ceil(mb/D),) are the positions taken; ``w`` their float32
     weights (1, or 0 on padding) as ``align`` lays them against the loss
@@ -591,7 +597,8 @@ class Share:
     blocks of ``per_block`` (:func:`ppo_loss`)."""
 
     def __init__(self, mesh: Mesh, mb: int, per_block: int, align, device):
-        lo, hi = mesh.rank * mb // mesh.D, (mesh.rank + 1) * mb // mesh.D
+        r = mesh.data_index
+        lo, hi = r * mb // mesh.D, (r + 1) * mb // mesh.D
         pos = lo + torch.arange(-(-mb // mesh.D), device=device)
         self.mesh = mesh
         self.pos = pos.clamp(max=mb - 1)     # any real block, weighed 0
@@ -618,7 +625,7 @@ def shuffled_blocks(blocked, G: int, used: int, cfg: PPOConfig,
 
 
 def run_epochs(minibatches, loss_fn, params, optimizer, key, cfg: PPOConfig,
-               dev, reduce=None):
+               dev, reduce=None, model=None):
     """The epochs of a PPO update: per epoch the minibatches of
     ``minibatches(split(key)[1])`` (:func:`shuffled_blocks`), and for each
     ``loss_fn(batch) -> (total, aux)``, a backward pass, the global-norm
@@ -627,8 +634,11 @@ def run_epochs(minibatches, loss_fn, params, optimizer, key, cfg: PPOConfig,
     whose ranks hold parts of one global loss), the gradients, ``total``
     and ``aux`` go through it (one bucket) between the backward pass and
     the clip: the data-parallel gradient all-reduce, written out as the JAX
-    shard_map step writes it. Returns the means over every minibatch of
-    ``loss`` and of each ``aux`` entry, as 0-d device tensors."""
+    shard_map step writes it. ``model`` (a tensor-parallel net's
+    ``sync_grads``): after that, the model axis's part, ``grads ->
+    (grads, squared global norm)``, whose norm the clip takes. Returns the
+    means over every minibatch of ``loss`` and of each ``aux`` entry, as
+    0-d device tensors."""
     losses, auxs = [], []
     key = key.to(dev)
     for _ in range(cfg.n_epochs):
@@ -644,10 +654,14 @@ def run_epochs(minibatches, loss_fn, params, optimizer, key, cfg: PPOConfig,
                         [*grads, total.detach(),
                          torch.stack(list(aux.values())).detach()])
                     aux = dict(zip(aux, av))
+            sq_norm = None
+            if model is not None:
+                with record_function("update.model_all_reduce"):
+                    grads, sq_norm = model(grads)
             with record_function("update.optimizer"):
                 for p, g in zip(params, grads):
                     p.grad = g
-                clip_by_global_norm(grads, cfg.max_grad_norm)
+                clip_by_global_norm(grads, cfg.max_grad_norm, sq_norm)
                 optimizer.step()
             losses.append(total.detach())
             auxs.append({k: v.detach() for k, v in aux.items()})
@@ -705,7 +719,10 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     (``mesh.gather_env``: one all-gather), the blocks of the global
     trajectory (c and G from the global B), the same permutation on every
     rank, and each minibatch's blocks split over the ranks
-    (:class:`Share`, :func:`ppo_loss`), its gradients ``psum``'d.
+    (:class:`Share`, :func:`ppo_loss`), its gradients ``psum``'d. A
+    tensor-parallel net (``parallel/tensor_parallel.py``, its shards over
+    the mesh's model axis) adds its ``sync_grads`` after that sum
+    (``update.model_all_reduce``).
     """
     dev = resolve(device)
     store = storage(env_params, cfg)
@@ -824,7 +841,8 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
                 f"data). Pick n_minibatches dividing {G} to use all of it.",
                 stacklevel=3)
         return run_epochs(shuffled_blocks(blocked, G, used, cfg, share),
-                          loss_fn, params, optimizer, key, cfg, dev, reduce)
+                          loss_fn, params, optimizer, key, cfg, dev, reduce,
+                          getattr(net, "sync_grads", None))
 
     return update
 
@@ -870,7 +888,13 @@ def make_train_step(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     is what the unsharded step computes over the global batch, up to the
     order of float sums (:func:`make_rollout`, :func:`make_update`); the
     episode tallies are ``psum``'d. With ``overlap`` too, as in JAX. Its
-    collectives are captured in the graph with ``jit=True``.
+    collectives are captured in the graph with ``jit=True``. On a mesh
+    with a model axis, ``net`` may be this rank's
+    ``tensor_parallel.TensorParallelActorCritic`` (the JAX dry run's
+    tensor-parallel step): the ranks of a model group hold the shards of
+    one policy, and the step computes the unsharded step's function
+    (``tensor_parallel.broadcast_state`` in place of ``broadcast_from``
+    for the start).
     """
     shards = data_axis(axis, mesh)
     if overlap and axis is not None:

@@ -218,7 +218,7 @@ def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
         torsos = ["mlp"] * len(groups)
     B, T = local_batch(cfg, mesh), cfg.rollout_len
     K = pool_size(cfg, cfg.n_envs)
-    offset = 0 if mesh is None else mesh.rank * B
+    offset = 0 if mesh is None else mesh.data_index * B
     perm = [i for idxs, _ in groups for i in idxs]
     inv = const(sorted(range(len(perm)), key=perm.__getitem__), torch.int64,
                 dev)

@@ -195,7 +195,7 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
     Fd = 3 * env_params.view_size ** 2
     L, _ = _windows(cfg)
     K = pool_size(cfg, cfg.n_envs if mesh is not None else B)
-    offset = 0 if shards is None else shards.rank * B
+    offset = 0 if shards is None else shards.data_index * B
     pool_offset = offset if mesh is not None else 0
     mask = _mask_carry_env0 if image else mask_carry_env1
 
@@ -216,7 +216,7 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
         ks = rng.split(key)
         key, fk = ks[0], ks[1]
         if axis is not None:
-            fk = rng.fold_in(fk, axis.rank)
+            fk = rng.fold_in(fk, axis.data_index)
         with record_function("rollout.fresh_pool"):
             pool = step_mod.fresh_pool(env_params, fk, K)
         names = ("obs", "act", "logp", "val", "rew", "done", "ep_ret",

@@ -16,9 +16,10 @@ Usage:
         [--agent-config '[{"view_size":7},{"view_size":5}]'] [--device cpu]
 
     # data-parallel over ranks, one process a card (the sharded default
-    # path; --shard-map for the explicit-collective step):
+    # path; --shard-map for the explicit-collective step; --model-shards N
+    # lays the K ranks out as a (K / N, N) mesh):
     torchrun --nproc-per-node K -m marlgrid_tpu_torch.parallel.train \
-        --distributed [--shard-map] [--rnn gru] ...
+        --distributed [--shard-map] [--rnn gru] [--model-shards N] ...
 
 ``MARLGRID_TPU_EMBED_V2=1`` in the environment routes the mlp torso's embed
 through the plane-major kernels (K5f, K5b), as it does for the JAX CLI.
@@ -31,8 +32,7 @@ the JAX CLI wires its jitted steps (:func:`make_call`): the trainer's
 runs eagerly and the second captures.
 
 The flags and defaults are those of ``python -m marlgrid_tpu.parallel.train``
-plus ``--device`` (default ``cuda``). A flag whose path the port does not
-have yet exits with the name of the ROADMAP slice that brings it. The
+plus ``--device`` (default ``cuda``). The
 weights are drawn from ``torch.Generator().manual_seed(--seed)`` (the JAX
 CLI draws them from its key); the env batch and the step keys follow the
 JAX CLI's key plumbing. Metrics go out as JSONL, one line per logged
@@ -58,12 +58,23 @@ JAX CLI's replicated ``device_put``); each rank logs the same metrics to
 its own ``--metrics``; rank 0 writes the checkpoints, the env state (and
 ``h``) gathered in global env order, so a checkpoint holds the global
 batch and ``--resume`` slices it for any D that divides ``--envs``.
+
+``--model-shards N`` lays the ranks out as ``parallel/mesh.py``'s (world /
+N, N) ('data', 'model') mesh, as the JAX CLI's ``make_mesh(n_model=N)``
+does: the data axis is world / N ranks, and the N ranks of a model group
+hold the same env slice and repeat one another's work, the learner state
+being replicated over the whole mesh (the JAX CLI commits it to ``P()``;
+the CLI applies no tensor parallelism). A world size that N does not
+divide (one process, without ``--distributed``) exits with JAX's
+``make_mesh`` message, before any process group is made where the world
+size is known (``--num-processes``, or torchrun's ``WORLD_SIZE``).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import torch
@@ -83,13 +94,6 @@ from . import ppo, ppo_hetero, ppo_hetero_mixed, ppo_hetero_rnn, ppo_rnn
 #: is checked when training starts (core/obs.py::validate_encode_palette)
 BUILTIN_SCENARIOS = ("empty", "cluttered", "doorkey", "goal_cycle")
 
-
-#: (is it asked for, flag, the ROADMAP slice that brings it) for each flag
-#: with no path in the port yet
-LATER = (
-    (lambda a: a.model_shards != 1, "--model-shards > 1",
-     "Slice G2c (the 'model' axis)"),
-)
 
 #: the calls that --profile-dir traces (0-based), as the JAX CLI does
 TRACED = range(2, 5)
@@ -192,18 +196,16 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def refuse_later(args):
-    """Exit naming the ROADMAP slice of the first :data:`LATER` flag
-    asked for."""
-    for unsupported, flag, slice_ in LATER:
-        if unsupported(args):
-            raise SystemExit(f"{flag}: not in the PyTorch port yet; it comes "
-                             f"with ROADMAP {slice_}")
+def check_mesh(world: int, n_model: int):
+    """Exit with JAX's ``make_mesh`` message unless ``world`` ranks make a
+    (world // n_model, n_model) mesh."""
+    n_data = world // n_model
+    if n_data * n_model != world:
+        raise SystemExit(f"{n_data}x{n_model} mesh != {world} devices")
 
 
 def build(args):
     """(EnvParams, PPOConfig) from the flags, as the JAX CLI builds them."""
-    refuse_later(args)
     if args.bptt_window and not args.rnn:
         raise SystemExit("--bptt-window is a --rnn option")
     if args.bptt_window and args.rollout % args.bptt_window:
@@ -478,7 +480,10 @@ def local_carry(mesh, h, dim: int = 1):
 
 def main(argv=None):
     args = parse_args(argv)
-    refuse_later(args)
+    world = (args.num_processes or os.environ.get("WORLD_SIZE")
+             if args.distributed else 1)
+    if world:
+        check_mesh(int(world), args.model_shards)
     if args.distributed:
         # before anything touches the card: the rank picks its card here
         dev = mesh_mod.init_distributed(args.device, args.coordinator,
@@ -494,10 +499,13 @@ def main(argv=None):
 
 def train(args, dev):
     ep, cfg = build(args)
-    # the data axis: --shard-map's, or every rank of --distributed (the
-    # sharded default path)
+    # the mesh: --shard-map's, or every rank of --distributed (the sharded
+    # default path), the ranks laid out (world / N, N) by --model-shards N
     sharded = args.shard_map or args.distributed
-    mesh = mesh_mod.make_mesh(device=dev) if sharded else None
+    if args.distributed:
+        check_mesh(torch.distributed.get_world_size(), args.model_shards)
+    mesh = (mesh_mod.make_mesh(n_model=args.model_shards, device=dev)
+            if sharded else None)
     key = rng.PRNGKey(args.seed, device=dev)
     gen = torch.Generator().manual_seed(args.seed)
     net, opt, h = init(ep, cfg, gen, dev)
@@ -533,7 +541,7 @@ def train(args, dev):
         # every rank starts from rank 0's weights and optimizer state
         mesh_mod.broadcast_from(mesh, list(net.state_dict().values()) + [
             t for st in opt.state.values() for t in st.values()
-            if torch.is_tensor(t)])
+            if torch.is_tensor(t)], world=True)
 
     spc = max(1, args.steps_per_call)
     prev = None

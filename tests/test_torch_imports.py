@@ -3,7 +3,8 @@
 A static AST scan (not ``sys.modules``: a site customization may import
 jax at interpreter start) of every module of ``marlgrid_tpu_torch`` (the
 data axis ``parallel/mesh.py`` among them), of ``chip_smoke.py`` and
-``chip_pair.py``, of the multi-process tests' worker
+``chip_pair.py``, of the port's entry points
+``__graft_entry_torch__.py``, of the multi-process tests' worker
 ``tests/torch_dist_worker.py`` and of the port's examples
 (``examples/torch_*.py``) finds no import of jax, flax, optax or the JAX
 package. The package imports, and its host env runs, without
@@ -24,6 +25,7 @@ EXAMPLES = [ROOT / "examples" / f"torch_{name}.py" for name in (
     "batched_rollout", "custom_env", "hetero_population", "random_rollout")]
 FILES = sorted((ROOT / "marlgrid_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "chip_pair.py",
+    ROOT / "__graft_entry_torch__.py",
     ROOT / "tests" / "torch_dist_worker.py"] + EXAMPLES
 
 
@@ -56,6 +58,12 @@ def test_the_walk_covers_the_data_axis():
     assert ROOT / "marlgrid_tpu_torch" / "parallel" / "mesh.py" in FILES
 
 
+def test_the_walk_covers_the_model_axis_and_the_entry_points():
+    assert ROOT / "marlgrid_tpu_torch" / "parallel" / \
+        "tensor_parallel.py" in FILES
+    assert ROOT / "__graft_entry_torch__.py" in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(
     p.relative_to(ROOT)))
 def test_port_imports_no_jax(path):
@@ -76,6 +84,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
                                              ppo_rnn, train)
     from marlgrid_tpu_torch.vector import VectorEnv
 
+    from marlgrid_tpu_torch.parallel import tensor_parallel
+
+    graft = load_example(ROOT / "__graft_entry_torch__.py")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ep = EnvParams(width=7, height=7, n_agents=1,
                    observation_style="encode")
@@ -108,6 +119,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
                             "--coordinator", "localhost:1"]),
         lambda: train.main(["--scenario", "empty", "--agents", "1", "--envs",
                             "4", "--iters", "1", "--shard-map"]),
+        # the 'model' axis and the entry points
+        lambda: mesh.make_mesh(n_model=1),
+        lambda: tensor_parallel.TensorParallelActorCritic(cfg, ep.view_size,
+                                                          cpu_mesh),
+        lambda: graft.entry(),
+        lambda: graft.dryrun_multichip(1),
         lambda: train.main(["--scenario", "empty", "--agents", "1", "--envs",
                             "4", "--iters", "1", "--shard-map",
                             "--distributed", "--num-processes", "1",
@@ -208,3 +225,36 @@ print("ok")
     lines = out.stdout.strip().splitlines()
     assert lines[-1] == "ok"
     assert "gymnasium" in lines[-3] and "PIL" in lines[-2], lines
+
+
+def test_every_device_default_is_cuda():
+    """Every ``device=`` default of the port's functions and methods, and
+    of ``__graft_entry_torch__``'s ``entry`` and ``dryrun_multichip``, is
+    ``"cuda"``."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import marlgrid_tpu_torch
+
+    mods = [importlib.import_module(m.name) for m in pkgutil.walk_packages(
+        marlgrid_tpu_torch.__path__, "marlgrid_tpu_torch.")]
+    mods.append(load_example(ROOT / "__graft_entry_torch__.py"))
+    seen = {}
+    for mod in mods:
+        for name, obj in vars(mod).items():
+            if getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            fns = [(name, obj)] if inspect.isfunction(obj) else [
+                (f"{name}.{k}", v) for k, v in vars(obj).items()
+                if inspect.isfunction(v)] if inspect.isclass(obj) else []
+            for qual, fn in fns:
+                p = inspect.signature(fn).parameters.get("device")
+                if p is not None and p.default is not p.empty:
+                    seen[f"{mod.__name__}.{qual}"] = p.default
+    assert seen["__graft_entry_torch__.entry"] == "cuda"
+    assert seen["__graft_entry_torch__.dryrun_multichip"] == "cuda"
+    assert seen["marlgrid_tpu_torch.parallel.tensor_parallel."
+                "TensorParallelActorCritic.__init__"] == "cuda"
+    assert len(seen) > 30
+    assert {k: v for k, v in seen.items() if v != "cuda"} == {}

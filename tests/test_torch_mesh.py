@@ -98,7 +98,8 @@ def test_identity_collectives_without_a_group():
 def test_make_mesh_refusals():
     with pytest.raises(AssertionError, match=r"^2x1 mesh != 1 devices$"):
         mesh_mod.make_mesh(n_data=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Slice G2c"):
+    # a 'model' axis of 2 needs two ranks: JAX's assertion and message
+    with pytest.raises(AssertionError, match=r"^0x2 mesh != 1 devices$"):
         mesh_mod.make_mesh(n_model=2, device="cpu")
     with pytest.raises(ValueError, match="process group"):
         mesh_mod.Mesh(2, 0, None, torch.device("cpu"))
@@ -107,7 +108,7 @@ def test_make_mesh_refusals():
 @pytest.mark.parametrize("layout", ["feature_major", "rows"])
 def test_categorical_per_key_matches_jax_vmap(layout):
     """The shard_map rollout's draw: env b samples from ``fold_in(ak,
-    rank * B + b)``; bit-equal to JAX's vmapped ``categorical`` over the
+    r * B + b)``, r the rank's data index; bit-equal to JAX's vmapped ``categorical`` over the
     (N, B, A) logits (``in_axes=(0, 1), out_axes=1``) and the (B, N, A)
     ones."""
     N, B, A, rank = 3, 16, 7, 1
@@ -132,5 +133,5 @@ def test_categorical_per_key_matches_jax_vmap(layout):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # the rollout's own route to it
     got = ppo.sample_actions(tak, torch.as_tensor(logits),
-                             SimpleNamespace(rank=rank), B, key_axis)
+                             SimpleNamespace(data_index=rank), B, key_axis)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -88,12 +88,13 @@ def test_bptt_window_full_equals_default():
 def test_sequence_blocks_and_paths():
     """The two block rules at full width (encode c = 128, G = 32; images
     c = 16, G = 256) and the tiny-batch halving; the paths the port lacks
-    raise, naming their ROADMAP slice."""
+    raise, naming their ROADMAP slice; a recurrent step over a 'model' axis
+    of 2 in one process stops at the mesh, with JAX's assertion."""
     assert ppo_rnn.sequence_block_size(4096, 1, 4) == 128
     assert ppo_rnn.sequence_block_size(4096, 1, 4, image=True) == 16
     assert ppo_rnn.sequence_block_size(16, 1, 4, image=True) == 4
     assert ppo_rnn.sequence_block_size(16, 1, 4) == 4
-    with pytest.raises(NotImplementedError, match="Slice G"):
+    with pytest.raises(AssertionError, match=r"^0x2 mesh != 1 devices$"):
         ppo_rnn.make_train_step_rnn_shard_map(
             EP, _cfg(), None, None, mesh.make_mesh(n_model=2, device="cpu"))
     with pytest.raises(NotImplementedError, match="Slice D"):

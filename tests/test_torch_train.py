@@ -2,7 +2,9 @@
 on the CPU, tiny: its JSONL carries the JAX CLI's fields, its checkpoint's
 config.json holds the PPOConfig the JAX CLI builds from the same flags
 (palettes included), and a flag whose path the port lacks exits with the
-ROADMAP slice that brings it. ``--distributed`` trains on two gloo ranks,
+ROADMAP slice that brings it (``--model-shards`` that does not divide the
+world size exits with JAX's mesh message). ``--distributed`` trains on two
+gloo ranks,
 on the sharded default path (feedforward, ``--overlap``, recurrent encode
 and image) and with ``--shard-map``, checkpoints the global batch and
 resumes in one process; the JAX CLI's ``--shard-map`` exits are
@@ -106,13 +108,17 @@ def test_cli_image(tmp_path):
 
 
 @pytest.mark.parametrize("flag,slice_", [
-    (["--rnn", "gru", "--model-shards", "2"], "Slice G"),
+    # a 'model' axis the ranks do not make: JAX's make_mesh message
+    (["--rnn", "gru", "--model-shards", "2"], r"^0x2 mesh != 1 devices$"),
     (["--rnn", "gru", "--agent-config", "[{}]", "--distributed",
-      "--num-processes", "2", "--model-shards", "2"], "Slice G"),
-    (["--agent-config", "[{}]", "--model-shards", "2"], "Slice G"),
+      "--num-processes", "3", "--model-shards", "2"],
+     r"^1x2 mesh != 3 devices$"),
+    (["--agent-config", "[{}]", "--model-shards", "2"],
+     r"^0x2 mesh != 1 devices$"),
     (["--overlap", "--agent-config", "[{}]", "--distributed",
-      "--num-processes", "2", "--model-shards", "2"], "Slice G"),
-    (["--model-shards", "2"], "Slice G"),
+      "--num-processes", "3", "--model-shards", "2"],
+     r"^1x2 mesh != 3 devices$"),
+    (["--model-shards", "2"], r"^0x2 mesh != 1 devices$"),
     # not a missing slice: the JAX CLI stops at init_state_rnn's assert
     (["--rnn", "gru", "--torso", "cnn"], "mlp feature-major path"),
 ])
@@ -126,13 +132,16 @@ def test_unsupported_flag_names_its_slice(flag, slice_):
     ["--model-shards", "2", "--distributed", "--num-processes", "3"],
 ], ids=["model-shards", "multi-rank"])
 def test_later_refusals_name_slice_g2(flag, monkeypatch):
-    """What stays refused after the sharded paths came, naming Slice G2c:
-    the 'model' axis, before any process group is made, also in a
-    torchrun rank (its WORLD_SIZE set)."""
-    with pytest.raises(SystemExit, match="Slice G2c"):
+    """What stays refused after the 'model' axis came: a --model-shards
+    that the world size (one process; three ranks) does not take exits
+    with JAX's make_mesh message before any process group is made, also
+    in a torchrun rank (its WORLD_SIZE set)."""
+    world = 3 if "--distributed" in flag else 1
+    with pytest.raises(SystemExit, match=rf"^{world // 2}x2 mesh != "
+                                         rf"{world} devices$"):
         train.main(TINY + flag)
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="Slice G2c"):
+    monkeypatch.setenv("WORLD_SIZE", "3")
+    with pytest.raises(SystemExit, match=r"^1x2 mesh != 3 devices$"):
         train.main(TINY + ["--distributed", "--model-shards", "2",
                            "--agent-config", "[{}]"])
 

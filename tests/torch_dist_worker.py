@@ -12,9 +12,19 @@ it returns to OUTPUT (every rank writes its own file).
   ``broadcast_from`` rank 0, ``gather`` of ``shard``, ``Mesh.all_gather`` of
   :func:`gather_parts` (four dtypes, three env axes), and the rank's slice of
   ``ppo.init_env_batch``.
+- ``mesh2d``: the ('data', 'model') mesh of ``n_model`` over the group:
+  each rank's coordinates, ``psum``/``pmean``/``all_gather`` (data axis)
+  and ``model_psum``/``model_all_gather`` (model axis) of rank-valued
+  data, the differentiable ``model_gather``/``model_sum`` and the
+  gradients they give back, ``host_local_slice``, ``shard``/``gather``,
+  ``broadcast_from`` over the data group and over the world, the counts
+  of each axis's calls, and the rank's slice of ``ppo.init_env_batch``.
+- ``graft``: ``__graft_entry_torch__.dryrun_multichip`` over the group's
+  ranks on the CPU: each family's loss.
 - ``train``: for each run of ``runs``, a feedforward or recurrent run from
-  the weights and keys given (rank 0's, through ``broadcast_from``: the
-  other ranks start from other weights), on the run's ``path``:
+  the weights and keys given (rank 0's, through ``broadcast_from`` over
+  the whole group: the other ranks start from other weights), on the
+  run's mesh (``n_model``, default 1) and ``path``:
   ``"shard_map"`` (``ppo.make_train_step_shard_map``,
   ``ppo_rnn.make_train_step_rnn_shard_map``), or ``"mesh"``, the sharded
   default path (``ppo.make_train_step(mesh=...)``, with ``overlap`` too,
@@ -22,12 +32,18 @@ it returns to OUTPUT (every rank writes its own file).
   per-agent observation configs takes the hetero family the train CLI
   picks for it (``train.init``, ``train.make_step``: ``ppo_hetero``,
   ``ppo_hetero_rnn`` or ``ppo_hetero_mixed``, ``mesh=``), its weights a
-  ModuleList's state_dict. It returns the first minibatch's gradients as
+  ModuleList's state_dict. A run with ``flax`` (the flax params as numpy
+  arrays) in place of ``state_dict`` is tensor-parallel: each rank holds a
+  ``tensor_parallel.TensorParallelActorCritic``, the ranks at data index
+  0 load their shards (``models.load_flax_params_shard``) and
+  ``tensor_parallel.broadcast_state`` starts the others. It returns the
+  first minibatch's gradients as
   the optimizer sees them (after the all-reduce and the clip), the sample
   count of every loss call (the logits' leading shape; on the hetero
-  families a tuple, one count a group), the collectives the steps called,
-  and a snapshot after every step: the weights, the env state and carry
-  gathered in global env order, the key and the metrics.
+  families a tuple, one count a group), the collectives the steps called
+  on each axis, and a snapshot after every step: the weights (a
+  tensor-parallel rank's shards), the env state and carry gathered in
+  global env order, the key and the metrics.
 """
 from __future__ import annotations
 
@@ -38,9 +54,11 @@ import torch
 import torch.distributed as dist
 
 from marlgrid_tpu_torch.core.state import EnvParams, FIELDS, state_to_numpy
+from marlgrid_tpu_torch.models import load_flax_params_shard
 from marlgrid_tpu_torch.parallel import mesh as mesh_mod
 from marlgrid_tpu_torch.parallel import (ppo, ppo_hetero, ppo_hetero_mixed,
-                                         ppo_hetero_rnn, ppo_rnn)
+                                         ppo_hetero_rnn, ppo_rnn,
+                                         tensor_parallel)
 from marlgrid_tpu_torch.parallel import train as train_mod
 
 
@@ -79,6 +97,53 @@ def job_mesh(args):
                 env=state_to_numpy(state))
 
 
+def job_mesh2d(args):
+    mesh = mesh_mod.make_mesh(n_model=args["n_model"], device="cpu")
+    r = mesh.rank
+    x = torch.tensor([float(r + 1)])
+    y = torch.tensor([[1.0 + r, 2.0 * r]], requires_grad=True)
+    gathered_y = mesh_mod.model_gather(mesh, y)
+    (gathered_y * (r + 1) * torch.arange(
+        1.0, gathered_y.numel() + 1)).sum().backward()
+    z = torch.tensor([3.0 * (r + 1)], requires_grad=True)
+    summed_z, = mesh_mod.model_sum(mesh, z)
+    (summed_z * (r + 2)).sum().backward()
+    mine, everywhere = torch.full((3,), float(r)), torch.full((2,), float(r))
+    mesh_mod.broadcast_from(mesh, [mine])
+    mesh_mod.broadcast_from(mesh, [everywhere], world=True)
+    rows = torch.arange(2 * mesh.D * 3).reshape(2, mesh.D * 3)
+    ep = EnvParams.from_dict(args["ep"])
+    state = ppo.init_env_batch(ep, args["n_envs"], args["key"],
+                               stagger=True, device="cpu", mesh=mesh)
+    return dict(
+        D=mesh.D, n_model=mesh.n_model, rank=r, data_index=mesh.data_index,
+        model_index=mesh.model_index,
+        data_ranks=sorted(torch.distributed.get_process_group_ranks(
+            mesh.group)),
+        model_ranks=sorted(torch.distributed.get_process_group_ranks(
+            mesh.model_group)),
+        psum=mesh.psum([x])[0], pmean=mesh.pmean([x])[0],
+        all_gathered=mesh.all_gather([torch.tensor([r, 10 * r])], [0])[0],
+        model_psum=mesh.model_psum([x])[0],
+        model_all_gathered=mesh.model_all_gather(
+            torch.tensor([[r, 10 * r]]), -1),
+        gathered_y=gathered_y.detach(), y_grad=y.grad,
+        summed_z=summed_z.detach(), z_grad=z.grad,
+        broadcast=mine, broadcast_world=everywhere,
+        slice=mesh_mod.host_local_slice(mesh, 8),
+        gathered=mesh_mod.gather(mesh, mesh_mod.shard(mesh, rows, 1), 1),
+        counts=(mesh.all_reduces, mesh.all_gathers, mesh.model_all_reduces,
+                mesh.model_all_gathers),
+        env=state_to_numpy(state))
+
+
+def job_graft(args):
+    import __graft_entry_torch__
+
+    return __graft_entry_torch__.dryrun_multichip(
+        torch.distributed.get_world_size(), device="cpu")
+
+
 def job_train(args):
     return [train_run(run) for run in args["runs"]]
 
@@ -111,7 +176,7 @@ def count_group_loss_samples(seen):
 
 
 def train_run(args):
-    mesh = mesh_mod.make_mesh(device="cpu")
+    mesh = mesh_mod.make_mesh(n_model=args.get("n_model", 1), device="cpu")
     ep = EnvParams.from_dict(args["ep"])
     cfg = ppo.PPOConfig(**{**ppo.ppo_config_from_dict(args["cfg"]).__dict__,
                            "dtype": args.get("dtype", torch.float32)})
@@ -135,7 +200,12 @@ def train_run(args):
             step = ppo_rnn.make_train_step_rnn_shard_map(ep, cfg, net, opt,
                                                          mesh, device="cpu")
     else:
-        net, opt = ppo.init_state(ep, cfg, gen, device="cpu")
+        if "flax" in args:
+            net = tensor_parallel.TensorParallelActorCritic(
+                cfg, ep.view_size, mesh, gen, device="cpu")
+            opt = ppo.make_optimizer(net, cfg)
+        else:
+            net, opt = ppo.init_state(ep, cfg, gen, device="cpu")
         h = None
         if args.get("overlap"):
             step, prime = ppo.make_train_step(ep, cfg, net, opt, device="cpu",
@@ -149,9 +219,16 @@ def train_run(args):
     seen = []
     count_loss_samples(seen)
     count_group_loss_samples(seen)
-    if mesh.rank == 0:
-        net.load_state_dict(args["state_dict"])
-    mesh_mod.broadcast_from(mesh, list(net.state_dict().values()))
+    if "flax" in args:
+        if mesh.data_index == 0:
+            net.load_state_dict(load_flax_params_shard(
+                args["flax"], mesh.model_index, mesh.n_model))
+        tensor_parallel.broadcast_state(mesh, net)
+    else:
+        if mesh.rank == 0:
+            net.load_state_dict(args["state_dict"])
+        mesh_mod.broadcast_from(mesh, list(net.state_dict().values()),
+                                world=True)
     grads = []
     opt.register_step_pre_hook(lambda o, a, k: grads.append(
         {n: p.grad.clone() for n, p in net.named_parameters()})
@@ -179,10 +256,14 @@ def train_run(args):
                 lambda x: mesh_mod.gather(mesh, x, hdim), h),
             key=key.clone(), metrics={k: float(v) for k, v in m.items()}))
     return dict(snaps=snaps, grad0=grads[0], all_reduces=mesh.all_reduces,
-                all_gathers=gathers, loss_samples=seen)
+                all_gathers=gathers, loss_samples=seen,
+                model_all_reduces=mesh.model_all_reduces,
+                model_all_gathers=mesh.model_all_gathers,
+                model_index=mesh.model_index)
 
 
-JOBS = dict(mesh=job_mesh, train=job_train)
+JOBS = dict(mesh=job_mesh, mesh2d=job_mesh2d, graft=job_graft,
+            train=job_train)
 
 
 def main(argv):
