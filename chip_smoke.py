@@ -91,8 +91,10 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
    with the same launches per step, train env-steps/s and peak memory;
    then the ``--torso cnn`` CLI (graphed) with a resume, its checkpoint
    kept for 8d; then the CLI's ``--profile-dir`` (B = 1024, T = 8, 5
-   calls: the trace read back, its hotspots naming the ``rollout.`` and
-   ``update.`` stages) and ``--debug-nans`` (B = 1024, 3 calls);
+   calls, calls 2-4 graph replays: one trace and its stage map, read back,
+   its hotspots naming the ``rollout.`` and ``update.`` stages with at
+   least 95 % of the device time by stage) and ``--debug-nans`` (B = 1024,
+   3 calls);
 8e. the data axis across processes: two ``--shard-map`` ranks on the one
    card (``torch.multiprocessing`` spawn, gloo over the card's tensors,
    eager; NCCL refuses two ranks on one GPU) against one rank with no
@@ -1767,12 +1769,44 @@ def phase_cli(card, flags=(), want=None, plane_major=False, spc=1,
                 returns=[r["episode_return"] for r in recs], counts=counts)
 
 
+def _short_replay(ops, stage_map, events):
+    """Where a traced replay lacks nodes of its stage map: the nodes
+    lacking, the first node whose name the replay's op there does not
+    agree with (from the start) and the last (from the end), the names of
+    the map's first three nodes and the replay's first three ops, and the
+    device ops outside every replay that start inside this one's span
+    (records the trace holds under another correlation)."""
+    from marlgrid_tpu_torch.utils import profiling
+
+    names = stage_map["names"]
+    got = [e.get("name", "") for e in ops]
+    head = next((i for i, (a, b) in enumerate(zip(names, got))
+                 if not profiling._agrees(a, b)), len(got))
+    tail = next((i for i, (a, b) in enumerate(zip(names[::-1], got[::-1]))
+                 if not profiling._agrees(a, b)), len(got))
+    inside = {id(e) for e in ops}
+    t0, t1 = ops[0]["ts"], max(e["ts"] + e["dur"] for e in ops)
+    stray = [e.get("name", "")[:40] for e in events
+             if e.get("cat") in profiling.DEVICE_CATS and id(e) not in inside
+             and t0 <= e["ts"] <= t1]
+    return dict(lacking=len(names) - len(got), first_off=head,
+                last_off=len(names) - 1 - tail,
+                map_head=[n[:40] for n in names[:3]],
+                ops_head=[n[:40] for n in got[:3]],
+                ops_before=sum(e.get("cat") in profiling.DEVICE_CATS
+                               and e["ts"] < t0 for e in events),
+                stray=len(stray), stray_names=stray[:3])
+
+
 def phase_cli_tools(card):
     """The train CLI's two debugging tools, at B = 1024: ``--profile-dir``
-    over 5 calls (T = 8: the traced calls 2-4 run the raw step, and an
-    eager step's trace holds every kernel and op), its trace read back by
-    ``profiling.kernel_times`` and ``profiling.hotspots``, which must name
-    a ``rollout.`` and an ``update.`` stage; then ``--debug-nans`` on the
+    over 5 calls (T = 8: the traced calls 2-4 are graph replays), which
+    must leave one trace and its stage map beside it; the trace read back
+    by ``profiling.kernel_times`` and ``profiling.hotspots``, which must
+    name a ``rollout.`` and an ``update.`` stage and put at least 95 % of
+    the device time down to stages; each replay's traced op count is
+    printed beside the map's node count (a replay that lost records is
+    lined up by ``profiling.match``); then ``--debug-nans`` on the
     defaults (T = 64, graphed), 3 calls that must pass the finite check
     after each."""
     from marlgrid_tpu_torch.parallel import train
@@ -1784,20 +1818,39 @@ def phase_cli_tools(card):
         train.main(["--envs", "1024", "--rollout", "8", "--iters", "5",
                     "--profile-dir", prof, "--metrics", log])
         prof_s = time.perf_counter() - t0
-        files = os.listdir(prof)
+        files = sorted(os.listdir(prof))
         size = sum(os.path.getsize(f"{prof}/{f}") for f in files)
+        traces = [f for f in files if f.endswith(".pt.trace.json.gz")]
+        maps = [f for f in files if f.endswith(".stages.json.gz")]
         times = profiling.kernel_times(prof)
-        hot = profiling.hotspots(prof, top=20)
+        hot = profiling.hotspots(prof, top=None)
         names = [n for _, n in hot]
-        if len(files) != 1 or not times or not (
+        staged = sum(ms for ms, n in hot
+                     if n.startswith(("step", "rollout", "update")))
+        share = staged / max(sum(ms for ms, _ in hot), 1e-12)
+        path = f"{prof}/{traces[0]}" if len(traces) == 1 else None
+        events = profiling._events(path) if path else []
+        replays = sorted(profiling._replays(events).items())
+        counts = [len(ops) for _, ops in replays]
+        maps = profiling._read_maps(path) if path else []
+        nodes = [sum(n for _, n in m["stages"]) for m in maps]
+        short = [_short_replay(ops, maps[0], events)
+                 for _, ops in replays if maps and len(ops) < nodes[0]]
+        if len(traces) != 1 or len(maps) != 1 or not times or not (
                 any(n.startswith("rollout.") for n in names)
-                and any(n.startswith("update.") for n in names)):
-            raise AssertionError(f"--profile-dir: trace {files}, hotspots "
-                                 f"{hot}")
+                and any(n.startswith("update.") for n in names)) \
+                or share < 0.95:
+            raise AssertionError(f"--profile-dir: files {files}, hotspots "
+                                 f"{hot[:20]}, {share:.2%} by stage, "
+                                 f"replays of {counts} ops, maps of {nodes}; "
+                                 f"short replays {short}")
         print(f"[cli] --profile-dir (B=1024, T=8, 5 calls, calls 2-4 "
-              f"traced): {prof_s:.1f} s, trace {files[0]} {size:,} bytes; "
+              f"traced): {prof_s:.1f} s, {files} {size:,} bytes; "
               f"{len(times)} kernel names, {sum(times.values()) / 1e3:.2f} "
-              f"ms of device time; hotspots (ms, stage): "
+              f"ms of device time; replays of {counts} ops against maps of "
+              f"{nodes} nodes (short: {short}); {share:.4%} of the device "
+              f"time by stage; "
+              f"hotspots (ms, stage): "
               + "; ".join(f"{ms:.2f} {n}" for ms, n in hot[:8])
               + f" [{card}]")
         t0 = time.perf_counter()
@@ -1811,8 +1864,9 @@ def phase_cli_tools(card):
           f"finite check in {nan_s:.1f} s; env_steps_per_s "
           f"{', '.join(format(r['env_steps_per_s'], ',.0f') for r in recs)}"
           f" [{card}]")
-    return dict(profile_s=prof_s, trace_bytes=size,
-                hotspots=[[ms, n] for ms, n in hot],
+    return dict(profile_s=prof_s, trace_bytes=size, replay_ops=counts,
+                map_nodes=nodes, short_replays=short, staged_share=share,
+                hotspots=[[ms, n] for ms, n in hot[:20]],
                 debug_nans_s=nan_s,
                 debug_nans_env_steps_per_s=[r["env_steps_per_s"]
                                             for r in recs])

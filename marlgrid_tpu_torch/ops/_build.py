@@ -5,7 +5,9 @@ into ``_build/lib<name>-<hash>.so``, the hash taken over the source and the
 flags, so an edited source builds anew and an unchanged one is reused.
 Nothing is compiled when a module is imported: the first launch of a kernel
 builds it, or a caller builds them all at once with :func:`build_all`, which
-starts one nvcc per source and waits for all of them.
+starts one nvcc per source and waits for all of them. ``build_s`` counts
+the seconds the process has spent in both: building, and loading the built
+libraries.
 """
 from __future__ import annotations
 
@@ -23,6 +25,9 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: host seconds this process spent building (:func:`build_all`) and loading
+#: (:func:`load`) the kernel libraries
+build_s = 0.0
 
 
 def sources() -> Dict[str, Path]:
@@ -53,7 +58,15 @@ def build_all(names: Iterable[str] = None) -> Dict[str, dict]:
     already built), "log": nvcc's output (ptxas register and shared-memory
     report)}. Raises with nvcc's output if any build fails.
     """
-    names = list(sources()) if names is None else list(names)
+    global build_s
+    t_start = time.perf_counter()
+    try:
+        return _build(list(sources()) if names is None else list(names))
+    finally:
+        build_s += time.perf_counter() - t_start
+
+
+def _build(names) -> Dict[str, dict]:
     BUILD.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -84,10 +97,14 @@ def build_all(names: Iterable[str] = None) -> Dict[str, dict]:
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The built library of kernel ``name`` (built first if needed)."""
+    global build_s
     path = library_path(name)
     if not path.exists():
         build_all([name])
-    return ctypes.CDLL(str(path))
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(str(path))
+    build_s += time.perf_counter() - t0
+    return lib
 
 
 @functools.lru_cache(maxsize=None)

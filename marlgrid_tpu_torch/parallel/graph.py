@@ -37,20 +37,44 @@ tuple or a hetero ``{group: h}`` dict) or the overlap step's ``prev =
   eager step. On the CPU (the caller asked for ``device="cpu"``) there is
   no graph: every call runs ``fn``.
 
+- The whole step runs under the root stage span ``step``
+  (``utils/profiling.py::stage``), inside which the trainers open
+  ``rollout``, ``update`` and their ``rollout.*`` / ``update.*`` stages. A
+  replay runs no Python, so the capture records which graph nodes each
+  stage added (``profiling.StageRecorder``): ``stages`` keeps the graph's
+  device-work nodes (kernels, memcpys, memsets) in replay order as runs of
+  ``(stage path, node count)``, ``node_names`` their names. Nothing is
+  added to the graph, nor to a replay's host work. :func:`captured` finds
+  the live steps that hold a graph.
+
 The network and the optimizer are updated in place by the step, so the
 graph holds their tensors' addresses: load weights or optimizer state
 (``load_state_dict``) before the first call, never between calls.
 """
 from __future__ import annotations
 
+import itertools
 import time
+import warnings
+import weakref
 
 import torch
 
 from ..core.state import FIELDS, EnvState
 from ..ops import kernel_wrappers
+from ..utils import profiling
 
 _LEAF = "tensor"
+#: the steps that hold a captured graph, weakly: a freed step's graph and
+#: memory are not pinned
+_captured = weakref.WeakValueDictionary()
+_order = itertools.count()
+
+
+def captured():
+    """The live :class:`GraphedStep` s that hold a captured graph, in the
+    order of their captures."""
+    return list(_captured.values())
 
 
 def flatten(tree):
@@ -107,23 +131,36 @@ class GraphedStep:
     errors. ``capture_error_mode`` is ``torch.cuda.graph``'s; a step whose
     collectives run on a process group is captured ``"thread_local"``
     (``ppo.capture_error_mode``). ``capture_s`` is the capture's wall time
-    (recording and instantiation), None before it."""
+    (recording and instantiation), None before it. ``first_s``: the host wall of the eager first
+    call through the device's completion of it. ``stages`` and
+    ``node_names``: the stage map (module docstring), None before the
+    capture or where the CUDA driver's graph functions failed (a warning says
+    why)."""
 
     def __init__(self, fn, name: str, capture_error_mode: str = "global"):
         self.fn, self.name = fn, name
         self.capture_error_mode = capture_error_mode
         self.stream = None
         self.graph = None
-        self.capture_s = None
+        self.capture_s = self.first_s = None
+        self.stages = self.node_names = None
+
+    def _run(self, carry):
+        with profiling.stage("step"):
+            return self.fn(*carry)
 
     def __call__(self, *carry):
         leaves, spec = flatten(carry)
         dev = leaves[0].device
         if dev.type != "cuda":
-            return self.fn(*carry)
+            return self._run(carry)
         if self.stream is None:
+            t0 = time.perf_counter()
             self.stream = torch.cuda.Stream(dev)
-            return self._on_side(lambda: self.fn(*carry))
+            out = self._on_side(lambda: self._run(carry))
+            self.stream.synchronize()
+            self.first_s = time.perf_counter() - t0
+            return out
         if self.graph is None:
             self._capture(leaves, spec, dev)
         else:
@@ -157,26 +194,36 @@ class GraphedStep:
         static = self._on_side(lambda: [x.clone() for x in leaves])
         storages = {x.untyped_storage().data_ptr() for x in static}
         graph = torch.cuda.CUDAGraph()
+        rec = profiling.StageRecorder(self.stream)
         try:
             with torch.cuda.graph(graph, stream=self.stream,
-                                  capture_error_mode=self.capture_error_mode):
-                out = self.fn(*unflatten(spec, static))
-                new, out_spec = flatten(tuple(out[:-1]))
-                if out_spec != spec or _describe(new) != _describe(static):
-                    raise ValueError("the step returns a carry of another "
-                                     "structure, shape or dtype than it "
-                                     "takes")
-                # a new leaf that shares a buffer with the carry is read
-                # before the copies below overwrite that buffer
-                new = [y if y is s or y.untyped_storage().data_ptr()
-                       not in storages else y.clone()
-                       for y, s in zip(new, static)]
-                for y, s in zip(new, static):
-                    if y is not s:
-                        s.copy_(y)
+                                  capture_error_mode=self.capture_error_mode
+                                  ), profiling.recording(rec):
+                with profiling.stage("step"):
+                    out = self.fn(*unflatten(spec, static))
+                    new, out_spec = flatten(tuple(out[:-1]))
+                    if out_spec != spec or _describe(new) != _describe(
+                            static):
+                        raise ValueError("the step returns a carry of "
+                                         "another structure, shape or dtype "
+                                         "than it takes")
+                    # a new leaf that shares a buffer with the carry is
+                    # read before the copies below overwrite that buffer
+                    new = [y if y is s or y.untyped_storage().data_ptr()
+                           not in storages else y.clone()
+                           for y, s in zip(new, static)]
+                    for y, s in zip(new, static):
+                        if y is not s:
+                            s.copy_(y)
+                # the graph's nodes exist only until it is instantiated
+                self.stages, self.node_names = rec.finish()
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of {self.name} failed: "
                                f"{type(e).__name__}: {e}") from e
+        finally:
+            rec.close()
+        if rec.error is not None:
+            warnings.warn(f"{self.name}: no stage map ({rec.error})")
         torch.cuda.current_stream(dev).wait_stream(self.stream)
         self._delta = [(fn, fn.launches - n)
                        for fn, n in zip(wrappers, before) if fn.launches > n]
@@ -186,4 +233,5 @@ class GraphedStep:
         self._shapes = _describe(static)
         self._outputs = (*unflatten(spec, static), out[-1])
         self.capture_s = time.perf_counter() - t0
+        _captured[next(_order)] = self
 

@@ -47,12 +47,12 @@ from typing import Any, Dict, Tuple
 
 import torch
 from torch.nn import functional as F
-from torch.profiler import record_function
 
 from ..core import grid_gen, obs as obs_mod, rng, step as step_mod
 from ..core.state import FIELDS, EnvParams, EnvState
 from ..device import const, resolve
 from ..models import ActorCritic
+from ..utils.profiling import stage
 from .graph import GraphedStep
 from .mesh import Mesh, gather_env, host_local_slice
 
@@ -390,10 +390,13 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda",
       s2d for 'cnn_s2d'), ``obs`` is (T, B*N, F) uint8 (encode codes are at
       most 176), the labels (T, B, N) as on the states path.
 
-    Each stage runs under a ``torch.profiler.record_function`` label
+    The rollout runs under the stage span ``rollout``
+    (``utils/profiling.py::stage``: a ``record_function`` label that a graph
+    capture remembers), each of its stages under one of its own
     (``rollout.fresh_pool``, ``.obs``, ``.policy``, ``.sample``,
-    ``.env_step``), so a profiler trace attributes device time to it; with
-    no profiler running a label costs about a microsecond.
+    ``.env_step``, ``.store``: the trajectory's stores and stacks), so a
+    profiler trace attributes device time to it, in a graph replay too;
+    with no profiler running a label costs about a microsecond.
     """
     dev = resolve(device)
     store = storage(env_params, cfg)
@@ -413,7 +416,7 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda",
     def obs_of(state):
         """The policy's inputs: feature-major codes, or the (B, N, ...)
         row-major obs and the rich features."""
-        with record_function("rollout.obs"):
+        with stage("rollout.obs"):
             if store == FEATURES:
                 bm = obs_mod.all_agent_obs_b(env_params, state, bminor=True)
                 return (bm.permute(1, 0, 2, 3, 4).reshape(N, Fd, B).to(
@@ -422,6 +425,7 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda",
             return (x, rich_aux(env_params, state) if rich else None)
 
     @torch.no_grad()
+    @stage("rollout")
     def rollout(env_state, key):
         key = key.to(dev)
         obs = obs_of(env_state)
@@ -430,7 +434,7 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda",
         if axis is not None:
             # distinct fresh-board layouts per rank (the key is replicated)
             fk = rng.fold_in(fk, axis.data_index)
-        with record_function("rollout.fresh_pool"):
+        with stage("rollout.fresh_pool"):
             pool = step_mod.fresh_pool(env_params, fk, K)
         names = ("act", "logp", "val", "rew", "done", "ep_ret", "ep_len",
                  "ep_cyc")
@@ -442,42 +446,44 @@ def make_rollout(env_params: EnvParams, cfg: PPOConfig, net, device="cuda",
             rows = torch.empty((T, B * N, obs[0][0, 0].numel()),
                                dtype=torch.uint8, device=dev)
         for t in range(T):
-            with record_function("rollout.policy"):
+            with stage("rollout.policy"):
                 # (N, B, A), (N, B) feature-major; (B, N, A), (B, N) rows
                 logits, value = net(*obs)
-            with record_function("rollout.sample"):
+            with stage("rollout.sample"):
                 ks = rng.split(key)
                 key, ak = ks[0], ks[1]
                 a = sample_actions(ak, logits, axis, B,
                                    1 if store == FEATURES else 0, mesh)
                 logp_a = F.log_softmax(logits, -1).gather(
                     -1, a[..., None])[..., 0]
-            with record_function("rollout.env_step"):
+            with stage("rollout.env_step"):
                 fresh_t = step_mod.fresh_pool_rows(pool, t, pool_offset, B)
                 stepped, rew, done, info = \
                     step_mod.step_autoreset_with_fresh_batch(
                         env_params, env_state,
                         a.T if store == FEATURES else a, fresh_t,
                         env_offset=offset, salt=t)
-            # the stored obs is the PRE-step one (the state, on the
-            # states path), paired with the action taken from it
-            if store == ROWS:
-                rows[t].view(obs[0].shape).copy_(obs[0])
-            else:
-                kept.append(env_state if store == STATES else obs[0])
-            for k, v in zip(names, (
-                    a.to(torch.int32), logp_a, value,
-                    rew.T if store == FEATURES else rew, done,
-                    info["episode_return"], info["episode_length"],
-                    info["episode_cycles"])):
-                steps[k].append(v)
+            with stage("rollout.store"):
+                # the stored obs is the PRE-step one (the state, on the
+                # states path), paired with the action taken from it
+                if store == ROWS:
+                    rows[t].view(obs[0].shape).copy_(obs[0])
+                else:
+                    kept.append(env_state if store == STATES else obs[0])
+                for k, v in zip(names, (
+                        a.to(torch.int32), logp_a, value,
+                        rew.T if store == FEATURES else rew, done,
+                        info["episode_return"], info["episode_length"],
+                        info["episode_cycles"])):
+                    steps[k].append(v)
             env_state = stepped
             obs = obs_of(env_state)
-        with record_function("rollout.policy"):
+        with stage("rollout.policy"):
             _, last_value = net(*obs)
-        traj = {"obs": rows if store == ROWS else _stack_states(kept)
-                if store == STATES else torch.stack(kept)}
-        traj.update({k: torch.stack(v) for k, v in steps.items()})
+        with stage("rollout.store"):
+            traj = {"obs": rows if store == ROWS else _stack_states(kept)
+                    if store == STATES else torch.stack(kept)}
+            traj.update({k: torch.stack(v) for k, v in steps.items()})
         return env_state, key, traj, last_value
 
     return rollout
@@ -611,15 +617,19 @@ def shuffled_blocks(blocked, G: int, used: int, cfg: PPOConfig,
     """``minibatches(pk)`` for :func:`run_epochs` over ``blocked``
     ({name: (G, ...)} blocks): a ``permutation(pk, G)``, its first ``used``
     blocks cut into ``n_minibatches`` gathers of whole blocks (with a
-    ``share``, of this rank's :class:`Share` of each)."""
+    ``share``, of this rank's :class:`Share` of each), under the stage
+    ``update.minibatch``."""
     mb = used // cfg.n_minibatches
 
     def minibatches(pk):
-        perm = rng.permutation(pk, G)
+        with stage("update.minibatch"):
+            perm = rng.permutation(pk, G)
         for idx in perm[:used].reshape(cfg.n_minibatches, mb):
-            if share is not None:
-                idx = idx[share.pos]
-            yield {k: _take(v, idx) for k, v in blocked.items()}
+            with stage("update.minibatch"):
+                if share is not None:
+                    idx = idx[share.pos]
+                batch = {k: _take(v, idx) for k, v in blocked.items()}
+            yield batch
 
     return minibatches
 
@@ -646,19 +656,19 @@ def run_epochs(minibatches, loss_fn, params, optimizer, key, cfg: PPOConfig,
         key, pk = ks[0], ks[1]
         for batch in minibatches(pk):
             total, aux = loss_fn(batch)
-            with record_function("update.backward"):
+            with stage("update.backward"):
                 grads = torch.autograd.grad(total, params)
             if reduce is not None:
-                with record_function("update.all_reduce"):
+                with stage("update.all_reduce"):
                     *grads, total, av = reduce(
                         [*grads, total.detach(),
                          torch.stack(list(aux.values())).detach()])
                     aux = dict(zip(aux, av))
             sq_norm = None
             if model is not None:
-                with record_function("update.model_all_reduce"):
+                with stage("update.model_all_reduce"):
                     grads, sq_norm = model(grads)
-            with record_function("update.optimizer"):
+            with stage("update.optimizer"):
                 for p, g in zip(params, grads):
                     p.grad = g
                 clip_by_global_norm(grads, cfg.max_grad_norm, sq_norm)
@@ -706,9 +716,10 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     n) order and cut into :func:`row_blocks` blocks of contiguous rows, a
     minibatch's rows cast back to ``obs_spec``'s dtype and shape.
 
-    The stages run under ``record_function`` labels (``update.gae``,
-    ``update.render``, ``update.forward``, ``update.backward``,
-    ``update.all_reduce``, ``update.optimizer``), as the rollout's do.
+    The update runs under the stage span ``update``, its stages under their
+    own (``update.gae``, ``update.minibatch``, ``update.render``,
+    ``update.forward``, ``update.backward``, ``update.all_reduce``,
+    ``update.optimizer``), as the rollout's do.
 
     ``axis``: the JAX ``axis`` variant on this rank's B = n_envs / D envs
     (blocks cut from the local trajectory, the advantage statistics and the
@@ -763,20 +774,20 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
         """logits, values and labels of a minibatch, aligned sample for
         sample."""
         if store == FEATURES:
-            with record_function("update.forward"):
+            with stage("update.forward"):
                 # blocks arrive feature-major (mb, F, c) uint8: logits
                 # (mb, c, A), labels (mb, c)
                 logits, value = net(batch["obs"])
             return logits, value, batch
         if store == ROWS:
-            with record_function("update.forward"):
+            with stage("update.forward"):
                 # (mb, c) blocks of rows: one (mb*c,) batch
                 flat = {k: v.reshape((-1,) + v.shape[2:])
                         for k, v in batch.items()}
                 obs = flat["obs"].to(dtype).reshape((-1,) + shape)
                 logits, value = net(obs)
             return logits, value, flat
-        with record_function("update.render"):
+        with stage("update.render"):
             st = batch["obs"].map(lambda x: x.reshape((-1,) + x.shape[2:]))
             obs = obs_mod.all_agent_obs_b(pov_params, st, bminor=True,
                                           s2d=s2d)        # (N, S, ...)
@@ -784,7 +795,7 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
             aux = rich_aux(env_params, st) if rich else None   # (S, N, d)
             if aux is not None:
                 aux = aux.permute(1, 0, 2).reshape(N * S, -1)
-        with record_function("update.forward"):
+        with stage("update.forward"):
             logits, value = net(obs.reshape((N * S,) + obs.shape[2:]), aux)
         # labels arrive (mb, c, N); align them to the render's (N, S)
         aligned = {k: batch[k].permute(2, 0, 1).reshape(N, S)
@@ -793,7 +804,7 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
 
     def loss_fn(batch):
         logits, value, batch = policy(batch)
-        with record_function("update.forward"):
+        with stage("update.forward"):
             return ppo_loss(logits, value, batch, cfg, axis, share)
 
     def blocks(traj, last_value):
@@ -805,7 +816,7 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
         per_step = step_labels(traj, last_value, cfg, env_leading)
         obs = traj["obs"]
         if mesh is not None:
-            with record_function("update.all_gather"):
+            with stage("update.all_gather"):
                 if store == ROWS:               # (T, B*N, F) -> (T, B, N*F)
                     obs = obs.reshape(T, obs.shape[1] // N, -1)
                 per_step, obs = gather_env(mesh, [
@@ -830,8 +841,9 @@ def make_update(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
         out["obs"] = obs_blocks(obs, c)
         return out
 
+    @stage("update")
     def update(traj, last_value, key):
-        with record_function("update.gae"):
+        with stage("update.gae"):
             blocked = blocks(traj, last_value)
         if used < G:
             warnings.warn(
@@ -860,8 +872,7 @@ def make_train_step(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     call (its first call runs eagerly, its second captures), whose
     returned tensors are donated: the next call overwrites them. On the
     CPU it runs the raw step. ``jit=False``: the raw eager step, for
-    :func:`multi_step` and for profiling by stage (the ``record_function``
-    labels exist only in an eager step).
+    :func:`multi_step`.
 
     ``overlap=False``: ``train_step(env_state, key) -> (env_state, key,
     metrics)``; the update takes the key the rollout returns, and the key

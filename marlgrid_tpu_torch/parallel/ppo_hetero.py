@@ -42,12 +42,12 @@ import warnings
 
 import torch
 from torch.nn import functional as F
-from torch.profiler import record_function
 
 from ..core import obs as obs_mod, rng, step as step_mod
 from ..core.state import EnvParams
 from ..device import const, resolve
 from ..models import ActorCritic
+from ..utils.profiling import stage
 from ..vector import obs_groups
 from .graph import GraphedStep
 from .mesh import Mesh, gather_env
@@ -200,7 +200,7 @@ def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
     ``done``/``ep_*`` (T, B); with ``store_states``, ``state``, the pre-step
     EnvStates with (T, B, ...) leaves, which the update re-renders.
     ``last_value`` is (N, B). The stages run under the homogeneous
-    rollout's ``record_function`` labels.
+    rollout's stage spans (``ppo.make_rollout``).
 
     ``mesh``: on this rank's B = n_envs / D envs (and its slice of the
     carry), this rank's rows of the unsharded rollout of the global batch,
@@ -229,12 +229,12 @@ def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
         return torch.cat(parts, 0)[inv]
 
     def obs_of(state):
-        with record_function("rollout.obs"):
+        with stage("rollout.obs"):
             return group_obs(env_params, groups, torsos, state)
 
     def policy(obs, h):
         """(logits, values, new carries) per group."""
-        with record_function("rollout.policy"):
+        with stage("rollout.policy"):
             if h is None:
                 outs = [net(x, aux) for net, (x, aux) in zip(nets, obs)]
                 return [o[0] for o in outs], [o[1] for o in outs], None
@@ -244,12 +244,13 @@ def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
                     {g: o[2] for g, o in enumerate(outs)})
 
     @torch.no_grad()
+    @stage("rollout")
     def rollout(env_state, key, h=None):
         key = key.to(dev)
         obs = obs_of(env_state)
         ks = rng.split(key)
         key, fk = ks[0], ks[1]
-        with record_function("rollout.fresh_pool"):
+        with stage("rollout.fresh_pool"):
             pool = step_mod.fresh_pool(env_params, fk, K)
         names = ("act", "logp", "val", "rew", "done", "ep_ret", "ep_len",
                  "ep_cyc")
@@ -258,7 +259,7 @@ def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
         states = []
         for t in range(T):
             logits, values, h_new = policy(obs, h)
-            with record_function("rollout.sample"):
+            with stage("rollout.sample"):
                 ks = rng.split(key)
                 key, ak = ks[0], ks[1]
                 acts, logps = [], []
@@ -269,7 +270,7 @@ def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
                     logps.append(F.log_softmax(lg, -1).gather(
                         -1, a[..., None])[..., 0])
                 act = rows(acts)
-            with record_function("rollout.env_step"):
+            with stage("rollout.env_step"):
                 fresh_t = step_mod.fresh_pool_rows(pool, t, offset, B)
                 stepped, rew, done, info = \
                     step_mod.step_autoreset_with_fresh_batch(
@@ -278,25 +279,28 @@ def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
                 if h is not None:
                     h = {g: mask_carry_env1(hg, done, cfg.dtype)
                          for g, hg in h_new.items()}
-            # the stored obs is the PRE-step one, paired with the action
-            for g, (x, _) in enumerate(obs):
-                if encode[g]:
-                    codes[g].append(x)
-            if store_states:
-                states.append(env_state)
-            for k, v in zip(names, (
-                    act.to(torch.int32), rows(logps), rows(values), rew.T,
-                    done, info["episode_return"], info["episode_length"],
-                    info["episode_cycles"])):
-                steps[k].append(v)
+            with stage("rollout.store"):
+                # the stored obs is the PRE-step one, paired with the action
+                for g, (x, _) in enumerate(obs):
+                    if encode[g]:
+                        codes[g].append(x)
+                if store_states:
+                    states.append(env_state)
+                for k, v in zip(names, (
+                        act.to(torch.int32), rows(logps), rows(values),
+                        rew.T, done, info["episode_return"],
+                        info["episode_length"], info["episode_cycles"])):
+                    steps[k].append(v)
             env_state = stepped
             obs = obs_of(env_state)
         _, values, _ = policy(obs, h)
-        traj = {k: torch.stack(v) for k, v in steps.items()}
-        traj["obs"] = [torch.stack(c) if c else None for c in codes]
-        if store_states:
-            traj["state"] = _stack_states(states)
-        return env_state, key, traj, rows(values), h
+        with stage("rollout.store"):
+            traj = {k: torch.stack(v) for k, v in steps.items()}
+            traj["obs"] = [torch.stack(c) if c else None for c in codes]
+            if store_states:
+                traj["state"] = _stack_states(states)
+            last_value = rows(values)
+        return env_state, key, traj, last_value, h
 
     return rollout
 
@@ -352,32 +356,36 @@ def make_update_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
 
     def minibatches(blocked):
         def gen(pk):
-            perms = [rng.permutation(rng.fold_in(pk, g), G_g)[:used].reshape(
-                cfg.n_minibatches, -1)
-                for g, (G_g, used) in enumerate(zip(G_gs, used_gs))]
+            with stage("update.minibatch"):
+                perms = [rng.permutation(rng.fold_in(pk, g), G_g)[
+                    :used].reshape(cfg.n_minibatches, -1)
+                    for g, (G_g, used) in enumerate(zip(G_gs, used_gs))]
             for i in range(cfg.n_minibatches):
                 batch = []
-                for g, sh in enumerate(shares):
-                    idx = perms[g][i] if sh is None else perms[g][i][sh.pos]
-                    b = {k: v[idx] for k, v in blocked[g].items()}
-                    if sh is not None:
-                        b["w"] = sh.w
-                    batch.append(b)
+                with stage("update.minibatch"):
+                    for g, sh in enumerate(shares):
+                        idx = (perms[g][i] if sh is None
+                               else perms[g][i][sh.pos])
+                        b = {k: v[idx] for k, v in blocked[g].items()}
+                        if sh is not None:
+                            b["w"] = sh.w
+                        batch.append(b)
                 yield batch
         return gen
 
     def loss_fn(batch):
-        with record_function("update.forward"):
+        with stage("update.forward"):
             # feature-major blocks (mb_g, F_g, c): logits (mb_g, c, A)
             parts = [net(b["obs"]) + (b,) for net, b in zip(nets, batch)]
             return group_loss(parts, cfg, mesh, count)
 
+    @stage("update")
     def update(traj, last_value, key):
-        with record_function("update.gae"):
+        with stage("update.gae"):
             per_step = step_labels(traj, last_value, cfg, False)
             codes = traj["obs"]
             if mesh is not None:
-                with record_function("update.all_gather"):
+                with stage("update.all_gather"):
                     per_step, codes = gather_env(mesh, [(per_step, 2),
                                                         (tuple(codes), 3)])
             blocked = []

@@ -32,12 +32,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from ..core import rng
 from ..core.state import EnvParams
 from ..device import resolve
 from ..models import ActorCritic
+from ..utils.profiling import stage
 from ..vector import obs_groups
 from .mesh import Mesh, gather_env
 from .ppo import (PPOConfig, Share, aux_dim, episode_metrics, make_optimizer,
@@ -161,7 +161,7 @@ def make_update_hetero_mixed(env_params: EnvParams, cfg: PPOConfig, nets,
         codes = {g: x for g, x in enumerate(traj["obs"]) if x is not None}
         states = traj.get("state")
         if mesh is not None:
-            with record_function("update.all_gather"):
+            with stage("update.all_gather"):
                 per_step, codes, states = gather_env(mesh, [
                     (per_step, 2), (codes, 3),
                     (() if states is None else states, 1)])
@@ -185,13 +185,13 @@ def make_update_hetero_mixed(env_params: EnvParams, cfg: PPOConfig, nets,
     def loss_fn(batch):
         obs = None
         if pixels:
-            with record_function("update.render"):
+            with stage("update.render"):
                 st = batch["state"].map(
                     lambda x: x.reshape((-1,) + x.shape[2:]))
                 obs = group_obs(env_params, groups, torsos, st,
                                 pixels_only=True)
         parts = []
-        with record_function("update.forward"):
+        with stage("update.forward"):
             for g, net in enumerate(nets):
                 if groups[g][1].observation_style == "encode":
                     # stored codes (mb, n_g, F_g, c): logits (mb, n_g, c, A)
@@ -211,8 +211,9 @@ def make_update_hetero_mixed(env_params: EnvParams, cfg: PPOConfig, nets,
                 parts.append((logits, value, lab))
             return group_loss(parts, cfg, mesh, count)
 
+    @stage("update")
     def update(traj, last_value, key):
-        with record_function("update.gae"):
+        with stage("update.gae"):
             blocked = blocks(traj, last_value)
         warn_dropped("mixed hetero PPO minibatching", G, used)
         return run_epochs(shuffled_blocks(blocked, G, used, cfg, share),

@@ -28,12 +28,12 @@ global env order and splits each minibatch's env chunks over the ranks.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from ..core import rng
 from ..core.state import EnvParams
 from ..device import resolve
 from ..models import RecurrentActorCritic
+from ..utils.profiling import stage
 from .mesh import Mesh, gather_env
 from .ppo import (PPOConfig, Share, episode_metrics, make_optimizer,
                   run_epochs, shuffled_blocks, step_labels)
@@ -118,7 +118,7 @@ def make_update_hetero_rnn(env_params: EnvParams, cfg: PPOConfig, nets,
         per_step = step_labels(traj, last_value, cfg, False)   # (T, N, B)
         codes, done = tuple(traj["obs"]), traj["done"]
         if mesh is not None:
-            with record_function("update.all_gather"):
+            with stage("update.all_gather"):
                 per_step, codes, done, h0 = gather_env(mesh, [
                     (per_step, 2), (codes, 3), (done, 1), (h0, 1)])
         out = {"done": done.reshape(T, Gc, c).permute(1, 0, 2)}
@@ -137,28 +137,29 @@ def make_update_hetero_rnn(env_params: EnvParams, cfg: PPOConfig, nets,
         done_t = batch["done"].transpose(0, 1)            # (T, mb, c)
         parts = []
         for g, net in enumerate(nets):
-            with record_function("update.forward"):
+            with stage("update.forward"):
                 # (T, mb, n_g, F, c) codes -> (T, mb, n_g, c, H)
                 feats = net.features(batch["obs", g].transpose(0, 1)
                                      .contiguous())
-            with record_function("update.cell"):
+            with stage("update.cell"):
                 h, ys = batch["h0", g], []
                 for t in range(T):
                     h, y = net.cell_step(feats[t], h)
                     h = mask_carry_env1(h, done_t[t], cfg.dtype)
                     ys.append(y)
-            with record_function("update.forward"):
+            with stage("update.forward"):
                 logits, value = net.heads(torch.stack(ys))
                 # labels arrive (mb, T, n_g, c): to the logits' (T, mb, ...)
                 lab = {k: batch[k, g].transpose(0, 1) for k in _LABELS}
                 if share is not None:
                     lab["w"] = share.w
                 parts.append((logits, value, lab))
-        with record_function("update.forward"):
+        with stage("update.forward"):
             return group_loss(parts, cfg, mesh, count)
 
+    @stage("update")
     def update(traj, h0, last_value, key):
-        with record_function("update.gae"):
+        with stage("update.gae"):
             blocked = blocks(traj, h0, last_value)
         warn_dropped("hetero recurrent PPO minibatching", Gc, used)
         return run_epochs(shuffled_blocks(blocked, Gc, used, cfg, share),

@@ -42,12 +42,12 @@ import warnings
 
 import torch
 from torch.nn import functional as F
-from torch.profiler import record_function
 
 from ..core import obs as obs_mod, rng, step as step_mod
 from ..core.state import EnvParams
 from ..device import resolve
 from ..models import RecurrentActorCritic
+from ..utils.profiling import stage
 from .graph import GraphedStep
 from .mesh import Mesh, gather_env
 from .ppo import (PPOConfig, Share, _stack_states, aux_dim,
@@ -176,8 +176,8 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
     the W windows: (W, N, B, H) leaves on encode, (W, B, N, H) on images.
     ``traj`` is :func:`ppo.make_rollout`'s: feature-major codes (T, N, F, B)
     and (T, N, B) labels on encode; the pre-step EnvStates and (T, B, N)
-    labels on images. The stages run under the rollout's
-    ``record_function`` labels. ``axis``: on this rank's B = n_envs / D
+    labels on images. The stages run under the rollout's stage spans
+    (``ppo.make_rollout``). ``axis``: on this rank's B = n_envs / D
     envs and carry, with ``ppo.make_rollout``'s three changes (the rank
     folded into the fresh-board key, per-env action keys from the global
     env index, the global env offset). ``mesh``: on this rank's B envs and
@@ -201,7 +201,7 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
 
     def obs_of(state):
         """(policy obs, rich features or None)."""
-        with record_function("rollout.obs"):
+        with stage("rollout.obs"):
             if not image:
                 bm = obs_mod.all_agent_obs_b(env_params, state, bminor=True)
                 return bm.permute(1, 0, 2, 3, 4).reshape(N, Fd, B).to(
@@ -210,6 +210,7 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
             return img, (rich_aux(env_params, state) if rich else None)
 
     @torch.no_grad()
+    @stage("rollout")
     def rollout(env_state, h, key):
         key = key.to(dev)
         obs, aux = obs_of(env_state)
@@ -217,7 +218,7 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
         key, fk = ks[0], ks[1]
         if axis is not None:
             fk = rng.fold_in(fk, axis.data_index)
-        with record_function("rollout.fresh_pool"):
+        with stage("rollout.fresh_pool"):
             pool = step_mod.fresh_pool(env_params, fk, K)
         names = ("obs", "act", "logp", "val", "rew", "done", "ep_ret",
                  "ep_len", "ep_cyc")
@@ -226,36 +227,38 @@ def make_rollout_rnn(env_params: EnvParams, cfg: PPOConfig, net,
         for t in range(T):
             if t % L == 0:
                 h0s.append(h)             # the carry entering the window
-            with record_function("rollout.policy"):
+            with stage("rollout.policy"):
                 logits, value, h = net(obs, h, aux)
-            with record_function("rollout.sample"):
+            with stage("rollout.sample"):
                 ks = rng.split(key)
                 key, ak = ks[0], ks[1]
                 a = sample_actions(ak, logits, axis, B, 0 if image else 1,
                                    mesh)
                 logp_a = F.log_softmax(logits, -1).gather(
                     -1, a[..., None])[..., 0]
-            with record_function("rollout.env_step"):
+            with stage("rollout.env_step"):
                 fresh_t = step_mod.fresh_pool_rows(pool, t, pool_offset, B)
                 stepped, rew, done, info = \
                     step_mod.step_autoreset_with_fresh_batch(
                         env_params, env_state, a if image else a.T,
                         fresh_t, env_offset=offset, salt=t)
                 h = mask(h, done, cfg.dtype)
-            for k, v in zip(names, (
-                    env_state if image else obs, a.to(torch.int32), logp_a,
-                    value, rew if image else rew.T, done,
-                    info["episode_return"], info["episode_length"],
-                    info["episode_cycles"])):
-                steps[k].append(v)
+            with stage("rollout.store"):
+                for k, v in zip(names, (
+                        env_state if image else obs, a.to(torch.int32),
+                        logp_a, value, rew if image else rew.T, done,
+                        info["episode_return"], info["episode_length"],
+                        info["episode_cycles"])):
+                    steps[k].append(v)
             env_state = stepped
             obs, aux = obs_of(env_state)
-        with record_function("rollout.policy"):
+        with stage("rollout.policy"):
             _, last_value, _ = net(obs, h, aux)
-        traj = {k: _stack_states(v) if k == "obs" and image
-                else torch.stack(v) for k, v in steps.items()}
-        h0s = (tuple(torch.stack(x) for x in zip(*h0s))
-               if isinstance(h, tuple) else torch.stack(h0s))
+        with stage("rollout.store"):
+            traj = {k: _stack_states(v) if k == "obs" and image
+                    else torch.stack(v) for k, v in steps.items()}
+            h0s = (tuple(torch.stack(x) for x in zip(*h0s))
+                   if isinstance(h, tuple) else torch.stack(h0s))
         return env_state, h, key, traj, h0s, last_value
 
     return rollout
@@ -276,9 +279,10 @@ def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     samples; images: the L*mb*c stored states re-rendered ``bminor``, K1
     and K3, with ``rich_aux``), the cell stepped L times from the blocks'
     stored carries with the done masking, the heads over all L outputs in
-    one batch, and ``ppo.ppo_loss``. The stages run under
-    ``record_function`` labels: ``update.gae``, ``update.render``,
-    ``update.forward``, ``update.cell`` (the cell loop), ``update.backward``,
+    one batch, and ``ppo.ppo_loss``. The update runs under the stage span
+    ``update``, its stages under their own: ``update.gae``,
+    ``update.minibatch``, ``update.render``, ``update.forward``,
+    ``update.cell`` (the cell loop), ``update.backward``,
     ``update.all_reduce`` and ``update.optimizer``. ``axis``: on this
     rank's blocks, with the advantage statistics and the gradients over the
     data axis (``ppo.ppo_loss``, ``ppo.run_epochs``). ``mesh``: the
@@ -321,7 +325,7 @@ def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
         per_step = step_labels(traj, last_value, cfg, image)
         obs, done = traj["obs"], traj["done"]
         if mesh is not None:
-            with record_function("update.all_gather"):
+            with stage("update.all_gather"):
                 per_step, obs, done, h0s = gather_env(mesh, [
                     (per_step, 1 if image else 2), (obs, 1 if image else 3),
                     (done, 1), (h0s, 1 if image else 2)])
@@ -351,10 +355,10 @@ def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
     def features(batch):
         """(L, mb, N, c, F') (encode) or (L, mb, c, N, F') (images)."""
         if not image:
-            with record_function("update.forward"):
+            with stage("update.forward"):
                 return net.features(batch["obs"].transpose(0, 1).contiguous())
         mb = batch["done"].shape[0]
-        with record_function("update.render"):
+        with stage("update.render"):
             # the stored states in (L, mb, c) order: the render reshapes
             # straight into the cell loop's step slices
             st = batch["obs"].map(lambda x: x.transpose(0, 1).reshape(
@@ -365,7 +369,7 @@ def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
             aux = rich_aux(env_params, st) if rich else None   # (S, N, d)
             if aux is not None:
                 aux = aux.permute(1, 0, 2).reshape(N * S, -1)
-        with record_function("update.forward"):
+        with stage("update.forward"):
             x = net.features(obs.reshape((N * S,) + obs.shape[2:]), aux)
             return x.reshape(N, L, mb, c, -1).permute(1, 2, 3, 0, 4)
 
@@ -373,20 +377,21 @@ def make_update_rnn(env_params: EnvParams, cfg: PPOConfig, net, optimizer,
         feats = features(batch)
         done_t = batch["done"].transpose(0, 1)           # (L, mb, c)
         mask = _mask_carry_env0 if image else mask_carry_env1
-        with record_function("update.cell"):
+        with stage("update.cell"):
             h, ys = batch["h0"], []
             for t in range(L):
                 h, y = net.cell_step(feats[t], h)
                 h = mask(h, done_t[t], dtype)
                 ys.append(y)
-        with record_function("update.forward"):
+        with stage("update.forward"):
             logits, value = net.heads(torch.stack(ys))
             # labels arrive (mb, L, ...): to the logits' (L, mb, ...)
             lab = {k: batch[k].transpose(0, 1) for k in _LABELS}
             return ppo_loss(logits, value, lab, cfg, axis, share)
 
+    @stage("update")
     def update(traj, h0s, last_value, key):
-        with record_function("update.gae"):
+        with stage("update.gae"):
             blocked = blocks(traj, h0s, last_value)
         if used < G:
             warnings.warn(

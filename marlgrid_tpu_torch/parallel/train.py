@@ -29,7 +29,10 @@ the JAX CLI wires its jitted steps (:func:`make_call`): the trainer's
 ``make_train_step*(..., jit=True)`` for one step per call, ``ppo.multi_step``
 (``ppo_rnn.multi_step_rnn``, ``ppo.multi_step_overlap``) of the raw step for
 ``--steps-per-call k``, the captured step replayed k times. The first call
-runs eagerly and the second captures.
+runs eagerly and the second captures. ``--profile-dir`` traces calls 2-4 as
+they run, graph replays on the card: the capture remembers which graph
+nodes each ``rollout.*`` / ``update.*`` stage added, and the trace, its
+stage maps and ``utils/profiling.py::hotspots`` read the replays by stage.
 
 The flags and defaults are those of ``python -m marlgrid_tpu.parallel.train``
 plus ``--device`` (default ``cuda``). The
@@ -184,8 +187,8 @@ def parse_args(argv=None):
                         "pmean/psum over the ranks of the 'data' axis, "
                         "parallel/mesh.py)")
     p.add_argument("--profile-dir", default=None,
-                   help="torch.profiler trace output dir: calls 2-4 run "
-                        "the raw step under the profiler "
+                   help="torch.profiler trace output dir: calls 2-4 as they "
+                        "run (graph replays on the card), by stage "
                         "(utils/profiling.py)")
     p.add_argument("--debug-nans", action="store_true",
                    help="fail fast on NaN: after each call, raise "
@@ -390,26 +393,6 @@ def make_call(ep: EnvParams, cfg, net, opt, dev, spc: int, overlap=False,
                  spc), None
 
 
-def make_raw_call(ep: EnvParams, cfg, net, opt, dev, spc: int,
-                  overlap=False, **shards):
-    """The eager counterpart of :func:`make_call`'s step: ``spc`` raw steps
-    (``jit=False``) per call, what ``--profile-dir`` traces. A graph replay
-    runs the same kernels but carries no ``record_function`` stage labels,
-    so a trace of it could not attribute them to stages."""
-    if overlap:
-        raw = ppo.make_train_step(ep, cfg, net, opt, device=dev, overlap=True,
-                                  jit=False, **shards)[0]
-    else:
-        raw = make_step(ep, cfg, net, opt, dev, jit=False, **shards)
-
-    def call(*carry):
-        for _ in range(spc):
-            *carry, metrics = raw(*carry)
-        return (*carry, metrics)
-
-    return call
-
-
 def check_finite(iteration: int, metrics, net):
     """``--debug-nans``: raise ``FloatingPointError`` naming ``iteration``
     and the first non-finite tensor among the call's metrics and then the
@@ -553,8 +536,6 @@ def train(args, dev):
                             **shards)
     if prime is not None:
         env_state, prev, key = prime(env_state, key)
-    raw = (make_raw_call(ep, cfg, net, opt, dev, spc, args.overlap, **shards)
-           if args.profile_dir else None)
     prof = None
     log = MetricsLogger(args.metrics)
     run_config = dict(format=1, env_params=ep.to_dict(),
@@ -575,13 +556,12 @@ def train(args, dev):
     for it in range(n_calls):
         if args.profile_dir and it == TRACED[0]:
             prof = profiling.start(cuda=dev.type == "cuda")
-        call = step if prof is None else raw
         if cfg.rnn:
-            env_state, h, key, metrics = call(env_state, h, key)
+            env_state, h, key, metrics = step(env_state, h, key)
         elif args.overlap:
-            env_state, prev, key, metrics = call(env_state, prev, key)
+            env_state, prev, key, metrics = step(env_state, prev, key)
         else:
-            env_state, key, metrics = call(env_state, key)
+            env_state, key, metrics = step(env_state, key)
         if args.debug_nans:
             check_finite((it + 1) * spc - 1, metrics, net)
         if (it + 1) % args.log_every == 0 or it == n_calls - 1:

@@ -1,0 +1,11 @@
+"""Mean device milliseconds a traced train call's graph replay spent in the
+observations: the nodes that the capture's stage map puts in `rollout.obs` and
+`update.render` (K1, K3, view gathers) (`portbench/stages.py`); silent where a
+call does not match the map."""
+from portbench import stages
+
+
+def read(ctx):
+    if ctx.kind != "train":
+        return None
+    return stages.ms(ctx.trace, "obs")

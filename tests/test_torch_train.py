@@ -288,10 +288,12 @@ def test_cli_encode_conv_torso(tmp_path, torso):
 
 
 def test_cli_profile_dir(tmp_path):
-    """--profile-dir with 5 iterations traces calls 2-4 (the raw step under
-    torch.profiler): a trace that ``profiling.kernel_times`` reads, and
-    whose hotspots name the rollout's and the update's stages; a run that
-    ends inside the traced calls writes none, as the JAX CLI."""
+    """--profile-dir with 5 iterations traces calls 2-4 (on the CPU the
+    step as it runs there, eager, with its stage labels; on the card the
+    graph replays with their stage map): a trace that
+    ``profiling.kernel_times`` reads, and whose hotspots name the
+    rollout's and the update's stages; a run that ends inside the traced
+    calls writes none, as the JAX CLI."""
     from marlgrid_tpu_torch.utils import profiling
 
     prof = tmp_path / "prof"
