@@ -9,6 +9,14 @@ toolkit's nvcc; imports nothing of JAX. Phases, each raising on failure:
 1. build every kernel from marlgrid_tpu_torch/csrc/ (one nvcc per source,
    in parallel) and print the build seconds and ptxas' report;
 2. K1 (transpose_bk) against its plain version, bit-exact;
+2b. the threefry2x32 hash (``ops/threefry.py``) against the plain hash of
+   the same draw, bit-equal, at every caller shape of ``core/rng.py`` at
+   the benchmark's widths (fold_in of an int, of a datum per key and of
+   one key by B ids; split of one key or of B keys; random bits over the
+   iota and over a rank's part of a draw; strided key views), eagerly and
+   replayed in one CUDA graph, then timed beside its bound; the train
+   phase prints its launches per eager step, which the other phases'
+   launch checks leave out;
 3. K2f (onehot_embed forward) against its plain version computed in
    float32 and rounded to bf16, within 1 bf16 ulp, at the rollout's and
    the update's shapes with both vocabularies and at odd shapes (R = 3,
@@ -479,10 +487,17 @@ def kernel_wrappers():
     return wrappers()
 
 
+#: the hash kernel (ops/threefry.py), which every sampler of the env engine
+#: and the policy launches: the phases' launch checks leave it out, and
+#: :func:`phase_threefry` holds it
+HASH = "threefry2x32"
+
+
 def want_counts(**launches):
     """The launch counts a phase expects: ``launches`` by kernel name, and
-    0 for every other kernel of the port."""
+    0 for every other kernel of the port but the hash."""
     want = dict.fromkeys(kernel_wrappers(), 0)
+    del want[HASH]
     want.update(launches)
     return want
 
@@ -510,7 +525,13 @@ def zero_counts():
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    """Launches of every kernel of the port but the hash."""
+    return {name: fn.launches for name, fn in kernel_wrappers().items()
+            if name != HASH}
+
+
+def hash_launches() -> int:
+    return kernel_wrappers()[HASH].launches
 
 
 def phase_build():
@@ -1302,6 +1323,7 @@ def phase_train(seed, card, steps=2):
         if counts != want:
             raise AssertionError(f"train step {i}: launches {counts}, want "
                                  f"{want}")
+        hashes = hash_launches()
         m = {k: float(v) for k, v in m.items()}
         if not (math.isfinite(m["loss"]) and m["entropy"] > 0
                 and m["n_episodes"] > 0):
@@ -1315,14 +1337,14 @@ def phase_train(seed, card, steps=2):
         raise AssertionError("the train steps changed no weight")
     steady = sorted(secs[1:])[len(secs[1:]) // 2]
     print(f"[train] launches per train step on the train path: {counts} "
-          f"(want {want})")
+          f"(want {want}); {HASH} {hashes}")
     print(f"[train] B={B} T={T}, 2 epochs x 4 minibatches: "
           f"{', '.join(f'{t:.3f}' for t in secs)} s per step; median of "
           f"steps 1-{steps - 1}: {B * T / steady:,.0f} train env-steps/s "
           f"[{card}]")
-    return dict(counts=counts, seconds=secs, metrics=metrics,
-                env_steps_per_s=B * T / steady, step=step, env=env, key=key,
-                ep=ep, cfg=cfg, net=net, opt=opt)
+    return dict(counts=dict(counts, **{HASH: hashes}), seconds=secs,
+                metrics=metrics, env_steps_per_s=B * T / steady, step=step,
+                env=env, key=key, ep=ep, cfg=cfg, net=net, opt=opt)
 
 
 def phase_rnn(seed, card, steps=2):
@@ -2547,6 +2569,139 @@ def _bag_rows(codes, widths, values, cells, cw):
                        cells * cw)
     return (int((slot >= 0).sum()),
             rows.permute(0, 2, 1).reshape(R * S, Fd).contiguous())
+
+
+def _threefry_draws(seed):
+    """Name -> a draw of ``ops/threefry.py`` at every caller shape of
+    ``core/rng.py``, at the benchmark's widths (B 4096 and 32768 keys, the
+    encode train and acting cells' Gumbel draws, a rank's part of a draw,
+    strided key views), on the card."""
+    from marlgrid_tpu_torch.core import rng
+    from marlgrid_tpu_torch.ops import threefry as TF
+
+    g = torch.Generator().manual_seed(seed)
+
+    def keys(*batch):
+        return torch.randint(0, 2 ** 32, batch + (2,), generator=g,
+                             dtype=torch.int64).cuda()
+
+    one, k4096, k32768 = keys(), keys(4096), keys(32768)
+    ks = TF.threefry2x32_draw_plain(TF.split_draw(k4096, 2))
+    ids = torch.arange(32768, device="cuda")
+    hi, lo, sub = rng.part_counts((4, 8192, 7), (1, 4096, 8192), "cuda")
+    return {
+        "fold_in int, one key": TF.fold_in_draw(one, 0xA110),
+        "fold_in int, B 4096": TF.fold_in_draw(k4096, 0xA110),
+        "fold_in int, B 32768": TF.fold_in_draw(k32768, 7),
+        "fold_in per-key int64, B 32768": TF.fold_in_draw(k32768, ids),
+        "fold_in per-key int32, B 4096": TF.fold_in_draw(
+            k4096, ids[:4096].int() - 5),
+        "fold_in one key by 32768 ids": TF.fold_in_draw(one, ids),
+        "fold_in strided keys ks[:, 1], B 4096": TF.fold_in_draw(
+            ks[:, 1], ids[:4096]),
+        "split one key into 2": TF.split_draw(one, 2),
+        "split one key into 32768": TF.split_draw(one, 32768),
+        "split B 4096 into 2": TF.split_draw(k4096, 2),
+        "split B 32768 into 2": TF.split_draw(k32768, 2),
+        "split strided keys ks[:, 0], B 4096": TF.split_draw(ks[:, 0], 2),
+        "bits one key (4, 4096, 7)": TF.bits_draw(one, 4 * 4096 * 7,
+                                                  (4, 4096, 7)),
+        "bits one key (4, 32768, 7)": TF.bits_draw(one, 4 * 32768 * 7,
+                                                   (4, 32768, 7)),
+        "bits B 4096 keys (4,)": TF.bits_draw(k4096, 4, (4,)),
+        "bits B 32768 keys ()": TF.bits_draw(k32768, 1, ()),
+        "bits strided keys ks[:, 1], B 4096 (4,)": TF.bits_draw(
+            ks[:, 1], 4, (4,)),
+        "bits part (4, 8192, 7)[:, 4096:]": TF.bits_draw(one, (hi, lo), sub),
+    }
+
+
+def _threefry_bound(d):
+    """:func:`_bound` of a draw: its bytes (each int64 output written once;
+    each distinct key, the count tables and the data read once), and about
+    70 32-bit integer instructions an element (20 rounds of an add, a
+    funnel shift and a xor, the key adds, the index arithmetic) at 16.7 T/s
+    (132 SMs x 64 lanes x 1.98 GHz)."""
+    n = d.rows.shape[0] * d.counts
+    key_rows = 1 if d.rows.stride(0) == 0 else d.rows.shape[0]
+    nbytes = 8 * n * (1 if d.xor else 2) + 16 * key_rows + sum(
+        t.numel() * t.element_size() for t in (d.hi, d.lo, d.data)
+        if t is not None)
+    return _bound(dict(bytes=nbytes, ops=70 * n,
+                       ops_per_s=132 * 64 * 1.98e9))
+
+
+def phase_threefry(seed, card):
+    """The threefry2x32 kernel (``csrc/threefry.cu``) against the plain hash
+    evaluating the same draw on the card, bit-equal, at every caller shape
+    (:func:`_threefry_draws`): eagerly (one launch a draw), then all the
+    draws captured in one CUDA graph and replayed; ``rng``'s samplers card
+    against CPU; then each draw's device time a launch (CUDA events, eager
+    and in a graph of 50 launches) beside its bound and the plain
+    version's time."""
+    from marlgrid_tpu_torch.core import rng
+    from marlgrid_tpu_torch.ops import threefry as TF
+
+    draws = _threefry_draws(seed)
+    n0 = hash_launches()
+    eager = {name: TF.threefry2x32(d) for name, d in draws.items()}
+    sync()
+    if hash_launches() != n0 + len(draws):
+        raise AssertionError(f"threefry2x32: {hash_launches() - n0} "
+                             f"launches for {len(draws)} draws")
+    for name, d in draws.items():
+        if not torch.equal(eager[name], TF.threefry2x32_draw_plain(d)):
+            raise AssertionError(f"threefry2x32 {name}: differs from the "
+                                 f"plain hash")
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    n0 = hash_launches()
+    with torch.cuda.graph(graph, stream=stream):
+        captured = {name: TF.threefry2x32(d) for name, d in draws.items()}
+    if hash_launches() != n0 + len(draws):
+        raise AssertionError("threefry2x32: the capture did not record one "
+                             "launch a draw")
+    for t in captured.values():
+        t.zero_()
+    graph.replay()
+    sync()
+    for name in draws:
+        if not torch.equal(captured[name], eager[name]):
+            raise AssertionError(f"threefry2x32 {name}: the graph's replay "
+                                 f"differs from the eager launch")
+    print(f"[threefry] {len(draws)} draws: kernel bit-equal to the plain "
+          f"hash, eagerly and replayed in one CUDA graph")
+    g = torch.Generator().manual_seed(seed + 1)
+    k = torch.randint(0, 2 ** 32, (64, 2), generator=g, dtype=torch.int64)
+    for what, fn in (
+            ("split", lambda x: rng.split(x, 3)),
+            ("fold_in", lambda x: rng.fold_in(x, torch.arange(
+                64, device=x.device))),
+            ("random_bits", lambda x: rng.random_bits(x, (5, 7))),
+            ("uniform part", lambda x: rng.uniform(
+                x[0], (4, 64, 7), part=(1, 16, 48))),
+            ("permutation", lambda x: rng.permutation(x, 4))):
+        if not torch.equal(fn(k.cuda()).cpu(), fn(k)):
+            raise AssertionError(f"rng.{what}: card differs from the CPU")
+    print("[threefry] rng's split, fold_in, random_bits, uniform (a part) "
+          "and permutation: card bit-equal to the CPU")
+    out = {}
+    for name, d in draws.items():
+        t = _threefry_bound(d)
+        t["ms"], t["host_ms"] = time_ms(lambda: TF.threefry2x32(d),
+                                        iters=200)
+        t["graph_ms"] = graph_ms(lambda: TF.threefry2x32(d))
+        t["plain_ms"], _ = time_ms(lambda: TF.threefry2x32_draw_plain(d),
+                                   iters=10)
+        t["elements"] = d.rows.shape[0] * d.counts
+        out[name] = t
+        print(f"[threefry] {name}: {t['elements']:,} elements, "
+              f"{t['ms'] * 1e3:.2f} us a launch ({t['graph_ms'] * 1e3:.2f} "
+              f"in a graph), bound {t['bound_ms'] * 1e3:.3f} us "
+              f"({t['bound_by']}), plain {t['plain_ms'] * 1e3:.1f} us "
+              f"[{card}]")
+    return out
 
 
 def _bound(k):
@@ -4966,6 +5121,7 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
     from marlgrid_tpu_torch.core.state import EnvParams, default_agent_colors
 
     k1_err = phase_transpose()
+    tim_hash = phase_threefry(args.seed, card)
     gc = EnvParams(width=13, height=13, n_agents=4, scenario="goal_cycle",
                    observation_style="encode",
                    agent_colors=default_agent_colors(4))
@@ -5150,6 +5306,15 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
         for extra in ("mma_bound_ms", "copy_ms"):
             if extra in k:
                 kernels[-1][extra] = k[extra]
+    # the hash: the acting cell's Gumbel draw, the widest; launches of the
+    # eager train step
+    k = tim_hash["bits one key (4, 32768, 7)"]
+    kernels.append(dict(
+        name=HASH, route="cuda", source="marlgrid_tpu_torch/csrc/threefry.cu",
+        replaces="none: jax.random's threefry2x32, which XLA fuses",
+        launches=train["counts"][HASH], max_abs_err=0.0, ms=k["ms"],
+        plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+        bound_by=k["bound_by"], library_ms=None))
     stamp("timings and probes")
     print(f"[timer] time_ms: {TIMER['runs']} checked runs, "
           f"{TIMER['retried']} repeated because the card's hold ended before "
@@ -5190,6 +5355,7 @@ def run_phases(args, card, stamp, clock, t_start, ck_root):
                            env_only_image={k: env_img[k] for k in (
                                "env_steps_per_s", "seconds", "counts")},
                            profile=prof, graphs=graphs, timings=tim,
+                           threefry=tim_hash,
                            host_shape_timings=tim_host, rounding=rounding,
                            vector=vector, host_api=host_api,
                            shard_map=shard, shard_map_ranks=shard_ranks,

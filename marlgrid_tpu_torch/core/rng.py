@@ -10,8 +10,11 @@ bits, ``randint``, ``uniform``, ``permutation``, ``gumbel`` (low mode) and
 
 A key is an int64 tensor ``(..., 2)`` holding two uint32 values; every
 function takes a batch of keys and draws for each one (the JAX package
-vmaps instead). torch has no CPU add, shift or compare for uint32, so all
-arithmetic runs in int64 and is masked back to 32 bits, on both devices.
+vmaps instead). The hash itself is ``ops/threefry.py``: every sampler goes
+through :func:`split`, :func:`fold_in` or :func:`random_bits`, and each of
+those is one call of its wrapper, one kernel launch on the card. torch has
+no CPU add, shift or compare for uint32, so the arithmetic around the hash
+runs in int64 and is masked back to 32 bits, on both devices.
 """
 from __future__ import annotations
 
@@ -21,9 +24,9 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..ops import threefry
+from ..ops.threefry import MASK32
 
-MASK32 = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _F32_TINY = float(np.finfo(np.float32).tiny)
 
 
@@ -34,40 +37,15 @@ def PRNGKey(seed: int, device="cuda") -> torch.Tensor:
     return torch.tensor([0, seed], dtype=torch.int64, device=resolve(device))
 
 
-def threefry2x32(k1, k2, x0, x1):
-    """The Threefry-2x32 hash (20 rounds) of count pairs (x0, x1) under key
-    (k1, k2); all int64 tensors of uint32 values, broadcast together."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x0 = (x0 + ks[0]) & MASK32
-    x1 = (x1 + ks[1]) & MASK32
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0 = (x0 + x1) & MASK32
-            x1 = (((x1 << r) | (x1 >> (32 - r))) & MASK32) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
-        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & MASK32
-    return x0, x1
-
-
-def _counts(n: int, device):
-    """(hi, lo) uint32 halves of the flat iota 0..n-1 (``iota_2x32_shape``)."""
-    idx = torch.arange(n, dtype=torch.int64, device=device)
-    return idx >> 32, idx & MASK32
-
-
 def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split`` of each key: ``(..., 2) -> (..., num, 2)``."""
-    hi, lo = _counts(num, keys.device)
-    b1, b2 = threefry2x32(keys[..., 0:1], keys[..., 1:2], hi, lo)
-    return torch.stack([b1, b2], dim=-1)
+    return threefry.threefry2x32(threefry.split_draw(keys, num))
 
 
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in``: ``data`` (int or int tensor broadcast against
     the key batch) hashed into each key."""
-    data = data.long() & MASK32 if torch.is_tensor(data) else data & MASK32
-    b1, b2 = threefry2x32(keys[..., 0], keys[..., 1], 0, data)
-    return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
+    return threefry.threefry2x32(threefry.fold_in_draw(keys, data))
 
 
 #: (shape, part, device) -> the (hi, lo) counts of a part of a draw and the
@@ -79,7 +57,7 @@ def part_counts(shape, part, device):
     """``(hi, lo, part_shape)``: the flat indices of the elements of a draw
     of the global ``shape`` that lie in ``part = (axis, start, stop)``
     (``start <= i < stop`` along ``axis``), split into uint32 halves as
-    ``_counts`` splits the whole iota, flattened; and that part's shape.
+    a draw's iota is split, flattened; and that part's shape.
     In partitionable threefry element i of a draw is the hash of its flat
     index i alone, so the hash of these indices is the part of the global
     draw. Cached per (shape, part, device)."""
@@ -106,11 +84,11 @@ def random_bits(keys: torch.Tensor, shape, part=None) -> torch.Tensor:
     whole draw."""
     shape = tuple(shape)
     if part is None:
-        hi, lo = _counts(math.prod(shape), keys.device)
+        counts = math.prod(shape)
     else:
         hi, lo, shape = part_counts(shape, part, keys.device)
-    b1, b2 = threefry2x32(keys[..., 0:1], keys[..., 1:2], hi, lo)
-    return (b1 ^ b2).reshape(keys.shape[:-1] + shape)
+        counts = (hi, lo)
+    return threefry.threefry2x32(threefry.bits_draw(keys, counts, shape))
 
 
 def randint(keys: torch.Tensor, shape, minval, maxval) -> torch.Tensor:

@@ -7,7 +7,7 @@ def kernel_wrappers():
     """Name -> wrapper of every kernel of the port (the probe K6 included);
     each wrapper counts its launches in ``.launches``."""
     from ..probes import embed_roofline
-    from . import embed, embed2, sprite, transpose
+    from . import embed, embed2, sprite, threefry, transpose
 
     return {"transpose_bk": transpose.transpose_bk,
             "onehot_embed_fwd": embed.onehot_embed,
@@ -16,4 +16,5 @@ def kernel_wrappers():
             "onehot_embed2_fwd": embed2.onehot_embed2,
             "onehot_embed2_bwd": embed2.onehot_embed2_bwd,
             "transpose_traj": transpose.transpose_traj,
-            "embed_variant": embed_roofline.fwd_variant}
+            "embed_variant": embed_roofline.fwd_variant,
+            "threefry2x32": threefry.threefry2x32}
