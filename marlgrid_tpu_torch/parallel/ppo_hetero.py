@@ -38,6 +38,7 @@ global batch together, as ``ppo.make_train_step(mesh=...)`` does.
 """
 from __future__ import annotations
 
+import contextlib
 import warnings
 
 import torch
@@ -91,8 +92,18 @@ def init_state_hetero(env_params: EnvParams, cfg: PPOConfig, generator=None,
     return nets, make_optimizer(nets, cfg)
 
 
+def styled(parent, gp: EnvParams):
+    """The stage of a group's work under ``parent``: ``<parent>.encode``
+    for codes, ``<parent>.pixels`` for image and rich views; no stage where
+    ``parent`` is None."""
+    if parent is None:
+        return contextlib.nullcontext()
+    return stage(f"{parent}.encode" if gp.observation_style == "encode"
+                 else f"{parent}.pixels")
+
+
 def group_obs(env_params: EnvParams, groups, torsos, state,
-              pixels_only=False):
+              pixels_only=False, span=None):
     """The policies' inputs, one ``(x, aux)`` per group, from one painted
     board (with the prestige levels when a group renders pixels): encode
     groups' feature-major codes (n_g, F_g, B) uint8, the pixel groups'
@@ -100,7 +111,9 @@ def group_obs(env_params: EnvParams, groups, torsos, state,
     'rich' features (n_g, B, d) or None. Each group renders only its own
     observers; B comes from the state. ``pixels_only``: None in place of
     every encode group's input (the update re-renders the pixel groups
-    only)."""
+    only). ``span``: each group renders in the stage ``<span>.encode`` or
+    ``<span>.pixels`` (:func:`styled`); the shared board is painted
+    outside them."""
     B = state.batch_size
     pixels = any(gp.observation_style != "encode" for _, gp in groups)
     packed = obs_mod.pack_grid_with_agents(env_params, state,
@@ -109,21 +122,23 @@ def group_obs(env_params: EnvParams, groups, torsos, state,
     for (idxs, gp), torso in zip(groups, torsos):
         if gp.observation_style == "encode" and pixels_only:
             out.append(None)
-        elif gp.observation_style == "encode":
-            bm = obs_mod.all_obs_encode_b(gp, state, bminor=True,
-                                          observers=idxs, packed=packed)
-            out.append((bm.permute(1, 0, 2, 3, 4).reshape(
-                len(idxs), -1, B).to(torch.uint8), None))
-        else:
-            pov = obs_mod.all_obs_image_b(gp, state, bminor=True,
-                                          s2d=torso == "cnn_s2d",
-                                          observers=idxs, packed=packed)
-            aux = (rich_aux(gp, state) if gp.observation_style == "rich"
-                   else None)
-            if aux is not None:
-                cols = const(idxs, torch.int64, aux.device)
-                aux = aux[:, cols].permute(1, 0, 2)
-            out.append((pov, aux))
+            continue
+        with styled(span, gp):
+            if gp.observation_style == "encode":
+                bm = obs_mod.all_obs_encode_b(gp, state, bminor=True,
+                                              observers=idxs, packed=packed)
+                out.append((bm.permute(1, 0, 2, 3, 4).reshape(
+                    len(idxs), -1, B).to(torch.uint8), None))
+            else:
+                pov = obs_mod.all_obs_image_b(gp, state, bminor=True,
+                                              s2d=torso == "cnn_s2d",
+                                              observers=idxs, packed=packed)
+                aux = (rich_aux(gp, state)
+                       if gp.observation_style == "rich" else None)
+                if aux is not None:
+                    cols = const(idxs, torch.int64, aux.device)
+                    aux = aux[:, cols].permute(1, 0, 2)
+                out.append((pov, aux))
     return out
 
 
@@ -200,7 +215,10 @@ def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
     ``done``/``ep_*`` (T, B); with ``store_states``, ``state``, the pre-step
     EnvStates with (T, B, ...) leaves, which the update re-renders.
     ``last_value`` is (N, B). The stages run under the homogeneous
-    rollout's stage spans (``ppo.make_rollout``).
+    rollout's stage spans (``ppo.make_rollout``); inside ``rollout.obs``
+    and ``rollout.policy`` each group's render and forward run in a child
+    stage named for its style, ``.encode`` or ``.pixels`` (:func:`styled`;
+    the shared board is painted in ``rollout.obs`` itself).
 
     ``mesh``: on this rank's B = n_envs / D envs (and its slice of the
     carry), this rank's rows of the unsharded rollout of the global batch,
@@ -230,18 +248,21 @@ def make_rollout_hetero(env_params: EnvParams, cfg: PPOConfig, nets,
 
     def obs_of(state):
         with stage("rollout.obs"):
-            return group_obs(env_params, groups, torsos, state)
+            return group_obs(env_params, groups, torsos, state,
+                             span="rollout.obs")
 
     def policy(obs, h):
-        """(logits, values, new carries) per group."""
+        """(logits, values, new carries) per group, each group's forward in
+        ``rollout.policy.<style>``."""
         with stage("rollout.policy"):
-            if h is None:
-                outs = [net(x, aux) for net, (x, aux) in zip(nets, obs)]
-                return [o[0] for o in outs], [o[1] for o in outs], None
-            outs = [net(x, h[g], aux)
-                    for g, (net, (x, aux)) in enumerate(zip(nets, obs))]
+            outs = []
+            for g, (net, (x, aux)) in enumerate(zip(nets, obs)):
+                with styled("rollout.policy", groups[g][1]):
+                    outs.append(net(x, aux) if h is None
+                                else net(x, h[g], aux))
             return ([o[0] for o in outs], [o[1] for o in outs],
-                    {g: o[2] for g, o in enumerate(outs)})
+                    None if h is None
+                    else {g: o[2] for g, o in enumerate(outs)})
 
     @torch.no_grad()
     @stage("rollout")

@@ -43,7 +43,7 @@ from .mesh import Mesh, gather_env
 from .ppo import (PPOConfig, Share, aux_dim, episode_metrics, make_optimizer,
                   run_epochs, shuffled_blocks, state_block_size, step_labels)
 from .ppo_hetero import (_LABELS, graphed, group_loss, group_obs, label_rows,
-                         make_rollout_hetero, warn_dropped)
+                         make_rollout_hetero, styled, warn_dropped)
 
 
 def mixed_groups(env_params: EnvParams):
@@ -121,7 +121,11 @@ def make_update_hetero_mixed(env_params: EnvParams, cfg: PPOConfig, nets,
     the pixel groups' on a re-render of their observers from the
     minibatch's S = mb * c states (one board painted with the levels; K1
     and K3 once per pixel group), labels aligned to the render's (n_g, S)
-    order, and ``ppo_hetero.group_loss``.
+    order, and ``ppo_hetero.group_loss``. Each group's forward runs in the
+    stage ``update.forward.encode`` or ``update.forward.pixels``
+    (``ppo_hetero.styled``); the union's loss in ``update.forward`` itself.
+    The backward is not split by style: autograd runs it as one call for
+    every group, in ``update.backward``.
 
     ``mesh``: the unsharded update of the global batch, as
     ``ppo.make_update``'s mesh path: the labels, the encode groups' codes
@@ -193,21 +197,23 @@ def make_update_hetero_mixed(env_params: EnvParams, cfg: PPOConfig, nets,
         parts = []
         with stage("update.forward"):
             for g, net in enumerate(nets):
-                if groups[g][1].observation_style == "encode":
-                    # stored codes (mb, n_g, F_g, c): logits (mb, n_g, c, A)
-                    logits, value = net(batch["obs", g])
-                    lab = {k: batch[k, g] for k in _LABELS}
-                    if share is not None:
-                        lab["w"] = share.w[:, None, None]
-                else:
-                    # the re-render's (n_g, S, ...): labels (mb, n_g, c)
-                    # to its (n_g, S) order
-                    logits, value = net(*obs[g])
-                    n_g = len(groups[g][0])
-                    lab = {k: batch[k, g].transpose(0, 1).reshape(n_g, -1)
-                           for k in _LABELS}
-                    if share is not None:
-                        lab["w"] = share.w.repeat_interleave(c)
+                with styled("update.forward", groups[g][1]):
+                    if groups[g][1].observation_style == "encode":
+                        # stored codes (mb, n_g, F_g, c): logits (mb, n_g,
+                        # c, A)
+                        logits, value = net(batch["obs", g])
+                        lab = {k: batch[k, g] for k in _LABELS}
+                        if share is not None:
+                            lab["w"] = share.w[:, None, None]
+                    else:
+                        # the re-render's (n_g, S, ...): labels (mb, n_g,
+                        # c) to its (n_g, S) order
+                        logits, value = net(*obs[g])
+                        n_g = len(groups[g][0])
+                        lab = {k: batch[k, g].transpose(0, 1).reshape(
+                            n_g, -1) for k in _LABELS}
+                        if share is not None:
+                            lab["w"] = share.w.repeat_interleave(c)
                 parts.append((logits, value, lab))
             return group_loss(parts, cfg, mesh, count)
 
